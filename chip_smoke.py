@@ -10,14 +10,20 @@ It builds the port's CUDA kernels from ``deeplabv3plus_keras_tpu_torch/csrc``,
 then
 
 1. holds every kernel against its plain PyTorch version at every site shape
-   the serving path gives it (TF32 off), and times kernel, plain version and
-   the nearest PyTorch library call with CUDA events;
+   the serving and training paths give it (TF32 off), and times kernel,
+   plain version and the nearest PyTorch library call with CUDA events;
 2. serves the flagship model (MobileNetV2, output stride 16, boundary
    refinement, 21 classes, 512², float32, random weights from a seed) through
    ``SemanticSegmentation(conf, device="cuda").segment()`` on 4 batches of 16,
    checks the labels, the kernels' launch counts per call, and one image
    against the same weights served on the CPU, and reports images/s;
-3. prints one JSON line of kernel results, the card's name and power limit,
+3. trains the same model through ``SemanticSegmentation.train_step()`` for 6
+   steps of 16 × 512² (Keras Adam, class-balanced loss + L2, BN in training
+   mode, dropout 0.5), checks the loss, every parameter's gradient and the
+   kernels' launch counts per step, and reports the step time, images/s and
+   peak device memory; then one step at 2 × 128² on the card and on the CPU
+   from the same weights, whose losses and gradients must agree;
+4. prints one JSON line of kernel results, the card's name and power limit,
    and as its last line ``{"ok": true, "device": {...}}``.
 
 Any failed check exits non-zero.  Long outputs (the per-site table, the
@@ -27,6 +33,7 @@ profile) go to ``chiprun_out/``.  It imports nothing of JAX.
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -37,19 +44,24 @@ MEM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 (NVIDIA data sheet)
 FP32_FLOP_PER_S = 67e12     # H100 SXM float32 outside the tensor cores
 BATCH, SIZE, CLASSES = 16, 512, 21
 OUT = Path("chiprun_out")
+TRAIN_STEPS = 6
 TPU_SOURCES = {
     "depthwise_fwd_s1": "deeplabv3plus_keras_tpu/kernels/depthwise3.py:318",
     "depthwise_fwd_s2": "deeplabv3plus_keras_tpu/kernels/depthwise3.py:684",
-    "upsample_argmax": "deeplabv3plus_keras_tpu/kernels/upsample_argmax.py:88",
+    "depthwise_bwd_s1": "deeplabv3plus_keras_tpu/kernels/depthwise3.py:422",
+    "depthwise_bwd_s2": "deeplabv3plus_keras_tpu/kernels/depthwise3.py:798",
+    "upsample_argmax": "deeplabv3plus_keras_tpu/kernels/upsample_argmax.py:89",
 }
 SOURCES = {
     "depthwise_fwd_s1": "deeplabv3plus_keras_tpu_torch/csrc/depthwise_fwd.cu",
     "depthwise_fwd_s2": "deeplabv3plus_keras_tpu_torch/csrc/depthwise_fwd.cu",
+    "depthwise_bwd_s1": "deeplabv3plus_keras_tpu_torch/csrc/depthwise_bwd.cu",
+    "depthwise_bwd_s2": "deeplabv3plus_keras_tpu_torch/csrc/depthwise_bwd.cu",
     "upsample_argmax": "deeplabv3plus_keras_tpu_torch/csrc/upsample_argmax.cu",
 }
 
 
-def flagship_conf(image_size: int = SIZE) -> dict:
+def flagship_conf(image_size: int = SIZE, batch: int = BATCH) -> dict:
     """The JAX package's benchmarked configuration (its ``__graft_entry__``
     flagship): MobileNetV2 + boundary refinement, the reference's five
     split-separable dilated ASPP branches."""
@@ -57,7 +69,7 @@ def flagship_conf(image_size: int = SIZE) -> dict:
     inputs = [-1, 0, 1, 0, 0]
     return {
         "base_model": "mobilenetv2",
-        "hps": {"dtype": "float32", "batch_size": BATCH},
+        "hps": {"dtype": "float32", "batch_size": batch},
         "nn_arch": {
             "boundary_refinement": True,
             "output_stride": 16,
@@ -126,7 +138,7 @@ def calibrate_bn(model, images) -> None:
         m.momentum = 0.0
     model.train()
     with torch.no_grad():
-        model(images)
+        model(images, generator=torch.Generator(device=images.device).manual_seed(0))
     model.eval()
     for m, mom in zip(bns, saved):
         m.momentum = mom
@@ -153,6 +165,16 @@ def depthwise_sites(model, images):
         for h in hooks:
             h.remove()
     return sites
+
+
+def _add_site(agg: dict, row: dict, mult: int) -> None:
+    """Add one site's times, ``mult`` times (its calls per pass), to its
+    kernel's sums."""
+    a = agg.setdefault(row["kernel"], dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
+                                           max_abs_err=0.0, bound_by=row["bound_by"]))
+    for f in ("ms", "plain_ms", "library_ms", "bound_ms"):
+        a[f] += mult * row[f]
+    a["max_abs_err"] = max(a["max_abs_err"], row["max_abs_err"])
 
 
 def check_depthwise(sites, g, rows):
@@ -195,11 +217,7 @@ def check_depthwise(sites, g, rows):
         print(json.dumps({"site": row}))
         if not ok:
             raise SystemExit(f"depthwise kernel disagrees with plain at {row}")
-        a = agg.setdefault(row["kernel"], dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
-                                               max_abs_err=0.0, bound_by=b_by))
-        for f in ("ms", "plain_ms", "library_ms", "bound_ms"):
-            a[f] += mult * row[f]
-        a["max_abs_err"] = max(a["max_abs_err"], err)
+        _add_site(agg, row, mult)
     # bfloat16 (not on the float32 serving path): one site, fp32 accumulate
     x = torch.randn(4, 96, 64, 64, device="cuda", generator=g).to(torch.bfloat16)
     x = x.contiguous(memory_format=torch.channels_last)
@@ -210,6 +228,85 @@ def check_depthwise(sites, g, rows):
         if not err <= 1e-2 * ref.float().abs().max().item():
             raise SystemExit(f"bfloat16 depthwise stride {s} disagrees: {err}")
     print(json.dumps({"bf16_depthwise_check": "ok"}))
+    return agg
+
+
+def check_depthwise_backward(sites, g, rows):
+    """K4/K5 (dx and dk) vs the plain backward at each distinct site of a
+    training step; returns per-kernel sums over one step's sites."""
+    import torch
+
+    from deeplabv3plus_keras_tpu_torch.kernels import (
+        depthwise_conv_backward,
+        depthwise_conv_backward_plain,
+        same_pads,
+    )
+
+    cl = torch.channels_last
+    distinct = {}
+    for shape, stride, dil, mod in sites:
+        key = (shape, stride, dil, tuple(mod.weight.shape))
+        distinct.setdefault(key, [mod, 0])[1] += 1
+    agg = {}
+    for (shape, stride, dil, _), (mod, mult) in distinct.items():
+        B, C, H, W = shape
+        w = mod.weight.detach()
+        k = w.shape[-1]
+        Ho, pt, pb = same_pads(H, k, stride, dil[0])
+        Wo, pl, pr = same_pads(W, k, stride, dil[1])
+        x = torch.randn(shape, device="cuda", generator=g).contiguous(memory_format=cl)
+        gout = torch.randn((B, C, Ho, Wo), device="cuda", generator=g).contiguous(memory_format=cl)
+        dx, dk = depthwise_conv_backward(x, w, gout, stride, dil)
+        rdx, rdk = depthwise_conv_backward_plain(x, w, gout, stride, dil)
+        _, dk_abs = depthwise_conv_backward_plain(x.abs(), w, gout.abs(), stride, dil)
+        torch.cuda.synchronize()
+        dx_err = (dx - rdx).abs().max().item()
+        dx_scale = rdx.abs().max().item()
+        dk_err = (dk - rdk).abs().max().item()
+        # dk: 1e-4 of Σ|x·g| per tap and channel, the float32 sum's scale
+        dk_ok = bool(((dk - rdk).abs() <= 1e-4 * dk_abs).all())
+        ok = dx_err <= 1e-5 * dx_scale and dk_ok
+        if pt == pb and pl == pr:  # cuDNN pads symmetrically itself
+            lib_x, lib_pad = x, [pt, pl]
+        else:  # stride 2, TF SAME (0, 1): pad once, outside the timed call
+            lib_x, lib_pad = torch.nn.functional.pad(x, (pl, pr, pt, pb)), [0, 0]
+        lib = lambda: torch.ops.aten.convolution_backward(  # noqa: E731
+            gout, lib_x, w, None, [stride, stride], lib_pad, list(dil), False, [0, 0], C,
+            [True, True, False])
+        name = f"depthwise_bwd_s{stride}"
+        row = {
+            "kernel": name, "shape_nchw": list(shape), "k": k, "stride": stride,
+            "dilation": list(dil), "per_step": mult, "max_abs_err": max(dx_err, dk_err),
+            "dx_max_abs_err": dx_err, "dx_max_abs_ref": dx_scale, "dk_max_abs_err": dk_err,
+            "dk_max_abs_ref": rdk.abs().max().item(), "ok": ok,
+            "ms": cuda_ms(lambda: depthwise_conv_backward(x, w, gout, stride, dil)),
+            "plain_ms": cuda_ms(lambda: depthwise_conv_backward_plain(x, w, gout, stride, dil)),
+            "library_ms": cuda_ms(lib),
+        }
+        # x and g read once, dx written once; k² multiply-adds per output
+        # element for dx and again for dk
+        b_ms, b_by = bound((x.numel() + gout.numel() + dx.numel()) * 4 + 2 * w.numel() * 4,
+                           4 * k * k * gout.numel())
+        row.update(bound_ms=b_ms, bound_by=b_by)
+        rows.append(row)
+        print(json.dumps({"site": row}))
+        if not ok:
+            raise SystemExit(f"depthwise backward kernel disagrees with plain at {row}")
+        _add_site(agg, row, mult)
+    # bfloat16 (not on the float32 training path): one site, fp32 accumulate
+    x = torch.randn(4, 96, 64, 64, device="cuda", generator=g).to(torch.bfloat16).contiguous(memory_format=cl)
+    w = torch.randn(96, 1, 3, 3, device="cuda", generator=g)
+    for s in (1, 2):
+        gout = torch.randn(4, 96, 64 // s, 64 // s, device="cuda", generator=g).to(torch.bfloat16)
+        gout = gout.contiguous(memory_format=cl)
+        dx, dk = depthwise_conv_backward(x, w, gout, s)
+        wr = w.bfloat16().double()  # the taps the kernel uses for dx
+        rdx, rdk = depthwise_conv_backward_plain(x.double(), wr, gout.double(), s)
+        _, dk_abs = depthwise_conv_backward_plain(x.double().abs(), wr, gout.double().abs(), s)
+        if not ((dx.double() - rdx).abs().max() <= 1e-2 * rdx.abs().max()
+                and ((dk.double() - rdk).abs() <= 1e-4 * dk_abs).all()):
+            raise SystemExit(f"bfloat16 depthwise backward stride {s} disagrees")
+    print(json.dumps({"bf16_depthwise_backward_check": "ok"}))
     return agg
 
 
@@ -255,6 +352,170 @@ def check_upsample_argmax(shape, scale, g, rows):
     if not row["ok"]:
         raise SystemExit(f"upsample_argmax disagrees with plain: {row}")
     return {k: row[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "max_abs_err")}
+
+
+def train_batches(n: int, batch: int, size: int, device: str, seed: int) -> list[dict]:
+    """Random images in (−1, 1) and one-hot labels (the reference's label
+    layout), made on ``device`` from a seed."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    out = []
+    for _ in range(n):
+        image = torch.rand(batch, size, size, 3, device=device, generator=gen) * 2 - 1
+        label = torch.randint(0, CLASSES, (batch, size, size), device=device, generator=gen)
+        out.append({"image": image,
+                    "label": torch.nn.functional.one_hot(label, CLASSES).float(),
+                    "valid": torch.ones(batch, dtype=torch.int32, device=device)})
+    return out
+
+
+def run_training(seg, kernels, card: str, sites_per_forward) -> dict:
+    """The training path: ``TRAIN_STEPS`` steps of ``seg.train_step`` with
+    TF32 off; checks the loss, the gradients and the launches of every
+    step.  Returns the launch counts of those steps."""
+    import torch
+
+    n_s1, n_s2 = sites_per_forward
+    expect = {"depthwise_fwd_s1": n_s1, "depthwise_fwd_s2": n_s2, "upsample_argmax": 0,
+              "depthwise_bwd_s1": n_s1, "depthwise_bwd_s2": n_s2}
+    batches = train_batches(TRAIN_STEPS, BATCH, SIZE, "cuda", seed=1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    times, losses = [], []
+    for i, batch in enumerate(batches):
+        before = kernels.launch_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = seg.train_step(batch)
+        loss = out["loss"].item()  # waits for the step
+        times.append(time.perf_counter() - t)
+        losses.append(loss)
+        after = kernels.launch_counts()
+        delta = {k: after[k] - before[k] for k in after}
+        if delta != expect:
+            raise SystemExit(f"train_step {i}: launches {delta}, expected {expect}")
+        if not math.isfinite(loss) or int(out["cm"].sum()) != BATCH * SIZE * SIZE:
+            raise SystemExit(f"train_step {i}: loss {loss}, cm sum {int(out['cm'].sum())}")
+    launches = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    bad = [n for n, p in seg.model.named_parameters()
+           if p.grad is None or not bool(torch.isfinite(p.grad).all()) or not bool(p.grad.any())]
+    if bad:
+        raise SystemExit(f"parameters without a finite nonzero gradient: {bad[:8]} ({len(bad)})")
+    step_s = statistics.median(times[1:])
+
+    # TF32 on (torch's default for cuDNN convs): throughput only
+    torch.backends.cudnn.allow_tf32 = True
+    tf32_times = []
+    for batch in batches[1:4]:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        seg.train_step(batch)["loss"].item()
+        tf32_times.append(time.perf_counter() - t)
+    torch.backends.cudnn.allow_tf32 = False
+
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        seg.train_step(batches[1])["loss"].item()
+    table = prof.key_averages().table(sort_by="self_device_time_total", row_limit=30)
+    (OUT / "train_profile.txt").write_text(f"{card}\nTF32 off, B={BATCH}, {SIZE}^2, one train_step\n{table}\n")
+    dev = {e.key: e.self_device_time_total for e in prof.key_averages()
+           if str(e.device_type).endswith("CUDA") and e.self_device_time_total > 0}
+    top = sorted(dev.items(), key=lambda kv: -kv[1])[:10]
+    print(json.dumps({"train_step_device_ms": sum(dev.values()) / 1e3,
+                      "top_kernels_ms": [[k[:60], v / 1e3] for k, v in top]}))
+    print(json.dumps({"train_step": {
+        "batch": BATCH, "image": SIZE, "dtype": "float32", "steps": TRAIN_STEPS,
+        "losses": losses, "step_s_tf32_off": times, "median_step_s_2_on": step_s,
+        "img_per_s_tf32_off": BATCH / step_s, "step_s_tf32_on": tf32_times,
+        "img_per_s_tf32_on": BATCH / statistics.median(tf32_times),
+        "max_memory_allocated_gib": peak / 2**30, "launches": launches, "card": card}}))
+    return launches
+
+
+def check_training_against_cpu() -> None:
+    """One train step at 2 × 128² on the card (float32, TF32 off) and on
+    the CPU in float32 and float64, from the same weights and batch
+    (dropout 0: the two devices' generators differ).  The float64 step is
+    the reference; the card's loss agrees with it to 1e-4 relative.
+
+    Gradients: float32 gradients of this net in training mode are sums of
+    nearly cancelling terms (BN removes each channel's mean), so no
+    float32 run meets a tight per-parameter bound: against float64, the
+    CPU's own float32 gradients miss max(3e-3·scale, 5e-7), the JAX
+    package's bound for its Pallas-vs-lax gradients
+    (tests/test_kernels.py:543), on about half of the 159 parameters (this
+    function prints the count).  So the card is held to
+    - all gradients together: a relative 2-norm error against float64 of
+      at most the larger of 3e-3 and 3× the CPU float32's;
+    - each parameter: that bound on its largest error, or a relative
+      2-norm error of at most 0.25 (a kernel that computes the wrong
+      thing gives errors of order 1; float32 noise stays below that);
+    and the counts within the tight bound are printed for the card and
+    the CPU float32."""
+    import numpy as np
+    import torch
+
+    from deeplabv3plus_keras_tpu_torch import SemanticSegmentation
+    from deeplabv3plus_keras_tpu_torch.config import Config
+    from deeplabv3plus_keras_tpu_torch.models import DeepLabV3Plus
+    from deeplabv3plus_keras_tpu_torch.parallel.step import build_train_step, create_train_state
+
+    conf = flagship_conf(128, batch=2)
+    conf["nn_arch"]["dropout_rate"] = 0.0
+    gpu = SemanticSegmentation(conf, device="cuda")
+    cpu = SemanticSegmentation(conf, device="cpu")
+    cpu.model.load_state_dict(gpu.model.state_dict())
+    ref = DeepLabV3Plus(Config.from_dict(conf))
+    ref.load_state_dict(gpu.model.state_dict())
+    ref = ref.double().to(memory_format=torch.channels_last)
+    ref_step = build_train_step(ref, create_train_state(Config.from_dict(conf), ref),
+                                Config.from_dict(conf))
+    rng = np.random.default_rng(5)
+    batch = {"image": rng.uniform(-1, 1, (2, 128, 128, 3)).astype(np.float32),
+             "label": rng.integers(0, CLASSES, (2, 128, 128))}
+    lg = gpu.train_step(batch)["loss"].item()
+    lc = cpu.train_step(batch)["loss"].item()
+    l64 = ref_step({"image": torch.from_numpy(batch["image"]).double(),
+                    "label": torch.from_numpy(batch["label"]),
+                    "valid": torch.ones(2)})["loss"].item()
+    rows, failed = [], []
+    sq = {"card": 0.0, "cpu": 0.0, "ref": 0.0}
+    for (name, pg), pc, pr in zip(gpu.model.named_parameters(), cpu.model.parameters(),
+                                  ref.parameters()):
+        d_card, d_cpu = pg.grad.cpu().double() - pr.grad, pc.grad.double() - pr.grad
+        e_card, e_cpu = d_card.abs().max().item(), d_cpu.abs().max().item()
+        scale = pr.grad.abs().max().item()
+        sq["card"] += d_card.square().sum().item()
+        sq["cpu"] += d_cpu.square().sum().item()
+        sq["ref"] += pr.grad.square().sum().item()
+        rel2 = d_card.norm().item() / max(pr.grad.norm().item(), 1e-30)
+        tight = e_card <= max(3e-3 * scale, 5e-7)
+        rows.append({"param": name, "card_err": e_card, "cpu_f32_err": e_cpu,
+                     "scale": scale, "card_rel_2norm": rel2, "within_3e-3_scale": tight})
+        if not (tight or rel2 <= 0.25):
+            failed.append(rows[-1])
+    (OUT / "train_grads.json").write_text(json.dumps(rows, indent=1))
+    rel = abs(lg - l64) / abs(l64)
+    norm_card, norm_cpu = (math.sqrt(sq[k] / sq["ref"]) for k in ("card", "cpu"))
+    print(json.dumps({"train_step_cpu_agreement": {
+        "batch": 2, "image": 128, "loss_card": lg, "loss_cpu_f32": lc, "loss_cpu_f64": l64,
+        "loss_rel": rel, "params": len(rows),
+        "within_3e-3_scale": sum(r["within_3e-3_scale"] for r in rows),
+        "cpu_f32_within_3e-3_scale": sum(r["cpu_f32_err"] <= max(3e-3 * r["scale"], 5e-7)
+                                         for r in rows),
+        "worst_rel_2norm_outside_3e-3_scale": max(
+            [r["card_rel_2norm"] for r in rows if not r["within_3e-3_scale"]], default=0.0),
+        "grad_rel_2norm_card": norm_card, "grad_rel_2norm_cpu_f32": norm_cpu}}))
+    if failed:
+        raise SystemExit(f"card gradients off the float64 ones: {failed[:4]} ({len(failed)})")
+    if not norm_card <= max(3e-3, 3 * norm_cpu):
+        raise SystemExit(f"card gradients' relative 2-norm error {norm_card} vs CPU float32's {norm_cpu}")
+    if not rel <= 1e-4:
+        raise SystemExit(f"card loss {lg} vs CPU float64 {l64}: rel {rel}")
 
 
 def main() -> int:
@@ -309,10 +570,12 @@ def main() -> int:
     rows = []
     agg = check_depthwise(sites, g, rows)
     agg["upsample_argmax"] = check_upsample_argmax(presample, up, g, rows)
+    agg.update(check_depthwise_backward(sites, g, rows))
     (OUT / "kernel_sites.json").write_text(json.dumps({"card": card, "sites": rows}, indent=1))
 
     # ---- the main path: segment() on 4 batches of 16 x 512² ----
-    expect = {"depthwise_fwd_s1": n_s1, "depthwise_fwd_s2": n_s2, "upsample_argmax": 1}
+    expect = {"depthwise_fwd_s1": n_s1, "depthwise_fwd_s2": n_s2, "upsample_argmax": 1,
+              "depthwise_bwd_s1": 0, "depthwise_bwd_s2": 0}
     if (n_s1, n_s2) != (15, 3):
         raise SystemExit(f"expected 15 stride-1 and 3 stride-2 depthwise sites, got {n_s1}, {n_s2}")
     kernels.reset_launch_counts()
@@ -379,12 +642,22 @@ def main() -> int:
     if agree < 0.999:
         raise SystemExit(f"card vs CPU labels agree on {agree:.5f} < 0.999 of pixels")
 
+    # ---- the training path: train_step() on 6 batches of 16 x 512² ----
+    train_launches = run_training(seg, kernels, card, (n_s1, n_s2))
+    check_training_against_cpu()
+
     out = []
-    for name in ("upsample_argmax", "depthwise_fwd_s1", "depthwise_fwd_s2"):
+    for name in ("upsample_argmax", "depthwise_fwd_s1", "depthwise_fwd_s2",
+                 "depthwise_bwd_s1", "depthwise_bwd_s2"):
         a = agg[name]
+        # each kernel's launches on its own path: serving for K1-K3,
+        # training for K4/K5 (K2/K3 run there too)
+        by_path = {"segment": launches[name], "train_step": train_launches[name]}
         out.append({
             "name": name, "route": "cuda", "source": SOURCES[name], "replaces": TPU_SOURCES[name],
-            "status": "ported", "launches": launches[name], "max_abs_err": a["max_abs_err"],
+            "status": "ported",
+            "launches": by_path["train_step" if name.startswith("depthwise_bwd") else "segment"],
+            "launches_by_path": by_path, "max_abs_err": a["max_abs_err"],
             "ms": a["ms"], "plain_ms": a["plain_ms"], "bound_ms": a["bound_ms"],
             "bound_by": a["bound_by"], "library_ms": a["library_ms"],
         })

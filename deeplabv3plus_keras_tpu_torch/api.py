@@ -1,9 +1,11 @@
-"""Public facade: JSON-config-driven DeepLabV3+ serving (port of
+"""Public facade: JSON-config-driven DeepLabV3+ (port of
 ``deeplabv3plus_keras_tpu/api.py:71-192, 634-648``).
 
-This slice of the port serves: it builds and initialises the model and
-answers ``segment(images)``.  Training, evaluation, the test loop and model
-export are later slices (ROADMAP.md Queue A).
+It builds and initialises the model, the training state (Keras Adam) and
+the train, eval and label steps, as the JAX facade does, and answers
+``train_step(batch)``, ``eval_step(batch)`` and ``segment(images)``.  The
+epoch loops ``train()``, ``evaluate()`` and ``test()`` need the data
+slice, and model export comes later (ROADMAP.md Queue A).
 """
 
 from __future__ import annotations
@@ -13,7 +15,13 @@ import torch
 
 from .config import Config
 from .models.deeplab import DeepLabV3Plus
-from .parallel.step import build_label_step
+from .parallel.step import (
+    build_eval_step,
+    build_label_step,
+    build_train_step,
+    create_train_state,
+    resolve_class_weights,
+)
 
 _SEED = 1024  # the reference seeds 1024 (semantic_segmentation.py:1797-1802)
 
@@ -47,7 +55,26 @@ class SemanticSegmentation:
         self.model = DeepLabV3Plus(self.conf)
         self.model.init_weights(torch.Generator().manual_seed(_SEED))
         self.model.to(self.device, memory_format=torch.channels_last).eval()
+        self.optimizer = create_train_state(self.conf, self.model)
+        # extra key 'class_weights_npz': the loss's class-balance weights
+        cw = resolve_class_weights(self.conf)
+        self._train_step = build_train_step(self.model, self.optimizer, self.conf,
+                                            class_weights=cw, seed=_SEED)
+        self._eval_step = build_eval_step(self.model, self.conf, class_weights=cw,
+                                          with_probs=False)
         self._label_step = build_label_step(self.model)
+
+    def train_step(self, batch: dict) -> dict:
+        """One Keras-Adam step on ``batch`` (``image`` (B,S,S,3), ``label``
+        one-hot (B,S,S,C) or int (B,S,S), optional ``valid`` (B,)), BN in
+        training mode.  Returns ``{"loss", "cm"}`` as device tensors, so a
+        loop of steps does not wait on each one."""
+        return self._train_step(self._batch(batch))
+
+    def eval_step(self, batch: dict) -> dict:
+        """Validation loss (+ L2) and confusion matrix of ``batch``, BN on
+        running statistics."""
+        return self._eval_step(self._batch(batch))
 
     def segment(self, images) -> np.ndarray:
         """Programmatic batch inference: images (B,S,S,3) in (−1,1) →
@@ -60,3 +87,14 @@ class SemanticSegmentation:
         if x.dim() != 4 or x.shape[-1] != 3:
             raise ValueError(f"images must be (B, S, S, 3), got {tuple(x.shape)}")
         return x
+
+    def _batch(self, batch: dict) -> dict:
+        image = self._images(batch["image"])
+        label = torch.as_tensor(batch["label"], device=self.device)
+        if label.shape[:3] != image.shape[:3]:
+            raise ValueError(f"label {tuple(label.shape)} does not match images {tuple(image.shape)}")
+        valid = batch.get("valid")
+        if valid is None:
+            valid = torch.ones(image.shape[0], dtype=torch.int32, device=self.device)
+        return {"image": image, "label": label,
+                "valid": torch.as_tensor(valid, device=self.device)}

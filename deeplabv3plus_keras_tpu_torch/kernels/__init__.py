@@ -6,7 +6,13 @@ by :mod:`._build` on its first launch.
 
 from . import depthwise as _depthwise
 from . import upsample_argmax as _upsample_argmax
-from .depthwise import depthwise_conv, depthwise_conv_plain, same_pads
+from .depthwise import (
+    depthwise_conv,
+    depthwise_conv_backward,
+    depthwise_conv_backward_plain,
+    depthwise_conv_plain,
+    same_pads,
+)
 from .upsample_argmax import upsample_argmax, upsample_argmax_plain
 
 _COUNTERS = (_depthwise.launches, _upsample_argmax.launches)
@@ -25,6 +31,8 @@ def reset_launch_counts() -> None:
 
 __all__ = [
     "depthwise_conv",
+    "depthwise_conv_backward",
+    "depthwise_conv_backward_plain",
     "depthwise_conv_plain",
     "launch_counts",
     "reset_launch_counts",

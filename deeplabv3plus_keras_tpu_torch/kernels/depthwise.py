@@ -1,18 +1,25 @@
-"""Depthwise k×k convolution forward with TF ``SAME`` padding, NHWC memory.
+"""Depthwise k×k convolution with TF ``SAME`` padding, NHWC memory,
+forward and backward.
 
 Port of the Pallas TPU depthwise stencils of
 ``deeplabv3plus_keras_tpu/kernels/depthwise3.py``:
 
-- stride 1, any dilation: ``_dw_fwd_nhwc`` (:318, body
+- forward, stride 1, any dilation: ``_dw_fwd_nhwc`` (:318, body
   ``_fwd_kernel_nhwc`` :267);
-- stride 2: ``_dw_fwd_s2`` (:684, body :630, geometry ``_s2_geometry``
-  :565), which the TPU computes over four parity planes;
+- forward, stride 2: ``_dw_fwd_s2`` (:684, body :630, geometry
+  ``_s2_geometry`` :565), which the TPU computes over four parity planes;
+- backward, stride 1: ``_dw_bwd_nhwc`` (:422, body :346, VJP ``_vjp_bwd``
+  :499-518);
+- backward, stride 2: ``_dw_bwd_s2`` (:798, body :719, VJP
+  ``_vjp_bwd_s2`` :884-895);
 - the dispatcher ``depthwise_conv`` (:1257).
 
-On the card both are one hand-written CUDA kernel,
-``csrc/depthwise_fwd.cu``, templated on the stride: one thread per output
-element, channel fastest, every tap bounds-checked.  Its bound is memory:
-the input read once and the output written once (see the source's note).
+On the card the forward is one hand-written CUDA kernel,
+``csrc/depthwise_fwd.cu``, and the backward another,
+``csrc/depthwise_bwd.cu`` (dx, and dk as a deterministic two-pass
+reduction), both templated on the stride and joined by a
+``torch.autograd.Function``.  Both are bound by memory (see the sources'
+notes).
 
 Tensors are torch's NCHW logical shape held in ``channels_last`` memory —
 physically NHWC, the layout the kernel indexes and the one cuDNN's convs
@@ -20,8 +27,9 @@ around it produce — so no permute or copy is made around a launch.
 The weight is torch's grouped-conv layout ``(C, 1, k, k)``.
 
 A CPU tensor takes :func:`depthwise_conv_plain` (``F.pad`` with the TF
-``SAME`` pads, then ``F.conv2d(groups=C)``).  A CUDA tensor launches the
-kernel or raises; nothing falls back.
+``SAME`` pads, then ``F.conv2d(groups=C)``) and its autograd; the plain
+backward is :func:`depthwise_conv_backward_plain`.  A CUDA tensor launches
+the kernels or raises; nothing falls back.
 """
 
 from __future__ import annotations
@@ -30,13 +38,22 @@ import ctypes
 
 import torch
 import torch.nn.functional as F
+from torch.autograd.function import once_differentiable
 
 from . import _build
 
-# Launches of the CUDA kernel, per stride; the wrapper adds one per launch.
-launches = {"depthwise_fwd_s1": 0, "depthwise_fwd_s2": 0}
+# Launches of the CUDA kernels, per direction and stride; each wrapper adds
+# one per launch (a backward launch computes dx, dk or both).
+launches = {
+    "depthwise_fwd_s1": 0, "depthwise_fwd_s2": 0,
+    "depthwise_bwd_s1": 0, "depthwise_bwd_s2": 0,
+}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# dk's first pass aims at this many blocks of 256 threads: 8 on each of
+# the H100's 132 SMs.  A constant, so the row tiles (and with them the
+# order of dk's float sums) depend on the shape alone.
+_DK_CHANNELS, _DK_BLOCKS = 32, 132 * 8
 
 
 def same_pads(n: int, k: int, stride: int, dilation: int) -> tuple[int, int, int]:
@@ -65,17 +82,54 @@ def depthwise_conv_plain(
     )
 
 
-def _launch(x: torch.Tensor, weight: torch.Tensor, stride: int, dilation):
-    B, C, H, W = x.shape
+def depthwise_conv_backward_plain(
+    x: torch.Tensor, weight: torch.Tensor, g: torch.Tensor, stride: int = 1,
+    dilation=(1, 1),
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch backward of :func:`depthwise_conv_plain`: the
+    gradients (dx, dweight) for the output gradient ``g``, as the grouped
+    conv's input and weight gradients on the same ``SAME``-padded input."""
     k = weight.shape[-1]
+    C, H, W = x.shape[1:]
+    dh, dw = int(dilation[0]), int(dilation[1])
+    _, pt, pb = same_pads(H, k, stride, dh)
+    _, pl, pr = same_pads(W, k, stride, dw)
+    xp = F.pad(x, (pl, pr, pt, pb))
+    w = weight.to(x.dtype)
+    g = g.to(x.dtype)
+    dxp = torch.nn.grad.conv2d_input(xp.shape, w, g, stride, 0, (dh, dw), C)
+    dweight = torch.nn.grad.conv2d_weight(xp, w.shape, g, stride, 0, (dh, dw), C)
+    return dxp[:, :, pt:pt + H, pl:pl + W], dweight.to(weight.dtype)
+
+
+def _geometry(x: torch.Tensor, k: int, stride: int, dilation):
+    """(B, C, H, W, Ho, Wo, dh, dw, pad top, pad left), checked against
+    the kernels' 32-bit indexing and grid limits."""
+    B, C, H, W = x.shape
     dh, dw = int(dilation[0]), int(dilation[1])
     Ho, pt, _ = same_pads(H, k, stride, dh)
     Wo, pl, _ = same_pads(W, k, stride, dw)
-    if max(x.numel(), B * C * Ho * Wo) >= 2**31 or Ho > 65535 or B > 65535:
+    if max(x.numel(), B * C * Ho * Wo) >= 2**31 or max(H, Ho, B) > 65535:
         raise ValueError(f"depthwise_conv: shape {tuple(x.shape)} too large for the kernel's grid")
-    # (C, 1, k, k) → (k*k, C) float32 tap table, tap t = ky*k + kx; taps
-    # are rounded to x's dtype first, as the plain version's conv sees them
-    taps = weight.detach().to(x.dtype).reshape(C, k * k).t().float().contiguous()
+    return B, C, H, W, Ho, Wo, dh, dw, pt, pl
+
+
+def _taps(weight: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """(C, 1, k, k) → (k*k, C) float32 tap table, tap t = ky*k + kx; taps
+    are rounded to the activations' dtype first, as the plain version's
+    conv sees them."""
+    C, k = weight.shape[0], weight.shape[-1]
+    return weight.detach().to(dtype).reshape(C, k * k).t().float().contiguous()
+
+
+def _stream(x: torch.Tensor) -> int:
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
+def _launch(x: torch.Tensor, weight: torch.Tensor, stride: int, dilation):
+    k = weight.shape[-1]
+    B, C, H, W, Ho, Wo, dh, dw, pt, pl = _geometry(x, k, stride, dilation)
+    taps = _taps(weight, x.dtype)
     y = torch.empty(
         (B, C, Ho, Wo), dtype=x.dtype, device=x.device,
         memory_format=torch.channels_last,
@@ -87,8 +141,7 @@ def _launch(x: torch.Tensor, weight: torch.Tensor, stride: int, dilation):
     with torch.cuda.device(x.device):
         rc = fn(
             x.data_ptr(), taps.data_ptr(), y.data_ptr(), _DTYPE_CODE[x.dtype],
-            B, H, W, C, Ho, Wo, k, stride, dh, dw, pt, pl,
-            torch.cuda.current_stream(x.device).cuda_stream,
+            B, H, W, C, Ho, Wo, k, stride, dh, dw, pt, pl, _stream(x),
         )
     if rc != 0:
         raise RuntimeError(f"depthwise_fwd launch failed: CUDA error {rc}")
@@ -96,14 +149,71 @@ def _launch(x: torch.Tensor, weight: torch.Tensor, stride: int, dilation):
     return y
 
 
-def depthwise_conv(
-    x: torch.Tensor, weight: torch.Tensor, stride: int = 1, dilation=(1, 1)
-) -> torch.Tensor:
-    """Depthwise conv, TF ``SAME`` padding.
+def _launch_backward(x, weight, g, stride: int, dilation, want_dx: bool, want_dk: bool):
+    """(dx or None, dweight or None) from the CUDA backward kernel."""
+    k = weight.shape[-1]
+    B, C, H, W, Ho, Wo, dh, dw, pt, pl = _geometry(x, k, stride, dilation)
+    if tuple(g.shape) != (B, C, Ho, Wo) or g.dtype != x.dtype:
+        raise ValueError(f"depthwise_conv backward: g {tuple(g.shape)} {g.dtype} for x {tuple(x.shape)} {x.dtype}")
+    if not g.is_contiguous(memory_format=torch.channels_last):
+        raise ValueError("depthwise_conv backward: g must be contiguous in channels_last memory")
+    dx = taps = dk = partial = None
+    rows = tiles = 1
+    if want_dx:
+        taps = _taps(weight, x.dtype)
+        dx = torch.empty_like(x, memory_format=torch.channels_last)
+    if want_dk:
+        groups = -(-C // _DK_CHANNELS)
+        rows = max(1, -(-B * Ho * groups // _DK_BLOCKS))
+        tiles = -(-B * Ho // rows)
+        f32 = dict(dtype=torch.float32, device=x.device)
+        partial = torch.empty((tiles, k * k, C), **f32)
+        dk = torch.empty((C, 1, k, k), **f32)
+    fn = _build.function(
+        "depthwise_bwd", "dw_bwd",
+        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 15 + [ctypes.c_void_p],
+    )
 
-    x: (B, C, H, W), ``channels_last`` memory on CUDA; weight (C, 1, k, k)
-    with odd k ∈ {3, 5, 7}; stride 1 (any dilation) or 2 (dilation 1).
-    Returns (B, C, ⌈H/stride⌉, ⌈W/stride⌉) in ``channels_last``."""
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    with torch.cuda.device(x.device):
+        rc = fn(
+            x.data_ptr(), g.data_ptr(), ptr(taps), ptr(dx), ptr(dk), ptr(partial),
+            _DTYPE_CODE[x.dtype], B, H, W, C, Ho, Wo, k, stride, dh, dw, pt, pl,
+            rows, tiles, _stream(x),
+        )
+    if rc != 0:
+        raise RuntimeError(f"depthwise_bwd launch failed: CUDA error {rc}")
+    launches[f"depthwise_bwd_s{stride}"] += 1
+    return dx, (None if dk is None else dk.to(weight.dtype))
+
+
+class _DepthwiseConv(torch.autograd.Function):
+    """The CUDA forward, and the CUDA backward as its gradient.  Saves x
+    and the weight (no padded copies); a frozen weight or input skips its
+    half of the backward."""
+
+    @staticmethod
+    def forward(ctx, x, weight, stride, dilation):
+        ctx.save_for_backward(x, weight)
+        ctx.stride, ctx.dilation = stride, dilation
+        return _launch(x, weight, stride, dilation)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        x, weight = ctx.saved_tensors
+        g = g.to(x.dtype).contiguous(memory_format=torch.channels_last)
+        dx, dweight = _launch_backward(
+            x, weight, g, ctx.stride, ctx.dilation, *ctx.needs_input_grad[:2]
+        )
+        return dx, dweight, None, None
+
+
+def _on_card(x: torch.Tensor, weight: torch.Tensor, stride: int, dilation) -> bool:
+    """Validate a depthwise call; True for CUDA tensors (the kernels), False
+    for CPU tensors (the plain versions)."""
     if x.dim() != 4 or weight.dim() != 4:
         raise ValueError("depthwise_conv: x and weight must be 4-D")
     C = x.shape[1]
@@ -117,11 +227,38 @@ def depthwise_conv(
     if min(int(dilation[0]), int(dilation[1])) < 1:
         raise ValueError(f"depthwise_conv: dilation {tuple(dilation)} must be >= 1")
     if x.device.type == "cpu":
-        return depthwise_conv_plain(x, weight, stride, dilation)
+        return False
     if x.device.type != "cuda" or weight.device != x.device:
         raise ValueError(f"depthwise_conv: x on {x.device}, weight on {weight.device}")
     if x.dtype not in _DTYPE_CODE:
         raise TypeError(f"depthwise_conv: CUDA kernel takes float32/bfloat16, got {x.dtype}")
     if not x.is_contiguous(memory_format=torch.channels_last):
         raise ValueError("depthwise_conv: x must be contiguous in channels_last memory")
-    return _launch(x, weight, stride, dilation)
+    return True
+
+
+def depthwise_conv(
+    x: torch.Tensor, weight: torch.Tensor, stride: int = 1, dilation=(1, 1)
+) -> torch.Tensor:
+    """Depthwise conv, TF ``SAME`` padding.
+
+    x: (B, C, H, W), ``channels_last`` memory on CUDA; weight (C, 1, k, k)
+    with odd k ∈ {3, 5, 7}; stride 1 (any dilation) or 2 (dilation 1).
+    Returns (B, C, ⌈H/stride⌉, ⌈W/stride⌉) in ``channels_last``,
+    differentiable in x and weight on both devices."""
+    if not _on_card(x, weight, stride, dilation):
+        return depthwise_conv_plain(x, weight, stride, dilation)
+    return _DepthwiseConv.apply(x, weight, stride, (int(dilation[0]), int(dilation[1])))
+
+
+def depthwise_conv_backward(
+    x: torch.Tensor, weight: torch.Tensor, g: torch.Tensor, stride: int = 1,
+    dilation=(1, 1),
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The backward alone: (dx, dweight) of :func:`depthwise_conv` at
+    (x, weight) for the output gradient ``g``.  The backward kernel on CUDA
+    (dx in ``channels_last``), the plain backward on the CPU."""
+    if not _on_card(x, weight, stride, dilation):
+        return depthwise_conv_backward_plain(x, weight, g, stride, dilation)
+    g = g.to(x.dtype).contiguous(memory_format=torch.channels_last)
+    return _launch_backward(x, weight, g, stride, dilation, True, True)

@@ -1,7 +1,7 @@
 """Fused bilinear upsample (×s) + channel argmax: logits → class labels.
 
 Port of the Pallas TPU kernel ``upsample_argmax``
-(``deeplabv3plus_keras_tpu/kernels/upsample_argmax.py:88``, body
+(``deeplabv3plus_keras_tpu/kernels/upsample_argmax.py:89``, body
 ``_kernel`` :58).  Softmax is monotone per pixel, so
 ``argmax(softmax(up(x))) == argmax(up(x))``: labels come straight from the
 decoder's low-resolution logits, and the (B, h·s, w·s, C) upsampled tensor

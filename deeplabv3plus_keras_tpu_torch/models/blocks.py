@@ -11,7 +11,9 @@ other mechanically:
 Numerics mirrored from the Keras reference:
 
 - Keras ``BatchNormalization``: eps **1e-3** (torch's default is 1e-5);
-  Keras momentum m is torch momentum 1 − m.
+  Keras momentum m is torch momentum 1 − m.  In training the running
+  variance moves toward the *biased* batch variance, as flax's does
+  (torch's own update takes the unbiased one).
 - Conv init glorot_uniform; the ASPP split-separable blocks use
   TruncatedNormal(σ=0.05) cut at ±2σ.  Both draw from an explicit
   ``torch.Generator``.  Fans are computed as flax computes them on the
@@ -108,7 +110,11 @@ class DepthwiseConv(_Init, nn.Module):
 
 class BatchNorm(nn.Module):
     """Keras-compatible BatchNormalization (eps 1e-3; ``scale=False`` leaves
-    out the multiplicative weight, as Keras ``scale=False`` does)."""
+    out the multiplicative weight, as Keras ``scale=False`` does).
+
+    Training normalises with the biased batch statistics (autograd flows
+    through them) and sets running ← m·running + (1 − m)·batch, with the
+    biased batch variance, as flax ``nn.BatchNorm`` does."""
 
     def __init__(self, channels: int, momentum: float = 0.99, epsilon: float = 1e-3,
                  scale: bool = True):
@@ -122,10 +128,25 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(channels))
 
     def forward(self, x):
-        return F.batch_norm(
-            x, self.running_mean, self.running_var, self.weight, self.bias,
-            self.training, 1.0 - self.momentum, self.epsilon,
+        if not self.training:
+            return F.batch_norm(
+                x, self.running_mean, self.running_var, self.weight, self.bias,
+                False, 0.0, self.epsilon,
+            )
+        m = self.momentum
+        # torch moves its running_var argument to m·old + (1 − m)·var·n/(n − 1);
+        # hand it a copy (autograd keeps that one) and scale the batch term
+        # by (n − 1)/n to leave the biased variance's
+        moved = self.running_var.clone()
+        y = F.batch_norm(
+            x, self.running_mean, moved, self.weight, self.bias,
+            True, 1.0 - m, self.epsilon,
         )
+        n = x.numel() // x.shape[1]
+        with torch.no_grad():
+            kept = self.running_var * m
+            self.running_var.copy_((moved - kept) * ((n - 1) / n) + kept)
+        return y
 
 
 class ConvBNReLU(nn.Module):

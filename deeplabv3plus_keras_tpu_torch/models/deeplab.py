@@ -58,12 +58,15 @@ class DeepLabV3Plus(nn.Module):
         """Draw every conv weight from ``generator``; BN starts at identity."""
         init_weights(self, generator)
 
-    def forward(self, images: torch.Tensor, return_presample: bool = False):
+    def forward(self, images: torch.Tensor, return_presample: bool = False,
+                generator: torch.Generator | None = None):
+        """``generator`` draws the dropout mask in training (required there
+        when the dropout rate is above 0)."""
         dtype = next(self.parameters()).dtype
         x = images.to(dtype).permute(0, 3, 1, 2)  # NHWC → NCHW view
         x = x.contiguous(memory_format=torch.channels_last)
         base_features = self.base(x)
-        encoder_features = self.encoder(base_features)
+        encoder_features = self.encoder(base_features, generator)
         if return_presample:
             logits, up = self.decoder(base_features, encoder_features, return_presample=True)
             return _at_least_f32(logits.permute(0, 2, 3, 1)), up

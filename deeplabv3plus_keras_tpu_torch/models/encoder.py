@@ -10,7 +10,10 @@ backbone output (``input: -1``) or an earlier branch (``input: k``):
   bilinear ×target_size_factor.
 
 Branch outputs are concatenated, Dropout(dropout_rate) (identity in eval),
-then 1×1 Conv(concat_channels, l2)+BN+ReLU.
+then 1×1 Conv(concat_channels, l2)+BN+ReLU.  Training draws the dropout
+mask from the ``torch.Generator`` the caller hands in (the train step
+seeds one from (seed, step), as the JAX step folds the step into its key);
+it never draws from torch's global generator.
 """
 
 from __future__ import annotations
@@ -23,6 +26,27 @@ from torch import nn
 from ..config import MiddleOp
 from ..ops.resize import tf_resize_images_matmul
 from .blocks import ConvBNReLU, SplitSepConvBlock, avg_pool_valid
+
+
+class Dropout(nn.Module):
+    """flax ``nn.Dropout``: keep each element with probability 1 − rate and
+    scale it by 1/(1 − rate); the identity in eval mode or at rate 0.  The
+    mask comes from an explicit generator on the input's device."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = float(rate)
+
+    def forward(self, x, generator: torch.Generator | None = None):
+        if not self.training or self.rate == 0.0:
+            return x
+        if self.rate >= 1.0:
+            return torch.zeros_like(x)
+        if generator is None:
+            raise ValueError("dropout in training needs an explicit torch.Generator")
+        keep = 1.0 - self.rate
+        mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+        return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 class EncoderMiddle(nn.Module):
@@ -50,10 +74,10 @@ class EncoderMiddle(nn.Module):
             self.add_module(name, m)
             self.branch_names.append(name)
             width.append(reduction_size)
-        self.dropout = nn.Dropout(dropout_rate)
+        self.dropout = Dropout(dropout_rate)
         self.projection = ConvBNReLU(sum(width), concat_channels, 1, **bn)
 
-    def forward(self, base_features):
+    def forward(self, base_features, generator: torch.Generator | None = None):
         branches = []
         for op, name in zip(self.middle_conf, self.branch_names):
             x = base_features if op.input == -1 else branches[op.input]
@@ -66,5 +90,5 @@ class EncoderMiddle(nn.Module):
             else:
                 x = getattr(self, name)(x)
             branches.append(x)
-        x = self.dropout(torch.cat(branches, dim=1))
+        x = self.dropout(torch.cat(branches, dim=1), generator)
         return self.projection(x)

@@ -1,8 +1,9 @@
-"""Carry the JAX package's variables into the port's model.
+"""Carry the JAX package's variables into the port's model, and back.
 
 ``load_jax_variables(model, variables)`` takes the flax
 ``{'params': ..., 'batch_stats': ...}`` tree, as nested mappings of numpy
-arrays, and fills the port's ``state_dict``.  The port's submodules carry
+arrays, and fills the port's ``state_dict``; ``export_jax_variables(model)``
+is its inverse.  The port's submodules carry
 the flax names, so the mapping is mechanical:
 
 - a path joins with ``.``; conv ``kernel`` (HWIO) → ``weight`` (OIHW), and
@@ -22,6 +23,8 @@ from typing import Any, Mapping
 
 import numpy as np
 import torch
+
+from ..models.blocks import BatchNorm
 
 _BN_LEAVES = {
     ("params", "scale"): "weight",
@@ -78,3 +81,27 @@ def load_jax_variables(model: torch.nn.Module, variables: Mapping[str, Any]) -> 
     extra = set(variables) - {"params", "batch_stats"}
     if extra:
         raise KeyError(f"unsupported variable collections: {sorted(extra)}")
+
+
+def export_jax_variables(model: torch.nn.Module) -> dict[str, dict]:
+    """The flax ``{'params', 'batch_stats'}`` tree of ``model``'s tensors,
+    as nested dicts of numpy arrays: the inverse of :func:`load_jax_variables`."""
+    bn_leaf = {port: (collection, leaf) for (collection, leaf), port in _BN_LEAVES.items()}
+    bns = {name for name, m in model.named_modules() if isinstance(m, BatchNorm)}
+    out: dict[str, dict] = {"params": {}, "batch_stats": {}}
+    for name, value in model.state_dict().items():
+        *mods, leaf = name.split(".")
+        arr = value.detach().cpu().numpy()
+        if ".".join(mods) in bns:
+            collection, jleaf = bn_leaf[leaf]
+            path = mods + ["bn", jleaf]
+        elif leaf == "weight" and arr.ndim == 4:
+            collection, path = "params", mods + ["kernel"]
+            arr = arr.transpose(2, 3, 1, 0)
+        else:
+            raise KeyError(f"no JAX leaf for port tensor {name}")
+        node = out[collection]
+        for m in path[:-1]:
+            node = node.setdefault(m, {})
+        node[path[-1]] = np.ascontiguousarray(arr)
+    return out

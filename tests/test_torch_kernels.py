@@ -29,6 +29,8 @@ from deeplabv3plus_keras_tpu_torch import kernels
 from deeplabv3plus_keras_tpu_torch.kernels import _build
 from deeplabv3plus_keras_tpu_torch.kernels.depthwise import (
     depthwise_conv,
+    depthwise_conv_backward,
+    depthwise_conv_backward_plain,
     depthwise_conv_plain,
     same_pads,
 )
@@ -106,6 +108,79 @@ def test_depthwise_matches_lax(shape, k, stride, dil):
     np.testing.assert_allclose(
         _dw_port(x, kern, stride, dil), _dw_lax(x, kern, stride, dil), atol=1e-5
     )
+
+
+def _dw_bwd_port(x, k_hwio, g, stride=1, dil=(1, 1)):
+    """(dx NHWC, dk HWIO) from the port's backward wrapper (plain on the CPU)."""
+    w = torch.from_numpy(np.ascontiguousarray(k_hwio.transpose(3, 2, 0, 1)))
+    dx, dw = depthwise_conv_backward(_nhwc_to_port(x), w, _nhwc_to_port(g), stride, dil)
+    return _port_to_nhwc(dx), dw.numpy().transpose(2, 3, 1, 0)
+
+
+def _assert_bwd_close(port, ref):
+    """The JAX package's own bounds for its stencil VJPs
+    (tests/test_kernels.py:330-334): dx 1e-5 absolute, dk 2e-6 of its max."""
+    (dx, dk), (rdx, rdk) = port, ref
+    np.testing.assert_allclose(dx, rdx, atol=1e-5, rtol=0)
+    scale = float(np.abs(rdk).max())
+    np.testing.assert_allclose(dk / scale, rdk / scale, atol=2e-6, rtol=0)
+
+
+@pytest.mark.parametrize("k", [3, 5])
+@pytest.mark.parametrize("dil", [(1, 1), (2, 3)])
+def test_depthwise_backward_s1_matches_pallas_vjp(k, dil):
+    """Against ``jax.vjp`` of the Pallas stencil: its backward is K4
+    (``_dw_bwd_nhwc``), run in interpret mode."""
+    rng = np.random.default_rng(k * 100 + dil[1])
+    x, kern, g = _rand(rng, 1, 8, 16, 8), _rand(rng, k, k, 1, 8), _rand(rng, 1, 8, 16, 8)
+    _, vjp = jax.vjp(lambda a, b: depthwise_stencil(a, b, dil), jnp.asarray(x), jnp.asarray(kern))
+    rdx, rdk = vjp(jnp.asarray(g))
+    _assert_bwd_close(_dw_bwd_port(x, kern, g, 1, dil), (np.asarray(rdx), np.asarray(rdk)))
+
+
+@pytest.mark.parametrize("k", [3, 5])
+def test_depthwise_backward_s2_matches_pallas_vjp(k):
+    """Against ``jax.vjp`` of the stride-2 Pallas stencil: its backward is
+    K5 (``_dw_bwd_s2``, parity planes merged), run in interpret mode."""
+    rng = np.random.default_rng(k + 50)
+    x, kern, g = _rand(rng, 1, 8, 16, 8), _rand(rng, k, k, 1, 8), _rand(rng, 1, 4, 8, 8)
+    _, vjp = jax.vjp(depthwise_stencil_s2, jnp.asarray(x), jnp.asarray(kern))
+    rdx, rdk = vjp(jnp.asarray(g))
+    _assert_bwd_close(_dw_bwd_port(x, kern, g, 2), (np.asarray(rdx), np.asarray(rdk)))
+
+
+@pytest.mark.parametrize("shape,k,stride,dil", LAX_CASES)
+def test_depthwise_backward_matches_lax(shape, k, stride, dil):
+    """Taps wholly in the padding (their dk is exactly 0) and odd sizes
+    at stride 2, which the Pallas stencils do not take: against lax's VJP."""
+    rng = np.random.default_rng(sum(shape) + k + 7)
+    x, kern = _rand(rng, *shape), _rand(rng, k, k, 1, shape[-1])
+    g = _rand(rng, *_dw_lax(x, kern, stride, dil).shape)
+    _, vjp = jax.vjp(lambda a, b: jax.lax.conv_general_dilated(
+        a, b, (stride, stride), "SAME", rhs_dilation=dil,
+        dimension_numbers=("NHWC", "HWIO", "NHWC"), feature_group_count=shape[-1],
+        precision=jax.lax.Precision.HIGHEST), jnp.asarray(x), jnp.asarray(kern))
+    rdx, rdk = vjp(jnp.asarray(g))
+    dx, dk = _dw_bwd_port(x, kern, g, stride, dil)
+    _assert_bwd_close((dx, dk), (np.asarray(rdx), np.asarray(rdk)))
+    H, W = shape[1:3]
+    for ky in range(k):  # a tap that reads only padding has no gradient
+        for kx in range(k):
+            if abs(ky - k // 2) * dil[0] >= H or abs(kx - k // 2) * dil[1] >= W:
+                assert stride == 1 and not dk[ky, kx].any()
+
+
+def test_depthwise_autograd_on_cpu_is_the_plain_backward():
+    kernels.reset_launch_counts()
+    x = torch.randn(2, 8, 7, 9, dtype=torch.float64).contiguous(memory_format=torch.channels_last)
+    w = torch.randn(8, 1, 3, 3, dtype=torch.float64)
+    g = torch.randn(2, 8, 4, 5, dtype=torch.float64)
+    xr, wr = x.clone().requires_grad_(), w.clone().requires_grad_()
+    depthwise_conv(xr, wr, 2).backward(g)
+    dx, dw = depthwise_conv_backward_plain(x, w, g, 2)
+    torch.testing.assert_close(xr.grad, dx, rtol=1e-12, atol=1e-12)
+    torch.testing.assert_close(wr.grad, dw, rtol=1e-12, atol=1e-12)
+    assert set(kernels.launch_counts().values()) == {0}
 
 
 def test_same_pads_tf_semantics():
@@ -190,5 +265,5 @@ def test_build_command_targets_hopper(tmp_path):
     cmd = _build.build_command(tmp_path / "k.cu", tmp_path / "k.so", "nvcc")
     assert "arch=compute_90a,code=sm_90a" in cmd
     assert {"-shared", "-O3", "-std=c++17"} <= set(cmd)
-    assert set(_build.sources()) == {"depthwise_fwd", "upsample_argmax"}
+    assert set(_build.sources()) == {"depthwise_bwd", "depthwise_fwd", "upsample_argmax"}
 

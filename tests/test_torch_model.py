@@ -65,11 +65,16 @@ def test_batchnorm_is_keras_eps_and_momentum():
         _from_port(bn.eval()(_to_port(x))),
         np.asarray(jbn.apply(v, jnp.asarray(x))), atol=1e-6)
     # Keras momentum m ↔ torch 1 − m: one training step moves the running
-    # mean by (1 − m) of the batch mean, as flax does.
-    _, upd = jbn.apply(v, jnp.asarray(x), train=True, mutable=["batch_stats"])
-    bn.train()(_to_port(x))
+    # statistics by (1 − m) of the batch's, as flax does, with the biased
+    # batch variance (torch's own update takes the unbiased one: at n = 18
+    # values per channel that is 1/17 larger, ~0.6 % of the variance here)
+    y, upd = jbn.apply(v, jnp.asarray(x), train=True, mutable=["batch_stats"])
+    out = bn.train()(_to_port(x))
+    np.testing.assert_allclose(_from_port(out), np.asarray(y), atol=1e-6)
     np.testing.assert_allclose(
         bn.running_mean.numpy(), np.asarray(upd["batch_stats"]["bn"]["mean"]), atol=1e-6)
+    np.testing.assert_allclose(
+        bn.running_var.numpy(), np.asarray(upd["batch_stats"]["bn"]["var"]), atol=1e-6)
 
 
 def test_bn_without_scale_has_no_weight():

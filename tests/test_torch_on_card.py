@@ -13,6 +13,8 @@ import torch
 from deeplabv3plus_keras_tpu_torch import kernels
 from deeplabv3plus_keras_tpu_torch.kernels import (
     depthwise_conv,
+    depthwise_conv_backward,
+    depthwise_conv_backward_plain,
     depthwise_conv_plain,
     upsample_argmax,
     upsample_argmax_plain,
@@ -51,6 +53,64 @@ def test_depthwise_kernel_matches_plain(card, shape, k, stride, dil):
     assert y.is_contiguous(memory_format=torch.channels_last)
     # float32 sums of k² products in another order than cuDNN's
     torch.testing.assert_close(y, depthwise_conv_plain(x, w, stride, dil), atol=1e-5, rtol=1e-5)
+
+
+def _dw_inputs(card, shape, k, stride, dtype):
+    B, H, W, C = shape
+    x = torch.randn(B, C, H, W, device="cuda", generator=card).to(dtype).contiguous(
+        memory_format=torch.channels_last)
+    w = torch.randn(C, 1, k, k, device="cuda", generator=card)
+    Ho, Wo = -(-H // stride), -(-W // stride)
+    g = torch.randn(B, C, Ho, Wo, device="cuda", generator=card).to(dtype).contiguous(
+        memory_format=torch.channels_last)
+    return x, w, g
+
+
+# Against the plain backward in float64 on the same (rounded) inputs and
+# taps.  dx: float32 sums of <= k*k products, 1e-5 of its max; bfloat16
+# adds the output's rounding, 2^-8 relative, so 1e-2.  dk: a float32 sum
+# of up to B*H*W products in either dtype, 1e-4 of sum |x*g| per tap and
+# channel.
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,rel", [(torch.float32, 1e-5), (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("shape,k,stride,dil", DEPTHWISE_CASES)
+def test_depthwise_backward_kernel_matches_plain(card, shape, k, stride, dil, dtype, rel):
+    x, w, g = _dw_inputs(card, shape, k, stride, dtype)
+    name = f"depthwise_bwd_s{stride}"
+    before = kernels.launch_counts()[name]
+    dx, dw = depthwise_conv_backward(x, w, g, stride, dil)
+    assert kernels.launch_counts()[name] == before + 1
+    wr = w.to(dtype).double()
+    rdx, rdw = depthwise_conv_backward_plain(x.double(), wr, g.double(), stride, dil)
+    assert dx.dtype == dtype and dx.is_contiguous(memory_format=torch.channels_last)
+    assert dw.dtype == w.dtype and dw.shape == w.shape
+    assert (dx.double() - rdx).abs().max() <= rel * rdx.abs().max()
+    _, dw_abs = depthwise_conv_backward_plain(x.double().abs(), wr, g.double().abs(), stride, dil)
+    assert ((dw.double() - rdw).abs() <= 1e-4 * dw_abs).all()
+    # deterministic: no atomics, the same bits every run
+    assert torch.equal(depthwise_conv_backward(x, w, g, stride, dil)[1], dw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stride,dil", [(1, (6, 21)), (2, (1, 1))])
+def test_autograd_runs_the_backward_kernel_once_per_backward(card, stride, dil):
+    x, w, g = _dw_inputs(card, (2, 12, 10, 40), 3, stride, torch.float32)
+    x.requires_grad_()
+    w.requires_grad_()
+    counts = kernels.launch_counts()
+    depthwise_conv(x, w, stride, dil).backward(g)
+    after = kernels.launch_counts()
+    assert after[f"depthwise_fwd_s{stride}"] == counts[f"depthwise_fwd_s{stride}"] + 1
+    assert after[f"depthwise_bwd_s{stride}"] == counts[f"depthwise_bwd_s{stride}"] + 1
+    rdx, rdw = depthwise_conv_backward_plain(x.detach(), w.detach(), g, stride, dil)
+    torch.testing.assert_close(x.grad, rdx, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(w.grad, rdw, atol=1e-4, rtol=1e-4)
+    # a frozen weight: dx only, still one launch
+    w2 = w.detach()
+    x.grad = None
+    depthwise_conv(x, w2, stride, dil).backward(g)
+    assert kernels.launch_counts()[f"depthwise_bwd_s{stride}"] == after[f"depthwise_bwd_s{stride}"] + 1
+    torch.testing.assert_close(x.grad, rdx, atol=1e-5, rtol=1e-5)
 
 
 @pytest.mark.cuda
