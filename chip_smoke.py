@@ -7,33 +7,50 @@ toolkit:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from ``deeplabv3plus_keras_tpu_torch/csrc``,
-then
+then drives two models, each with random weights from a seed and BN
+statistics set from its first batch, at 512², float32, B=16:
 
-1. holds every kernel against its plain PyTorch version at every site shape
-   the serving and training paths give it (TF32 off), and times kernel,
-   plain version and the nearest PyTorch library call with CUDA events;
-2. serves the flagship model (MobileNetV2, output stride 16, boundary
-   refinement, 21 classes, 512², float32, random weights from a seed) through
-   ``SemanticSegmentation(conf, device="cuda").segment()`` on 4 batches of 16,
-   checks the labels, the kernels' launch counts per call, and one image
-   against the same weights served on the CPU, and reports images/s;
-3. trains the same model through ``SemanticSegmentation.train_step()`` for 6
-   steps of 16 × 512² (Keras Adam, class-balanced loss + L2, BN in training
-   mode, dropout 0.5), checks the loss, every parameter's gradient and the
-   kernels' launch counts per step, and reports the step time, images/s and
-   peak device memory; then one step at 2 × 128² on the card and on the CPU
-   from the same weights, whose losses and gradients must agree;
-4. prints one JSON line of kernel results, the card's name and power limit,
-   and as its last line ``{"ok": true, "device": {...}}``.
+- the flagship (MobileNetV2, output stride 16, boundary refinement, 21
+  classes, the five-branch dilated ASPP), with the default depthwise
+  layout (``DLV3_DW_LAYOUT=nhwc``);
+- Xception (output stride 16, boundary refinement, 21 classes, the
+  reference's Xception ASPP: rates 1, 6, 12, 18 and image pooling) with
+  ``DLV3_DW_LAYOUT=bhcw``, which sends its 33 undilated 3×3 depthwise
+  sites per forward through the channels-first kernels K6/K7.
 
-Any failed check exits non-zero.  Long outputs (the per-site table, the
-profile) go to ``chiprun_out/``.  It imports nothing of JAX.
+For each model it
+
+1. holds every kernel of its paths against its plain PyTorch version at
+   every site shape the serving and training paths give it (TF32 off), and
+   times kernel, plain version and the nearest PyTorch library call with
+   CUDA events (K6/K7 also as the whole channels-first route with its two
+   layout copies, and beside K2/K4 at the same site);
+2. serves it through ``SemanticSegmentation(conf, device="cuda").segment()``
+   on 4 batches, checks the labels, the kernels' launch counts per call,
+   and one image against the same weights served on the CPU, and reports
+   images/s with TF32 off and on;
+3. trains it through ``SemanticSegmentation.train_step()`` for 6 steps
+   (Keras Adam, class-balanced loss + L2, BN in training mode, dropout
+   0.5), checks the loss, every parameter's gradient and the launch counts
+   per step, and reports the step time, images/s and peak device memory;
+   then one step at 2 × 128² on the card and on the CPU from the same
+   weights, whose losses and gradients must agree.
+
+Then it prints one JSON line of kernel results (K1-K7), the card's name and
+power limit, and as its last line ``{"ok": true, "device": {...}}``.
+
+Any failed check exits non-zero.  Long outputs (the per-site table
+``kernel_sites.json``, the profiles ``[xception_]segment_profile.txt`` and
+``[xception_]train_profile.txt``, the gradient tables) go to
+``chiprun_out/``.  It imports nothing of JAX.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -44,13 +61,15 @@ MEM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 (NVIDIA data sheet)
 FP32_FLOP_PER_S = 67e12     # H100 SXM float32 outside the tensor cores
 BATCH, SIZE, CLASSES = 16, 512, 21
 OUT = Path("chiprun_out")
-TRAIN_STEPS = 6
+SEGMENT_CALLS, TRAIN_STEPS = 4, 6
 TPU_SOURCES = {
     "depthwise_fwd_s1": "deeplabv3plus_keras_tpu/kernels/depthwise3.py:318",
     "depthwise_fwd_s2": "deeplabv3plus_keras_tpu/kernels/depthwise3.py:684",
     "depthwise_bwd_s1": "deeplabv3plus_keras_tpu/kernels/depthwise3.py:422",
     "depthwise_bwd_s2": "deeplabv3plus_keras_tpu/kernels/depthwise3.py:798",
     "upsample_argmax": "deeplabv3plus_keras_tpu/kernels/upsample_argmax.py:89",
+    "depthwise_fwd_cf": "deeplabv3plus_keras_tpu/kernels/depthwise3.py:105",
+    "depthwise_bwd_cf": "deeplabv3plus_keras_tpu/kernels/depthwise3.py:185",
 }
 SOURCES = {
     "depthwise_fwd_s1": "deeplabv3plus_keras_tpu_torch/csrc/depthwise_fwd.cu",
@@ -58,6 +77,15 @@ SOURCES = {
     "depthwise_bwd_s1": "deeplabv3plus_keras_tpu_torch/csrc/depthwise_bwd.cu",
     "depthwise_bwd_s2": "deeplabv3plus_keras_tpu_torch/csrc/depthwise_bwd.cu",
     "upsample_argmax": "deeplabv3plus_keras_tpu_torch/csrc/upsample_argmax.cu",
+    "depthwise_fwd_cf": "deeplabv3plus_keras_tpu_torch/csrc/depthwise_cf.cu",
+    "depthwise_bwd_cf": "deeplabv3plus_keras_tpu_torch/csrc/depthwise_cf.cu",
+}
+# The path whose launches a kernel's "launches" reports: the one it was
+# ported for.
+MAIN_PATH = {
+    "upsample_argmax": "segment", "depthwise_fwd_s1": "segment", "depthwise_fwd_s2": "segment",
+    "depthwise_bwd_s1": "train_step", "depthwise_bwd_s2": "train_step",
+    "depthwise_fwd_cf": "xception_segment", "depthwise_bwd_cf": "xception_train_step",
 }
 
 
@@ -81,6 +109,33 @@ def flagship_conf(image_size: int = SIZE, batch: int = BATCH) -> dict:
             ],
         },
     }
+
+
+def xception_conf(image_size: int = SIZE, batch: int = BATCH) -> dict:
+    """The flagship's settings with the reference's second headline
+    backbone, Xception, and the ASPP the reference pairs with it
+    (``encoder_middle_conf_xception``, as ``bench.py:58-74``)."""
+    conf = flagship_conf(image_size, batch)
+    conf["base_model"] = "xception"
+    conf["nn_arch"]["encoder_middle_conf"] = [
+        {"op": "conv", "kernel": 3, "rate": [r, r], "input": -1 if r == 1 else 0}
+        for r in (1, 6, 12, 18)
+    ] + [{"op": "pyramid_pooling", "kernel": 1, "input": 0, "target_size_factor": [1, 1]}]
+    return conf
+
+
+@contextlib.contextmanager
+def dw_layout(value: str):
+    """Set ``DLV3_DW_LAYOUT`` for the block and restore it after."""
+    old = os.environ.get("DLV3_DW_LAYOUT")
+    os.environ["DLV3_DW_LAYOUT"] = value
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop("DLV3_DW_LAYOUT")
+        else:
+            os.environ["DLV3_DW_LAYOUT"] = old
 
 
 def gpu_line() -> str:
@@ -170,10 +225,10 @@ def depthwise_sites(model, images):
 def _add_site(agg: dict, row: dict, mult: int) -> None:
     """Add one site's times, ``mult`` times (its calls per pass), to its
     kernel's sums."""
-    a = agg.setdefault(row["kernel"], dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
-                                           max_abs_err=0.0, bound_by=row["bound_by"]))
-    for f in ("ms", "plain_ms", "library_ms", "bound_ms"):
-        a[f] += mult * row[f]
+    a = agg.setdefault(row["kernel"], dict(max_abs_err=0.0, bound_by=row["bound_by"]))
+    for f in ("ms", "plain_ms", "library_ms", "bound_ms", "route_ms", "nhwc_kernel_ms"):
+        if f in row:
+            a[f] = a.get(f, 0.0) + mult * row[f]
     a["max_abs_err"] = max(a["max_abs_err"], row["max_abs_err"])
 
 
@@ -310,6 +365,110 @@ def check_depthwise_backward(sites, g, rows):
     return agg
 
 
+def check_cf(sites, g, rows):
+    """K6/K7 (the channels-first kernels) vs the plain forward and backward
+    at each distinct k3 stride-1 undilated site of ``sites``, NCHW-contiguous
+    inputs; dk of two runs must agree bit for bit.  Each site is also timed
+    as the whole route (``depthwise_conv`` under ``bhcw``: x and g made
+    NCHW-contiguous, dx and y returned to ``channels_last``), as K2/K4 on the
+    same site in ``channels_last``, and as cuDNN's grouped conv and its
+    ``convolution_backward`` on the NCHW-contiguous input.  Returns per-kernel
+    sums over one pass (a forward for K6, a train step for K7)."""
+    import torch
+    import torch.nn.functional as F
+
+    from deeplabv3plus_keras_tpu_torch.kernels import (
+        depthwise_cf,
+        depthwise_cf_backward,
+        depthwise_conv,
+        depthwise_conv_backward,
+        depthwise_conv_backward_plain,
+        depthwise_conv_plain,
+    )
+
+    cl = torch.channels_last
+    distinct = {}
+    for shape, stride, dil, mod in sites:
+        if (mod.weight.shape[-1], stride, tuple(dil)) == (3, 1, (1, 1)):
+            distinct.setdefault(shape, [mod, 0])[1] += 1
+    agg = {}
+    for shape, (mod, mult) in distinct.items():
+        B, C, H, W = shape
+        w = mod.weight.detach()
+        x = torch.randn(shape, device="cuda", generator=g)
+        gout = torch.randn(shape, device="cuda", generator=g)
+        x_cl, g_cl = x.contiguous(memory_format=cl), gout.contiguous(memory_format=cl)
+        y = depthwise_cf(x, w)
+        ref = depthwise_conv_plain(x, w)
+        dx, dk = depthwise_cf_backward(x, w, gout)
+        dx2, dk2 = depthwise_cf_backward(x, w, gout)
+        rdx, rdk = depthwise_conv_backward_plain(x, w, gout)
+        _, dk_abs = depthwise_conv_backward_plain(x.abs(), w, gout.abs())
+        torch.cuda.synchronize()
+        y_err, y_scale = (y - ref).abs().max().item(), ref.abs().max().item()
+        dx_err, dx_scale = (dx - rdx).abs().max().item(), rdx.abs().max().item()
+        dk_err = (dk - rdk).abs().max().item()
+        same_bits = torch.equal(dk, dk2) and torch.equal(dx, dx2)
+        # forward as K2, dx as K4: float32 rounding of 9-term sums; dk 1e-4
+        # of Σ|x·g| per tap and channel, the float32 sum's scale
+        fwd_ok = y_err <= 1e-5 * y_scale
+        bwd_ok = dx_err <= 1e-5 * dx_scale and bool(((dk - rdk).abs() <= 1e-4 * dk_abs).all())
+        del y, ref, dx, dx2, dk2, rdx, dk_abs
+        with dw_layout("bhcw"):
+            route_f = cuda_ms(lambda: depthwise_conv(x_cl, w))
+            route_b = cuda_ms(lambda: depthwise_conv_backward(x_cl, w, g_cl))
+        with dw_layout("nhwc"):
+            k2_ms = cuda_ms(lambda: depthwise_conv(x_cl, w))
+            k4_ms = cuda_ms(lambda: depthwise_conv_backward(x_cl, w, g_cl))
+        common = {"shape_nchw": list(shape), "k": 3, "stride": 1, "dilation": [1, 1],
+                  "model": "xception"}
+        fwd = dict(
+            common, kernel="depthwise_fwd_cf", per_forward=mult, max_abs_err=y_err,
+            max_abs_ref=y_scale, ok=fwd_ok,
+            ms=cuda_ms(lambda: depthwise_cf(x, w)), route_ms=route_f,
+            plain_ms=cuda_ms(lambda: depthwise_conv_plain(x, w)),
+            library_ms=cuda_ms(lambda: F.conv2d(x, w, padding=1, groups=C)),
+            nhwc_kernel="depthwise_fwd_s1", nhwc_kernel_ms=k2_ms)
+        b_ms, b_by = bound((x.numel() * 2 + w.numel()) * 4, 2 * 9 * x.numel())
+        fwd.update(bound_ms=b_ms, bound_by=b_by)
+        lib = lambda: torch.ops.aten.convolution_backward(  # noqa: E731
+            gout, x, w, None, [1, 1], [1, 1], [1, 1], False, [0, 0], C, [True, True, False])
+        bwd = dict(
+            common, kernel="depthwise_bwd_cf", per_step=mult, max_abs_err=max(dx_err, dk_err),
+            dx_max_abs_err=dx_err, dx_max_abs_ref=dx_scale, dk_max_abs_err=dk_err,
+            dk_max_abs_ref=rdk.abs().max().item(), dk_bit_reproducible=same_bits,
+            ok=bwd_ok and same_bits,
+            ms=cuda_ms(lambda: depthwise_cf_backward(x, w, gout)), route_ms=route_b,
+            plain_ms=cuda_ms(lambda: depthwise_conv_backward_plain(x, w, gout)),
+            library_ms=cuda_ms(lib), nhwc_kernel="depthwise_bwd_s1", nhwc_kernel_ms=k4_ms)
+        # x and g read once, dx written once; 9 multiply-adds per element
+        # for dx and again for dk
+        b_ms, b_by = bound((x.numel() * 3 + 2 * w.numel()) * 4, 4 * 9 * x.numel())
+        bwd.update(bound_ms=b_ms, bound_by=b_by)
+        for row in (fwd, bwd):
+            rows.append(row)
+            print(json.dumps({"site": row}))
+            if not row["ok"]:
+                raise SystemExit(f"channels-first kernel disagrees with plain at {row}")
+            _add_site(agg, row, mult)
+    # bfloat16 (not on the float32 paths): one site, against float64
+    x = torch.randn(16, 128, 127, 127, device="cuda", generator=g).bfloat16()
+    gout = torch.randn(x.shape, device="cuda", generator=g).bfloat16()
+    w = torch.randn(128, 1, 3, 3, device="cuda", generator=g)
+    wr = w.bfloat16().double()
+    y = depthwise_cf(x, w)
+    dx, dk = depthwise_cf_backward(x, w, gout)
+    ref = depthwise_conv_plain(x.double(), wr)
+    rdx, rdk = depthwise_conv_backward_plain(x.double(), wr, gout.double())
+    _, dk_abs = depthwise_conv_backward_plain(x.double().abs(), wr, gout.double().abs())
+    if not ((y.double() - ref).abs().max() <= 1e-2 * ref.abs().max()
+            and (dx.double() - rdx).abs().max() <= 1e-2 * rdx.abs().max()
+            and ((dk.double() - rdk).abs() <= 1e-4 * dk_abs).all()):
+        raise SystemExit("bfloat16 channels-first depthwise disagrees with plain")
+    print(json.dumps({"bf16_depthwise_cf_check": "ok"}))
+    return agg
+
+
 def check_upsample_argmax(shape, scale, g, rows):
     import torch
     import torch.nn.functional as F
@@ -370,15 +529,95 @@ def train_batches(n: int, batch: int, size: int, device: str, seed: int) -> list
     return out
 
 
-def run_training(seg, kernels, card: str, sites_per_forward) -> dict:
-    """The training path: ``TRAIN_STEPS`` steps of ``seg.train_step`` with
-    TF32 off; checks the loss, the gradients and the launches of every
+def profile_device(fn, path: Path, header: str, rows: int) -> dict:
+    """One call of ``fn`` under ``torch.profiler``: the table to ``path``,
+    and the device time by kernel (device-side events are the kernels and
+    copies themselves)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    table = prof.key_averages().table(sort_by="self_device_time_total", row_limit=rows)
+    path.write_text(f"{header}\n{table}\n")
+    dev = {e.key: e.self_device_time_total for e in prof.key_averages()
+           if str(e.device_type).endswith("CUDA") and e.self_device_time_total > 0}
+    top = sorted(dev.items(), key=lambda kv: -kv[1])[:10]
+    return {"device_ms": sum(dev.values()) / 1e3,
+            "top_kernels_ms": [[k[:60], v / 1e3] for k, v in top]}
+
+
+def run_serving(seg, kernels, card: str, batches, expect: dict, name: str) -> dict:
+    """The serving path: ``segment()`` on each of ``batches`` with TF32 off;
+    checks the labels and the launches of every call, then the labels of
+    one image against the same weights served on the CPU.  Returns the
+    launch counts of those calls."""
+    import torch
+
+    kernels.reset_launch_counts()
+    times, first_labels = [], None
+    for i, images in enumerate(batches):
+        before = kernels.launch_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        labels = seg.segment(images)
+        times.append(time.perf_counter() - t)
+        after = kernels.launch_counts()
+        delta = {k: after[k] - before[k] for k in after}
+        if delta != expect:
+            raise SystemExit(f"{name} segment() call {i}: launches {delta}, expected {expect}")
+        if labels.shape != (BATCH, SIZE, SIZE) or labels.dtype.name != "int32":
+            raise SystemExit(f"labels {labels.shape} {labels.dtype}")
+        if labels.min() < 0 or labels.max() >= CLASSES:
+            raise SystemExit(f"labels outside [0, {CLASSES}): {labels.min()}..{labels.max()}")
+        if i == 0:
+            first_labels = labels
+    launches = kernels.launch_counts()
+    img_s = BATCH / statistics.median(times[1:])
+
+    # TF32 on (torch's default for cuDNN convs): throughput only
+    torch.backends.cudnn.allow_tf32 = True
+    tf32_times = []
+    for images in batches[1:]:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        seg.segment(images)
+        tf32_times.append(time.perf_counter() - t)
+    torch.backends.cudnn.allow_tf32 = False
+
+    prefix = "" if name == "mobilenetv2" else f"{name}_"
+    prof = profile_device(lambda: seg.segment(batches[1]), OUT / f"{prefix}segment_profile.txt",
+                          f"{card}\n{name}, TF32 off, B={BATCH}, {SIZE}^2", 25)
+    print(json.dumps({"model": name, "segment_device_ms": prof["device_ms"],
+                      "top_kernels_ms": prof["top_kernels_ms"]}))
+
+    # one image against the same weights served on the CPU
+    from deeplabv3plus_keras_tpu_torch import SemanticSegmentation
+
+    cpu = SemanticSegmentation(seg.conf, device="cpu")
+    cpu.model.load_state_dict(seg.model.state_dict())
+    torch.set_num_threads(8)
+    cpu_labels = cpu.segment(batches[0][:1])
+    agree = float((cpu_labels[0] == first_labels[0]).mean())
+    classes_seen = int(len(set(first_labels[0].ravel().tolist())))
+    print(json.dumps({"segment": {
+        "model": name, "batch": BATCH, "image": SIZE, "dtype": "float32", "calls": len(batches),
+        "img_per_s_tf32_off": img_s, "img_per_s_tf32_on": BATCH / statistics.median(tf32_times),
+        "call_s_tf32_off": times, "call_s_tf32_on": tf32_times,
+        "cpu_agreement": agree, "classes_in_image0": classes_seen, "launches": launches,
+        "card": card}}))
+    if agree < 0.999:
+        raise SystemExit(f"{name}: card vs CPU labels agree on {agree:.5f} < 0.999 of pixels")
+    return launches
+
+
+def run_training(seg, kernels, card: str, expect: dict, name: str) -> dict:
+    """The training path: ``TRAIN_STEPS`` steps of ``seg.train_step``
+    with TF32 off; checks the loss, the gradients and the launches of every
     step.  Returns the launch counts of those steps."""
     import torch
 
-    n_s1, n_s2 = sites_per_forward
-    expect = {"depthwise_fwd_s1": n_s1, "depthwise_fwd_s2": n_s2, "upsample_argmax": 0,
-              "depthwise_bwd_s1": n_s1, "depthwise_bwd_s2": n_s2}
     batches = train_batches(TRAIN_STEPS, BATCH, SIZE, "cuda", seed=1)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -395,15 +634,15 @@ def run_training(seg, kernels, card: str, sites_per_forward) -> dict:
         after = kernels.launch_counts()
         delta = {k: after[k] - before[k] for k in after}
         if delta != expect:
-            raise SystemExit(f"train_step {i}: launches {delta}, expected {expect}")
+            raise SystemExit(f"{name} train_step {i}: launches {delta}, expected {expect}")
         if not math.isfinite(loss) or int(out["cm"].sum()) != BATCH * SIZE * SIZE:
-            raise SystemExit(f"train_step {i}: loss {loss}, cm sum {int(out['cm'].sum())}")
+            raise SystemExit(f"{name} train_step {i}: loss {loss}, cm sum {int(out['cm'].sum())}")
     launches = kernels.launch_counts()
     peak = torch.cuda.max_memory_allocated()
     bad = [n for n, p in seg.model.named_parameters()
            if p.grad is None or not bool(torch.isfinite(p.grad).all()) or not bool(p.grad.any())]
     if bad:
-        raise SystemExit(f"parameters without a finite nonzero gradient: {bad[:8]} ({len(bad)})")
+        raise SystemExit(f"{name}: parameters without a finite nonzero gradient: {bad[:8]} ({len(bad)})")
     step_s = statistics.median(times[1:])
 
     # TF32 on (torch's default for cuDNN convs): throughput only
@@ -416,19 +655,14 @@ def run_training(seg, kernels, card: str, sites_per_forward) -> dict:
         tf32_times.append(time.perf_counter() - t)
     torch.backends.cudnn.allow_tf32 = False
 
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        seg.train_step(batches[1])["loss"].item()
-    table = prof.key_averages().table(sort_by="self_device_time_total", row_limit=30)
-    (OUT / "train_profile.txt").write_text(f"{card}\nTF32 off, B={BATCH}, {SIZE}^2, one train_step\n{table}\n")
-    dev = {e.key: e.self_device_time_total for e in prof.key_averages()
-           if str(e.device_type).endswith("CUDA") and e.self_device_time_total > 0}
-    top = sorted(dev.items(), key=lambda kv: -kv[1])[:10]
-    print(json.dumps({"train_step_device_ms": sum(dev.values()) / 1e3,
-                      "top_kernels_ms": [[k[:60], v / 1e3] for k, v in top]}))
+    prefix = "" if name == "mobilenetv2" else f"{name}_"
+    prof = profile_device(lambda: seg.train_step(batches[1])["loss"].item(),
+                          OUT / f"{prefix}train_profile.txt",
+                          f"{card}\n{name}, TF32 off, B={BATCH}, {SIZE}^2, one train_step", 30)
+    print(json.dumps({"model": name, "train_step_device_ms": prof["device_ms"],
+                      "top_kernels_ms": prof["top_kernels_ms"]}))
     print(json.dumps({"train_step": {
-        "batch": BATCH, "image": SIZE, "dtype": "float32", "steps": TRAIN_STEPS,
+        "model": name, "batch": BATCH, "image": SIZE, "dtype": "float32", "steps": TRAIN_STEPS,
         "losses": losses, "step_s_tf32_off": times, "median_step_s_2_on": step_s,
         "img_per_s_tf32_off": BATCH / step_s, "step_s_tf32_on": tf32_times,
         "img_per_s_tf32_on": BATCH / statistics.median(tf32_times),
@@ -436,10 +670,10 @@ def run_training(seg, kernels, card: str, sites_per_forward) -> dict:
     return launches
 
 
-def check_training_against_cpu() -> None:
-    """One train step at 2 × 128² on the card (float32, TF32 off) and on
-    the CPU in float32 and float64, from the same weights and batch
-    (dropout 0: the two devices' generators differ).  The float64 step is
+def check_training_against_cpu(conf: dict, name: str) -> None:
+    """One train step of ``conf`` (at 2 × 128²) on the card (float32, TF32
+    off) and on the CPU in float32 and float64, from the same weights and
+    batch (dropout 0: the two devices' generators differ).  The float64 step is
     the reference; the card's loss agrees with it to 1e-4 relative.
 
     Gradients: float32 gradients of this net in training mode are sums of
@@ -447,8 +681,8 @@ def check_training_against_cpu() -> None:
     float32 run meets a tight per-parameter bound: against float64, the
     CPU's own float32 gradients miss max(3e-3·scale, 5e-7), the JAX
     package's bound for its Pallas-vs-lax gradients
-    (tests/test_kernels.py:543), on about half of the 159 parameters (this
-    function prints the count).  So the card is held to
+    (tests/test_kernels.py:543), on about half of the flagship's 159
+    parameters (this function prints the count).  So the card is held to
     - all gradients together: a relative 2-norm error against float64 of
       at most the larger of 3e-3 and 3× the CPU float32's;
     - each parameter: that bound on its largest error, or a relative
@@ -464,7 +698,6 @@ def check_training_against_cpu() -> None:
     from deeplabv3plus_keras_tpu_torch.models import DeepLabV3Plus
     from deeplabv3plus_keras_tpu_torch.parallel.step import build_train_step, create_train_state
 
-    conf = flagship_conf(128, batch=2)
     conf["nn_arch"]["dropout_rate"] = 0.0
     gpu = SemanticSegmentation(conf, device="cuda")
     cpu = SemanticSegmentation(conf, device="cpu")
@@ -484,8 +717,8 @@ def check_training_against_cpu() -> None:
                     "valid": torch.ones(2)})["loss"].item()
     rows, failed = [], []
     sq = {"card": 0.0, "cpu": 0.0, "ref": 0.0}
-    for (name, pg), pc, pr in zip(gpu.model.named_parameters(), cpu.model.parameters(),
-                                  ref.parameters()):
+    for (pname, pg), pc, pr in zip(gpu.model.named_parameters(), cpu.model.parameters(),
+                                   ref.parameters()):
         d_card, d_cpu = pg.grad.cpu().double() - pr.grad, pc.grad.double() - pr.grad
         e_card, e_cpu = d_card.abs().max().item(), d_cpu.abs().max().item()
         scale = pr.grad.abs().max().item()
@@ -494,15 +727,16 @@ def check_training_against_cpu() -> None:
         sq["ref"] += pr.grad.square().sum().item()
         rel2 = d_card.norm().item() / max(pr.grad.norm().item(), 1e-30)
         tight = e_card <= max(3e-3 * scale, 5e-7)
-        rows.append({"param": name, "card_err": e_card, "cpu_f32_err": e_cpu,
+        rows.append({"param": pname, "card_err": e_card, "cpu_f32_err": e_cpu,
                      "scale": scale, "card_rel_2norm": rel2, "within_3e-3_scale": tight})
         if not (tight or rel2 <= 0.25):
             failed.append(rows[-1])
-    (OUT / "train_grads.json").write_text(json.dumps(rows, indent=1))
+    prefix = "" if name == "mobilenetv2" else f"{name}_"
+    (OUT / f"{prefix}train_grads.json").write_text(json.dumps(rows, indent=1))
     rel = abs(lg - l64) / abs(l64)
     norm_card, norm_cpu = (math.sqrt(sq[k] / sq["ref"]) for k in ("card", "cpu"))
     print(json.dumps({"train_step_cpu_agreement": {
-        "batch": 2, "image": 128, "loss_card": lg, "loss_cpu_f32": lc, "loss_cpu_f64": l64,
+        "model": name, "batch": 2, "image": 128, "loss_card": lg, "loss_cpu_f32": lc, "loss_cpu_f64": l64,
         "loss_rel": rel, "params": len(rows),
         "within_3e-3_scale": sum(r["within_3e-3_scale"] for r in rows),
         "cpu_f32_within_3e-3_scale": sum(r["cpu_f32_err"] <= max(3e-3 * r["scale"], 5e-7)
@@ -511,11 +745,98 @@ def check_training_against_cpu() -> None:
             [r["card_rel_2norm"] for r in rows if not r["within_3e-3_scale"]], default=0.0),
         "grad_rel_2norm_card": norm_card, "grad_rel_2norm_cpu_f32": norm_cpu}}))
     if failed:
-        raise SystemExit(f"card gradients off the float64 ones: {failed[:4]} ({len(failed)})")
+        raise SystemExit(f"{name}: card gradients off the float64 ones: {failed[:4]} ({len(failed)})")
     if not norm_card <= max(3e-3, 3 * norm_cpu):
-        raise SystemExit(f"card gradients' relative 2-norm error {norm_card} vs CPU float32's {norm_cpu}")
+        raise SystemExit(f"{name}: card gradients' relative 2-norm error {norm_card} vs CPU float32's {norm_cpu}")
     if not rel <= 1e-4:
-        raise SystemExit(f"card loss {lg} vs CPU float64 {l64}: rel {rel}")
+        raise SystemExit(f"{name}: card loss {lg} vs CPU float64 {l64}: rel {rel}")
+
+
+def depthwise_expect(sites, train: bool) -> dict:
+    """Launches per ``segment()`` call (K1 once) or per train step (no K1,
+    a backward launch beside each forward one) of a model whose forward
+    gives the depthwise kernels ``sites``, under the current layout."""
+    from deeplabv3plus_keras_tpu_torch.kernels import depthwise_route, launch_counts
+
+    expect = dict.fromkeys(launch_counts(), 0)
+    expect["upsample_argmax"] = 0 if train else 1
+    for _, stride, dil, mod in sites:
+        route = depthwise_route(mod.weight, stride, dil)
+        kind = "cf" if route == "cf" else f"s{stride}"
+        expect[f"depthwise_fwd_{kind}"] += 1
+        if train:
+            expect[f"depthwise_bwd_{kind}"] += 1
+    return expect
+
+
+def serving_batches() -> list:
+    import torch
+
+    return [
+        torch.empty(BATCH, SIZE, SIZE, 3).uniform_(-1, 1, generator=torch.Generator().manual_seed(i)).numpy()
+        for i in range(SEGMENT_CALLS)
+    ]
+
+
+def drive_model(name: str, conf: dict, kernels, card: str, g, rows, n_sites: dict) -> dict:
+    """Every phase of one model under the current ``DLV3_DW_LAYOUT``: the
+    kernels at its sites, ``segment()``, ``train_step()`` and the 2 × 128²
+    step against the CPU.  ``n_sites`` is the expected count of forward
+    launches per kernel.  Returns (per-kernel site sums, launches by path)."""
+    import torch
+
+    from deeplabv3plus_keras_tpu_torch import SemanticSegmentation
+
+    t0 = time.perf_counter()
+    seg = SemanticSegmentation(conf, device="cuda")
+    batches = serving_batches()
+    first = torch.from_numpy(batches[0]).cuda()
+    calibrate_bn(seg.model, first)
+    sites = depthwise_sites(seg.model, first)
+    with torch.inference_mode():
+        logits, up = seg.model(first, return_presample=True)
+    presample = tuple(logits.shape)
+    del logits, first
+    expect = depthwise_expect(sites, train=False)
+    got = {k: v for k, v in expect.items() if k.startswith("depthwise_fwd") and v}
+    print(json.dumps({"model": name, "layout": os.environ.get("DLV3_DW_LAYOUT"),
+                      "depthwise_launches_per_forward": got,
+                      "presample_logits": list(presample), "upsample": up}))
+    if got != n_sites:
+        raise SystemExit(f"{name}: depthwise launches per forward {got}, expected {n_sites}")
+
+    # ---- each kernel against its plain version, at this model's shapes ----
+    n0 = len(rows)
+    agg = {}
+    if name == "mobilenetv2":
+        agg.update(check_depthwise(sites, g, rows))
+        agg["upsample_argmax"] = check_upsample_argmax(presample, up, g, rows)
+        agg.update(check_depthwise_backward(sites, g, rows))
+    else:  # K6/K7 at the undilated sites; K2/K4 at the dilated ASPP sites
+        agg.update(check_cf(sites, g, rows))
+        nhwc = [s for s in sites if tuple(s[2]) != (1, 1) or s[1] != 1 or s[3].weight.shape[-1] != 3]
+        with dw_layout("nhwc"):
+            check_depthwise(nhwc, g, rows)
+            check_depthwise_backward(nhwc, g, rows)
+    for row in rows[n0:]:
+        row.setdefault("model", name)
+    torch.cuda.empty_cache()
+    print(json.dumps({"model": name, "phase": "kernel_sites", "s": time.perf_counter() - t0}))
+
+    # ---- the main paths: segment(), then train_step() ----
+    by_path = {}
+    key = "" if name == "mobilenetv2" else f"{name}_"
+    by_path[f"{key}segment"] = run_serving(seg, kernels, card, batches, expect, name)
+    print(json.dumps({"model": name, "phase": "segment", "s": time.perf_counter() - t0}))
+    by_path[f"{key}train_step"] = run_training(
+        seg, kernels, card, depthwise_expect(sites, train=True), name)
+    print(json.dumps({"model": name, "phase": "train_step", "s": time.perf_counter() - t0}))
+    del seg
+    torch.cuda.empty_cache()
+    small = (flagship_conf if name == "mobilenetv2" else xception_conf)(128, batch=2)
+    check_training_against_cpu(small, name)
+    print(json.dumps({"model": name, "phase": "cpu_step", "s": time.perf_counter() - t0}))
+    return agg, by_path
 
 
 def main() -> int:
@@ -532,7 +853,7 @@ def main() -> int:
         raise SystemExit(f"chip_smoke: the port's package is not beside this script: {e}")
     if Path(port.__file__).resolve().parent.parent != Path(__file__).resolve().parent:
         raise SystemExit(f"chip_smoke: imported the port from {port.__file__}, not from this checkout")
-    from deeplabv3plus_keras_tpu_torch import SemanticSegmentation, kernels
+    from deeplabv3plus_keras_tpu_torch import kernels
     from deeplabv3plus_keras_tpu_torch.kernels import _build
 
     OUT.mkdir(exist_ok=True)
@@ -547,120 +868,40 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     g = torch.Generator(device="cuda").manual_seed(0)
+    rows, agg, by_path = [], {}, {}
 
-    # ---- the served model, and the sites its forward gives each kernel ----
-    conf = flagship_conf()
-    seg = SemanticSegmentation(conf, device="cuda")
-    batches = [
-        torch.empty(BATCH, SIZE, SIZE, 3).uniform_(-1, 1, generator=torch.Generator().manual_seed(i)).numpy()
-        for i in range(4)
-    ]
-    calibrate_bn(seg.model, torch.from_numpy(batches[0]).cuda())
-    sites = depthwise_sites(seg.model, torch.from_numpy(batches[0]).cuda())
-    with torch.inference_mode():
-        logits, up = seg.model(torch.from_numpy(batches[0]).cuda(), return_presample=True)
-    presample = tuple(logits.shape)
-    del logits
-    n_s1 = sum(s[1] == 1 for s in sites)
-    n_s2 = sum(s[1] == 2 for s in sites)
-    print(json.dumps({"depthwise_sites_per_forward": {"stride1": n_s1, "stride2": n_s2},
-                      "presample_logits": list(presample), "upsample": up}))
-
-    # ---- each kernel against its plain version, at the main path's shapes ----
-    rows = []
-    agg = check_depthwise(sites, g, rows)
-    agg["upsample_argmax"] = check_upsample_argmax(presample, up, g, rows)
-    agg.update(check_depthwise_backward(sites, g, rows))
+    # the flagship under the default layout: K1-K5
+    with dw_layout("nhwc"):
+        a, p = drive_model("mobilenetv2", flagship_conf(), kernels, card, g, rows,
+                           {"depthwise_fwd_s1": 15, "depthwise_fwd_s2": 3})
+    agg.update(a)
+    by_path.update(p)
+    # Xception under bhcw: K6/K7 at its 33 undilated sites, K2/K4 at the
+    # three dilated ASPP sites, K1 in segment()
+    with dw_layout("bhcw"):
+        a, p = drive_model("xception", xception_conf(), kernels, card, g, rows,
+                           {"depthwise_fwd_cf": 33, "depthwise_fwd_s1": 3})
+    agg.update(a)
+    by_path.update(p)
     (OUT / "kernel_sites.json").write_text(json.dumps({"card": card, "sites": rows}, indent=1))
-
-    # ---- the main path: segment() on 4 batches of 16 x 512² ----
-    expect = {"depthwise_fwd_s1": n_s1, "depthwise_fwd_s2": n_s2, "upsample_argmax": 1,
-              "depthwise_bwd_s1": 0, "depthwise_bwd_s2": 0}
-    if (n_s1, n_s2) != (15, 3):
-        raise SystemExit(f"expected 15 stride-1 and 3 stride-2 depthwise sites, got {n_s1}, {n_s2}")
-    kernels.reset_launch_counts()
-    times, first_labels = [], None
-    for i, images in enumerate(batches):
-        before = kernels.launch_counts()
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        labels = seg.segment(images)
-        times.append(time.perf_counter() - t)
-        after = kernels.launch_counts()
-        delta = {k: after[k] - before[k] for k in after}
-        if delta != expect:
-            raise SystemExit(f"segment() call {i}: launches {delta}, expected {expect}")
-        if labels.shape != (BATCH, SIZE, SIZE) or labels.dtype.name != "int32":
-            raise SystemExit(f"labels {labels.shape} {labels.dtype}")
-        if labels.min() < 0 or labels.max() >= CLASSES:
-            raise SystemExit(f"labels outside [0, {CLASSES}): {labels.min()}..{labels.max()}")
-        if i == 0:
-            first_labels = labels
-    launches = kernels.launch_counts()
-    fp32_img_s = BATCH / statistics.median(times[1:])
-
-    # TF32 on (torch's default for cuDNN convs): throughput only
-    torch.backends.cudnn.allow_tf32 = True
-    tf32_times = []
-    for images in batches[1:]:
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        seg.segment(images)
-        tf32_times.append(time.perf_counter() - t)
-    torch.backends.cudnn.allow_tf32 = False
-    tf32_img_s = BATCH / statistics.median(tf32_times)
-
-    # where one call's device time goes
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        seg.segment(batches[1])
-        torch.cuda.synchronize()
-    table = prof.key_averages().table(sort_by="self_device_time_total", row_limit=25)
-    (OUT / "segment_profile.txt").write_text(f"{card}\nTF32 off, B={BATCH}, {SIZE}^2\n{table}\n")
-    # device-side events are the kernels and copies themselves
-    dev = {e.key: e.self_device_time_total for e in prof.key_averages()
-           if str(e.device_type).endswith("CUDA") and e.self_device_time_total > 0}
-    total_us = sum(dev.values())
-    top = sorted(dev.items(), key=lambda kv: -kv[1])[:8]
-    print(json.dumps({"segment_device_ms": total_us / 1e3,
-                      "top_kernels_ms": [[k[:60], v / 1e3] for k, v in top]}))
-
-    # ---- one image against the same weights served on the CPU ----
-    cpu = SemanticSegmentation(conf, device="cpu")
-    cpu.model.load_state_dict(seg.model.state_dict())
-    torch.set_num_threads(8)
-    cpu_labels = cpu.segment(batches[0][:1])
-    agree = float((cpu_labels[0] == first_labels[0]).mean())
-    classes_seen = int(len(set(first_labels[0].ravel().tolist())))
-    print(json.dumps({"segment": {
-        "batch": BATCH, "image": SIZE, "dtype": "float32", "calls": len(batches),
-        "img_per_s_tf32_off": fp32_img_s, "img_per_s_tf32_on": tf32_img_s,
-        "call_s_tf32_off": times, "call_s_tf32_on": tf32_times,
-        "cpu_agreement": agree, "classes_in_image0": classes_seen, "launches": launches,
-        "card": card}}))
-    if agree < 0.999:
-        raise SystemExit(f"card vs CPU labels agree on {agree:.5f} < 0.999 of pixels")
-
-    # ---- the training path: train_step() on 6 batches of 16 x 512² ----
-    train_launches = run_training(seg, kernels, card, (n_s1, n_s2))
-    check_training_against_cpu()
 
     out = []
     for name in ("upsample_argmax", "depthwise_fwd_s1", "depthwise_fwd_s2",
-                 "depthwise_bwd_s1", "depthwise_bwd_s2"):
+                 "depthwise_bwd_s1", "depthwise_bwd_s2", "depthwise_fwd_cf", "depthwise_bwd_cf"):
         a = agg[name]
-        # each kernel's launches on its own path: serving for K1-K3,
-        # training for K4/K5 (K2/K3 run there too)
-        by_path = {"segment": launches[name], "train_step": train_launches[name]}
-        out.append({
+        entry = {
             "name": name, "route": "cuda", "source": SOURCES[name], "replaces": TPU_SOURCES[name],
-            "status": "ported",
-            "launches": by_path["train_step" if name.startswith("depthwise_bwd") else "segment"],
-            "launches_by_path": by_path, "max_abs_err": a["max_abs_err"],
-            "ms": a["ms"], "plain_ms": a["plain_ms"], "bound_ms": a["bound_ms"],
-            "bound_by": a["bound_by"], "library_ms": a["library_ms"],
-        })
+            "status": "ported", "launches": by_path[MAIN_PATH[name]][name],
+            "launches_by_path": {path: counts[name] for path, counts in by_path.items()},
+            "max_abs_err": a["max_abs_err"], "ms": a["ms"], "plain_ms": a["plain_ms"],
+            "bound_ms": a["bound_ms"], "bound_by": a["bound_by"], "library_ms": a["library_ms"],
+        }
+        for f in ("route_ms", "nhwc_kernel_ms"):
+            if f in a:
+                entry[f] = a[f]
+        if entry["launches"] < 1:
+            raise SystemExit(f"{name} was not launched on its path {MAIN_PATH[name]}")
+        out.append(entry)
     print(json.dumps({"kernels": out}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,11 +1,18 @@
 """Public facade: JSON-config-driven DeepLabV3+ (port of
 ``deeplabv3plus_keras_tpu/api.py:71-192, 634-648``).
 
-It builds and initialises the model, the training state (Keras Adam) and
-the train, eval and label steps, as the JAX facade does, and answers
-``train_step(batch)``, ``eval_step(batch)`` and ``segment(images)``.  The
-epoch loops ``train()``, ``evaluate()`` and ``test()`` need the data
-slice, and model export comes later (ROADMAP.md Queue A).
+It builds and initialises the model (``base_model`` ``mobilenetv2`` or
+``xception``), the training state (Keras Adam) and the train, eval and
+label steps, as the JAX facade does, and answers ``train_step(batch)``,
+``eval_step(batch)`` and ``segment(images)``.  The epoch loops
+``train()``, ``evaluate()`` and ``test()`` need the data slice, and model
+export comes later (ROADMAP.md Queue A).  Config keys that would change
+the result and are not ported yet (``model_loading``, ``multi_gpu`` with
+``num_gpus`` > 1, ``int8_infer``) raise ``NotImplementedError``.
+
+The environment variable ``DLV3_DW_LAYOUT=bhcw`` routes the 3×3 stride-1
+undilated depthwise sites through the channels-first kernels
+(``kernels/depthwise.py``), as it does in the JAX package.
 """
 
 from __future__ import annotations
@@ -51,6 +58,16 @@ class SemanticSegmentation:
             )
         if self.conf.extra.get("int8_infer", False):
             raise NotImplementedError("int8_infer is not ported yet (ROADMAP.md Queue A item 15)")
+        if self.conf.model_loading:
+            raise NotImplementedError(
+                "model_loading (restore the checkpoint in work_dir) is not ported yet "
+                "(ROADMAP.md Queue A item 11, checkpointing)"
+            )
+        if self.conf.multi_gpu and self.conf.num_gpus > 1:
+            raise NotImplementedError(
+                f"multi_gpu with num_gpus={self.conf.num_gpus}: the port trains on one "
+                "device so far (ROADMAP.md Queue A item 13, multi-GPU data parallelism)"
+            )
 
         self.model = DeepLabV3Plus(self.conf)
         self.model.init_weights(torch.Generator().manual_seed(_SEED))

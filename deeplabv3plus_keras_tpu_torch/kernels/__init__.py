@@ -7,10 +7,13 @@ by :mod:`._build` on its first launch.
 from . import depthwise as _depthwise
 from . import upsample_argmax as _upsample_argmax
 from .depthwise import (
+    depthwise_cf,
+    depthwise_cf_backward,
     depthwise_conv,
     depthwise_conv_backward,
     depthwise_conv_backward_plain,
     depthwise_conv_plain,
+    depthwise_route,
     same_pads,
 )
 from .upsample_argmax import upsample_argmax, upsample_argmax_plain
@@ -30,10 +33,13 @@ def reset_launch_counts() -> None:
 
 
 __all__ = [
+    "depthwise_cf",
+    "depthwise_cf_backward",
     "depthwise_conv",
     "depthwise_conv_backward",
     "depthwise_conv_backward_plain",
     "depthwise_conv_plain",
+    "depthwise_route",
     "launch_counts",
     "reset_launch_counts",
     "same_pads",

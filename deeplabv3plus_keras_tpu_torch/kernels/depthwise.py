@@ -30,11 +30,21 @@ A CPU tensor takes :func:`depthwise_conv_plain` (``F.pad`` with the TF
 ``SAME`` pads, then ``F.conv2d(groups=C)``) and its autograd; the plain
 backward is :func:`depthwise_conv_backward_plain`.  A CUDA tensor launches
 the kernels or raises; nothing falls back.
+
+The channels-first route (port of ``depthwise3.py:465-521`` and
+``_to_bhcw_padded`` :216): with ``DLV3_DW_LAYOUT=bhcw``, read on every call
+as the JAX package reads it at trace time, a site with k = 3, stride 1 and
+dilation (1, 1) makes x NCHW-contiguous, runs ``csrc/depthwise_cf.cu``
+(K6 forward, ``_dw_fwd_padded`` :105; K7 backward, ``_dw_bwd_padded``
+:185) on it, and returns the result to ``channels_last`` memory.  Every
+other site, and every site under ``nhwc`` (the default), keeps the NHWC
+kernels.  :func:`depthwise_route` names the route a site takes.
 """
 
 from __future__ import annotations
 
 import ctypes
+import os
 
 import torch
 import torch.nn.functional as F
@@ -47,6 +57,7 @@ from . import _build
 launches = {
     "depthwise_fwd_s1": 0, "depthwise_fwd_s2": 0,
     "depthwise_bwd_s1": 0, "depthwise_bwd_s2": 0,
+    "depthwise_fwd_cf": 0, "depthwise_bwd_cf": 0,
 }
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -211,6 +222,121 @@ class _DepthwiseConv(torch.autograd.Function):
         return dx, dweight, None, None
 
 
+_LAYOUTS = ("nhwc", "bhcw")
+
+
+def _layout() -> str:
+    """``DLV3_DW_LAYOUT``: ``nhwc`` (the default) or ``bhcw``; anything else
+    raises rather than being taken as ``nhwc``."""
+    layout = os.environ.get("DLV3_DW_LAYOUT", "nhwc")
+    if layout not in _LAYOUTS:
+        raise ValueError(f"DLV3_DW_LAYOUT={layout!r}: expected one of {_LAYOUTS}")
+    return layout
+
+
+def depthwise_route(weight: torch.Tensor, stride: int = 1, dilation=(1, 1)) -> str:
+    """``"cf"`` where the channels-first kernels K6/K7 take the site (k = 3,
+    stride 1, dilation (1, 1), under ``DLV3_DW_LAYOUT=bhcw``), else
+    ``"nhwc"`` (K2-K5)."""
+    cf = (weight.shape[-1] == 3 and stride == 1
+          and (int(dilation[0]), int(dilation[1])) == (1, 1))
+    return "cf" if _layout() == "bhcw" and cf else "nhwc"
+
+
+def _check_cf(x: torch.Tensor, weight: torch.Tensor) -> None:
+    if x.dim() != 4 or tuple(weight.shape) != (x.shape[1], 1, 3, 3):
+        raise ValueError(f"depthwise_cf: x {tuple(x.shape)}, weight {tuple(weight.shape)}: "
+                         "want (B, C, H, W) and (C, 1, 3, 3)")
+    if x.device.type != "cuda" or weight.device != x.device:
+        raise ValueError(f"depthwise_cf: x on {x.device}, weight on {weight.device}")
+    if x.dtype not in _DTYPE_CODE:
+        raise TypeError(f"depthwise_cf: CUDA kernel takes float32/bfloat16, got {x.dtype}")
+    if not x.is_contiguous():
+        raise ValueError("depthwise_cf: x must be NCHW-contiguous")
+    if x.numel() >= 2**31 or max(x.shape[:2]) > 65535:
+        raise ValueError(f"depthwise_cf: shape {tuple(x.shape)} too large for the kernel's grid")
+
+
+def depthwise_cf(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    """K6 alone: the 3×3 stride-1 SAME depthwise conv of an NCHW-contiguous
+    x, NCHW-contiguous out.  The plain version on a CPU tensor."""
+    if x.device.type == "cpu":
+        return depthwise_conv_plain(x, weight)
+    _check_cf(x, weight)
+    B, C, H, W = x.shape
+    taps = _taps(weight, x.dtype)
+    y = torch.empty_like(x, memory_format=torch.contiguous_format)
+    fn = _build.function("depthwise_cf", "dw_cf_fwd",
+                         [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+    with torch.cuda.device(x.device):
+        rc = fn(x.data_ptr(), taps.data_ptr(), y.data_ptr(), _DTYPE_CODE[x.dtype],
+                B, C, H, W, _stream(x))
+    if rc != 0:
+        raise RuntimeError(f"depthwise_cf launch failed: CUDA error {rc}")
+    launches["depthwise_fwd_cf"] += 1
+    return y
+
+
+def depthwise_cf_backward(x: torch.Tensor, weight: torch.Tensor, g: torch.Tensor,
+                          want_dx: bool = True, want_dk: bool = True):
+    """K7 alone: (dx or None, dweight or None) of :func:`depthwise_cf` for
+    the output gradient ``g``, all NCHW-contiguous.  The plain backward on
+    CPU tensors."""
+    if x.device.type == "cpu":
+        dx, dk = depthwise_conv_backward_plain(x, weight, g)
+        return (dx if want_dx else None), (dk if want_dk else None)
+    _check_cf(x, weight)
+    if g.shape != x.shape or g.dtype != x.dtype or not g.is_contiguous():
+        raise ValueError(f"depthwise_cf backward: g {tuple(g.shape)} {g.dtype} for x "
+                         f"{tuple(x.shape)} {x.dtype}, NCHW-contiguous")
+    if not (want_dx or want_dk):
+        return None, None
+    B, C, H, W = x.shape
+    slots = _build.function("depthwise_cf", "dw_cf_slots", [ctypes.c_int] * 3)(B, H, W)
+    f32 = dict(dtype=torch.float32, device=x.device)
+    taps = _taps(weight, x.dtype) if want_dx else None
+    dx = torch.empty_like(x, memory_format=torch.contiguous_format) if want_dx else None
+    dk = torch.empty((C, 1, 3, 3), **f32) if want_dk else None
+    partial = torch.empty((slots, 9, C), **f32) if want_dk else None
+    fn = _build.function("depthwise_cf", "dw_cf_bwd",
+                         [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    with torch.cuda.device(x.device):
+        rc = fn(x.data_ptr(), g.data_ptr(), ptr(taps), ptr(dx), ptr(dk), ptr(partial),
+                _DTYPE_CODE[x.dtype], B, C, H, W, _stream(x))
+    if rc != 0:
+        raise RuntimeError(f"depthwise_cf_backward launch failed: CUDA error {rc}")
+    launches["depthwise_bwd_cf"] += 1
+    return dx, (None if dk is None else dk.to(weight.dtype))
+
+
+class _DepthwiseConvCF(torch.autograd.Function):
+    """The channels-first route: x made NCHW-contiguous, K6, the result back
+    in ``channels_last``; K7 as its gradient.  Saves x and the weight (no
+    padded or transposed copies); the backward makes x and g NCHW-contiguous,
+    as the JAX ``_vjp_bwd`` re-transposes them, and returns dx in
+    ``channels_last``."""
+
+    @staticmethod
+    def forward(ctx, x, weight):
+        ctx.save_for_backward(x, weight)
+        return depthwise_cf(x.contiguous(), weight).contiguous(memory_format=torch.channels_last)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        x, weight = ctx.saved_tensors
+        dx, dweight = depthwise_cf_backward(
+            x.contiguous(), weight, g.to(x.dtype).contiguous(), *ctx.needs_input_grad[:2]
+        )
+        if dx is not None:
+            dx = dx.contiguous(memory_format=torch.channels_last)
+        return dx, dweight
+
+
 def _on_card(x: torch.Tensor, weight: torch.Tensor, stride: int, dilation) -> bool:
     """Validate a depthwise call; True for CUDA tensors (the kernels), False
     for CPU tensors (the plain versions)."""
@@ -245,8 +371,14 @@ def depthwise_conv(
     x: (B, C, H, W), ``channels_last`` memory on CUDA; weight (C, 1, k, k)
     with odd k ∈ {3, 5, 7}; stride 1 (any dilation) or 2 (dilation 1).
     Returns (B, C, ⌈H/stride⌉, ⌈W/stride⌉) in ``channels_last``,
-    differentiable in x and weight on both devices."""
-    if not _on_card(x, weight, stride, dilation):
+    differentiable in x and weight on both devices, through the route
+    :func:`depthwise_route` names."""
+    card = _on_card(x, weight, stride, dilation)
+    if depthwise_route(weight, stride, dilation) == "cf":
+        if not card:
+            return depthwise_cf(x.contiguous(), weight).contiguous(memory_format=torch.channels_last)
+        return _DepthwiseConvCF.apply(x, weight)
+    if not card:
         return depthwise_conv_plain(x, weight, stride, dilation)
     return _DepthwiseConv.apply(x, weight, stride, (int(dilation[0]), int(dilation[1])))
 
@@ -256,9 +388,14 @@ def depthwise_conv_backward(
     dilation=(1, 1),
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The backward alone: (dx, dweight) of :func:`depthwise_conv` at
-    (x, weight) for the output gradient ``g``.  The backward kernel on CUDA
-    (dx in ``channels_last``), the plain backward on the CPU."""
-    if not _on_card(x, weight, stride, dilation):
+    (x, weight) for the output gradient ``g``, on the same route.  The
+    backward kernel on CUDA (dx in ``channels_last``), the plain backward
+    on the CPU."""
+    card = _on_card(x, weight, stride, dilation)
+    if depthwise_route(weight, stride, dilation) == "cf":
+        dx, dk = depthwise_cf_backward(x.contiguous(), weight, g.to(x.dtype).contiguous())
+        return dx.contiguous(memory_format=torch.channels_last), dk
+    if not card:
         return depthwise_conv_backward_plain(x, weight, g, stride, dilation)
     g = g.to(x.dtype).contiguous(memory_format=torch.channels_last)
     return _launch_backward(x, weight, g, stride, dilation, True, True)

@@ -1,13 +1,14 @@
 """Backbone registry (port of ``deeplabv3plus_keras_tpu/models/backbones/__init__.py``).
 
-This slice of the port carries MobileNetV2 only."""
+The port carries MobileNetV2 and Xception so far."""
 
 from __future__ import annotations
 
 from ...config import ALL_BASE_MODELS, BASE_MODEL_MOBILENETV2
 from .mobilenetv2 import MobileNetV2Backbone
+from .xception import XceptionBackbone
 
-_REGISTRY = {BASE_MODEL_MOBILENETV2: MobileNetV2Backbone}
+_REGISTRY = {BASE_MODEL_MOBILENETV2: MobileNetV2Backbone, "xception": XceptionBackbone}
 
 
 def get_backbone(name: str, output_stride: int):

@@ -58,12 +58,21 @@ def avg_pool_valid(x: torch.Tensor, pool_size: int) -> torch.Tensor:
     return F.avg_pool2d(x, pool_size, stride=pool_size, padding=0, ceil_mode=False)
 
 
-def tf_same_pad(x: torch.Tensor, k: int, stride: int) -> torch.Tensor:
-    """Zero-pad for TF ``SAME`` (asymmetric at stride 2: the extra row and
-    column go after), so a following ``padding=0`` conv matches XLA."""
+def tf_same_pad(x: torch.Tensor, k: int, stride: int, value: float = 0.0) -> torch.Tensor:
+    """Pad with ``value`` for TF ``SAME`` (asymmetric at stride 2 on an even
+    size: the extra row and column go after), so a following ``padding=0``
+    conv or pool matches XLA."""
     _, pt, pb = same_pads(x.shape[-2], k, stride, 1)
     _, pl, pr = same_pads(x.shape[-1], k, stride, 1)
-    return F.pad(x, (pl, pr, pt, pb))
+    return F.pad(x, (pl, pr, pt, pb), value=value)
+
+
+def max_pool_same(x: torch.Tensor, k: int = 3, stride: int = 2) -> torch.Tensor:
+    """flax ``nn.max_pool(x, (k, k), (stride, stride), padding="SAME")``:
+    explicit −inf pads, then an unpadded pool.  Xception's 3×3 stride-2
+    pools pad (1, 1) at 253 → 127 and 127 → 64 but (0, 1) at 64 → 32,
+    where torch's symmetric ``padding=1`` would shift every window."""
+    return F.max_pool2d(tf_same_pad(x, k, stride, float("-inf")), k, stride)
 
 
 class _Init:
@@ -74,17 +83,22 @@ class _Init:
 
 
 class Conv(_Init, nn.Module):
-    """Bias-free k×k conv with TF ``SAME`` padding: flax ``nn.Conv(use_bias=
-    False)`` and the float path of the JAX package's ``QuantConv``."""
+    """Bias-free k×k conv with TF ``SAME`` or ``VALID`` padding: flax
+    ``nn.Conv(use_bias=False)`` and the float path of the JAX package's
+    ``QuantConv``."""
 
     def __init__(self, cin: int, features: int, kernel: int = 1, strides: int = 1,
-                 init_fn=glorot_uniform_):
+                 init_fn=glorot_uniform_, padding: str = "SAME"):
         super().__init__()
-        self.kernel, self.strides = kernel, strides
+        if padding not in ("SAME", "VALID"):
+            raise ValueError(f"Conv padding {padding!r}: expected 'SAME' or 'VALID'")
+        self.kernel, self.strides, self.padding = kernel, strides, padding
         self.init_fn = init_fn
         self.weight = nn.Parameter(torch.empty(features, cin, kernel, kernel))
 
     def forward(self, x):
+        if self.padding == "VALID":
+            return F.conv2d(x, self.weight, stride=self.strides)
         if self.strides == 1:  # odd k: SAME is symmetric
             return F.conv2d(x, self.weight, padding=self.kernel // 2)
         return F.conv2d(tf_same_pad(x, self.kernel, self.strides), self.weight,

@@ -143,6 +143,11 @@ def build_train_step(model, optimizer: KerasAdam, conf: Config, class_weights=No
                 cm_sum = cm_sum + _cm_for(label[part], probs, num_classes, valid[part])
             loss_sum = loss_sum + loss.detach()
             del probs, loss
+        # a parameter the loss does not reach (Xception's unused os-8
+        # shortcut) gets a zero gradient, as jax.grad gives it
+        for p in optimizer.params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
         if accum > 1:
             torch._foreach_div_([p.grad for p in optimizer.params], float(accum))
         optimizer.step()

@@ -66,9 +66,25 @@ def test_segment_rejects_bad_images_and_unported_options():
     with pytest.raises(ValueError, match=r"\(B, S, S, 3\)"):
         seg.segment(np.zeros((1, 3, 64, 64), np.float32))
     with pytest.raises(NotImplementedError, match="Queue A item 14"):
-        SemanticSegmentation({**conf_dict(64), "base_model": "xception"}, device="cpu")
+        SemanticSegmentation({**conf_dict(64), "base_model": "efficientnetb0"}, device="cpu")
     with pytest.raises(NotImplementedError, match="int8_infer"):
         SemanticSegmentation(conf_dict(64, int8_infer=True), device="cpu")
+
+
+@pytest.mark.parametrize("keys,item", [
+    ({"model_loading": True}, "item 11"),
+    ({"multi_gpu": True, "num_gpus": 2}, "item 13"),
+    ({"multi_gpu": True, "num_gpus": 4, "allow_fewer_devices": True}, "item 13"),
+])
+def test_config_keys_that_change_the_result_raise(keys, item):
+    """The JAX facade restores the checkpoint in work_dir under
+    ``model_loading`` (api.py:135-136) and builds a num_gpus mesh under
+    ``multi_gpu`` (api.py:90-108); the port does neither yet, so it must
+    refuse rather than train from random weights on one device."""
+    with pytest.raises(NotImplementedError, match=item):
+        SemanticSegmentation({**conf_dict(32), **keys}, device="cpu")
+    # one GPU asked for is what the port does
+    SemanticSegmentation({**conf_dict(32), "multi_gpu": True, "num_gpus": 1}, device="cpu")
 
 
 def test_port_imports_no_jax():

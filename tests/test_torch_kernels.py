@@ -265,5 +265,5 @@ def test_build_command_targets_hopper(tmp_path):
     cmd = _build.build_command(tmp_path / "k.cu", tmp_path / "k.so", "nvcc")
     assert "arch=compute_90a,code=sm_90a" in cmd
     assert {"-shared", "-O3", "-std=c++17"} <= set(cmd)
-    assert set(_build.sources()) == {"depthwise_bwd", "depthwise_fwd", "upsample_argmax"}
+    assert set(_build.sources()) == {"depthwise_bwd", "depthwise_cf", "depthwise_fwd", "upsample_argmax"}
 

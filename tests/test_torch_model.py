@@ -204,6 +204,6 @@ def test_bn_scale_false_transplants_without_weights():
 
 def test_other_backbones_name_the_roadmap_item():
     with pytest.raises(NotImplementedError, match="Queue A item 14"):
-        get_backbone("xception", 16)
+        get_backbone("efficientnetb0", 16)
     with pytest.raises(ValueError, match="Unknown"):
         get_backbone("resnet50", 16)

@@ -12,6 +12,8 @@ import torch
 
 from deeplabv3plus_keras_tpu_torch import kernels
 from deeplabv3plus_keras_tpu_torch.kernels import (
+    depthwise_cf,
+    depthwise_cf_backward,
     depthwise_conv,
     depthwise_conv_backward,
     depthwise_conv_backward_plain,
@@ -121,6 +123,74 @@ def test_depthwise_kernel_refuses_what_it_does_not_take(card):
                        .contiguous(memory_format=torch.channels_last), w.double())
     with pytest.raises(ValueError, match="channels_last"):
         depthwise_conv(torch.randn(1, 8, 6, 6, device="cuda"), w)
+
+
+# (B, C, H, W) NCHW for the channels-first kernels K6/K7: an odd plane
+# (edge tiles of 32 x 32 cut on both axes) and an even one.
+CF_CASES = [(2, 64, 37, 45), (2, 32, 64, 64)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,rel", [(torch.float32, 1e-5), (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("shape", CF_CASES)
+def test_cf_kernels_match_plain(card, shape, dtype, rel):
+    """K6 and K7 against the plain forward and backward in float64 on the
+    same (rounded) inputs, with the tolerances of the NHWC kernels above."""
+    x = torch.randn(shape, device="cuda", generator=card).to(dtype)
+    g = torch.randn(shape, device="cuda", generator=card).to(dtype)
+    w = torch.randn(shape[1], 1, 3, 3, device="cuda", generator=card)
+    wr = w.to(dtype).double()
+    counts = kernels.launch_counts()
+    y = depthwise_cf(x, w)
+    dx, dw = depthwise_cf_backward(x, w, g)
+    after = kernels.launch_counts()
+    assert after["depthwise_fwd_cf"] == counts["depthwise_fwd_cf"] + 1
+    assert after["depthwise_bwd_cf"] == counts["depthwise_bwd_cf"] + 1
+    assert y.is_contiguous() and dx.is_contiguous() and y.dtype == dx.dtype == dtype
+    ref = depthwise_conv_plain(x.double(), wr)
+    assert (y.double() - ref).abs().max() <= rel * ref.abs().max()
+    rdx, rdw = depthwise_conv_backward_plain(x.double(), wr, g.double())
+    assert (dx.double() - rdx).abs().max() <= rel * rdx.abs().max()
+    _, dw_abs = depthwise_conv_backward_plain(x.double().abs(), wr, g.double().abs())
+    assert dw.dtype == w.dtype and ((dw.double() - rdw).abs() <= 1e-4 * dw_abs).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", CF_CASES)
+def test_cf_dk_is_bit_reproducible(card, shape):
+    x = torch.randn(shape, device="cuda", generator=card)
+    g = torch.randn(shape, device="cuda", generator=card)
+    w = torch.randn(shape[1], 1, 3, 3, device="cuda", generator=card)
+    runs = [depthwise_cf_backward(x, w, g) for _ in range(3)]
+    assert all(torch.equal(r[1], runs[0][1]) and torch.equal(r[0], runs[0][0]) for r in runs)
+    dx_only, none = depthwise_cf_backward(x, w, g, want_dk=False)
+    none2, dk_only = depthwise_cf_backward(x, w, g, want_dx=False)
+    assert none is None and none2 is None
+    assert torch.equal(dx_only, runs[0][0]) and torch.equal(dk_only, runs[0][1])
+
+
+@pytest.mark.cuda
+def test_bhcw_layout_routes_autograd_through_k6_k7(card, monkeypatch):
+    monkeypatch.setenv("DLV3_DW_LAYOUT", "bhcw")
+    x, w, g = _dw_inputs(card, (2, 21, 19, 40), 3, 1, torch.float32)
+    x.requires_grad_()
+    w.requires_grad_()
+    counts = kernels.launch_counts()
+    y = depthwise_conv(x, w)
+    y.backward(g)
+    after = kernels.launch_counts()
+    assert {k: after[k] - counts[k] for k in after if after[k] != counts[k]} == {
+        "depthwise_fwd_cf": 1, "depthwise_bwd_cf": 1}
+    assert y.is_contiguous(memory_format=torch.channels_last)
+    assert x.grad.is_contiguous(memory_format=torch.channels_last)
+    torch.testing.assert_close(y, depthwise_conv_plain(x.detach(), w.detach()), atol=1e-5, rtol=1e-5)
+    rdx, rdw = depthwise_conv_backward_plain(x.detach(), w.detach(), g)
+    torch.testing.assert_close(x.grad, rdx, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(w.grad, rdw, atol=1e-4, rtol=1e-4)
+    # a dilated site keeps the NHWC kernel under bhcw
+    before = kernels.launch_counts()["depthwise_fwd_s1"]
+    depthwise_conv(x.detach(), w.detach(), 1, (2, 2))
+    assert kernels.launch_counts()["depthwise_fwd_s1"] == before + 1
 
 
 @pytest.mark.cuda

@@ -21,6 +21,14 @@ FLAGSHIP_MIDDLE = [
     {"op": "conv", "kernel": 3, "rate": [6, 21], "input": 0},
 ]
 PYRAMID = {"op": "pyramid_pooling", "kernel": 2, "input": 0, "target_size_factor": [2, 2]}
+# The reference's Xception ASPP (bench.py:58-74, tests/test_sharding.py:103).
+XCEPTION_MIDDLE = [
+    {"op": "conv", "kernel": 3, "rate": [1, 1], "input": -1},
+    {"op": "conv", "kernel": 3, "rate": [6, 6], "input": 0},
+    {"op": "conv", "kernel": 3, "rate": [12, 12], "input": 0},
+    {"op": "conv", "kernel": 3, "rate": [18, 18], "input": 0},
+    {"op": "pyramid_pooling", "kernel": 1, "input": 0, "target_size_factor": [1, 1]},
+]
 
 
 def conf_dict(image_size=64, output_stride=16, refine=True, pyramid=False, **extra):
@@ -38,6 +46,14 @@ def conf_dict(image_size=64, output_stride=16, refine=True, pyramid=False, **ext
         },
     }
     d.update(extra)
+    return d
+
+
+def xception_conf_dict(image_size=64, output_stride=16, **extra):
+    """Xception + the reference's Xception ASPP, otherwise the flagship's."""
+    d = conf_dict(image_size, output_stride, **extra)
+    d["base_model"] = "xception"
+    d["nn_arch"]["encoder_middle_conf"] = copy.deepcopy(XCEPTION_MIDDLE)
     return d
 
 
@@ -84,3 +100,24 @@ def port_model(conf: dict, variables):
     model = DeepLabV3Plus(Config.from_dict(conf))
     load_jax_variables(model, variables)
     return model.to(memory_format=torch.channels_last).eval()
+
+
+def calibrate_bn(module, *args, **kwargs):
+    """Set every BN's running statistics of the port's ``module`` to one
+    batch's (a train-mode forward with Keras momentum 0), then eval mode.
+    Random weights through Xception's residual stacks otherwise grow the
+    activations by orders of magnitude; this keeps them O(1)."""
+    import torch
+
+    from deeplabv3plus_keras_tpu_torch.models.blocks import BatchNorm
+
+    bns = [m for m in module.modules() if isinstance(m, BatchNorm)]
+    saved = [m.momentum for m in bns]
+    for m in bns:
+        m.momentum = 0.0
+    module.train()
+    with torch.no_grad():
+        module(*args, **kwargs)
+    module.eval()
+    for m, mom in zip(bns, saved):
+        m.momentum = mom
