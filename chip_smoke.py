@@ -238,6 +238,7 @@ def check_depthwise(sites, g, rows):
     import torch.nn.functional as F
 
     from deeplabv3plus_keras_tpu_torch.kernels import depthwise_conv, depthwise_conv_plain, same_pads
+    from deeplabv3plus_keras_tpu_torch.kernels.depthwise import _fwd_plan, _ptr_align
 
     distinct = {}
     for shape, stride, dil, mod in sites:
@@ -255,9 +256,14 @@ def check_depthwise(sites, g, rows):
         err = (y - ref).abs().max().item()
         scale = ref.abs().max().item()
         ok = err <= 1e-5 * scale
-        _, ph, _ = same_pads(H, k, stride, dil[0])
-        _, pw, _ = same_pads(W, k, stride, dil[1])
+        # cuDNN pads symmetrically: where TF pads (0, 1) (stride 2, even
+        # size) it gets (1, 1), so that it computes as many outputs as the
+        # kernel from the same input (a window one pixel up and left)
+        ph = max(same_pads(H, k, stride, dil[0])[1:])
+        pw = max(same_pads(W, k, stride, dil[1])[1:])
         lib = lambda: F.conv2d(x, w, stride=stride, padding=(ph, pw), dilation=dil, groups=C)  # noqa: E731
+        if lib().shape != y.shape:
+            raise SystemExit(f"library call's output {tuple(lib().shape)} is not {tuple(y.shape)}")
         row = {
             "kernel": f"depthwise_fwd_s{stride}", "shape_nchw": list(shape), "k": k,
             "stride": stride, "dilation": list(dil), "per_forward": mult,
@@ -267,7 +273,16 @@ def check_depthwise(sites, g, rows):
             "library_ms": cuda_ms(lib),
         }
         b_ms, b_by = bound((x.numel() + y.numel()) * 4 + w.numel() * 4, 2 * k * k * y.numel())
-        row.update(bound_ms=b_ms, bound_by=b_by)
+        plan = _fwd_plan(B, C, H, W, k, stride, tuple(dil), x.dtype, _ptr_align(x, y))
+        row.update(bound_ms=b_ms, bound_by=b_by, plan={
+            "variant": plan.variant, "vec": plan.vec, "tile_hwc": [plan.th, plan.tw, plan.cb],
+            "threads": plan.threads, "grid": list(plan.grid), "smem": plan.smem})
+        pt, pl = same_pads(H, k, stride, dil[0])[1], same_pads(W, k, stride, dil[1])[1]
+        if (pt, pl) != (ph, pw):
+            # the yardstick of earlier runs, timed beside it: the before
+            # pads alone, which gives one output row and column fewer
+            row["library_before_pads_ms"] = cuda_ms(
+                lambda: F.conv2d(x, w, stride=stride, padding=(pt, pl), dilation=dil, groups=C))
         rows.append(row)
         print(json.dumps({"site": row}))
         if not ok:
@@ -752,6 +767,36 @@ def check_training_against_cpu(conf: dict, name: str) -> None:
         raise SystemExit(f"{name}: card loss {lg} vs CPU float64 {l64}: rel {rel}")
 
 
+def forward_summary(rows) -> dict:
+    """K2/K3 against cuDNN and the byte bound, from the site rows: sums
+    over one forward of each model, the worst undilated site whose bound
+    is at least 0.015 ms, and every dilated site.  ``library_before_pads_ms``
+    sums the library call as earlier runs timed it (before pads only,
+    where they differ from the symmetric pads)."""
+    out = {}
+    for name in ("depthwise_fwd_s1", "depthwise_fwd_s2"):
+        fwd = [r for r in rows if r["kernel"] == name]
+        for model in sorted({r["model"] for r in fwd}):
+            sites = [r for r in fwd if r["model"] == model]
+            ms, lib, bnd = (sum(r["per_forward"] * r[f] for r in sites)
+                            for f in ("ms", "library_ms", "bound_ms"))
+            before = sum(r["per_forward"] * r.get("library_before_pads_ms", r["library_ms"])
+                         for r in sites)
+            out[f"{name}/{model}"] = {"ms": ms, "library_ms": lib, "bound_ms": bnd,
+                                      "x_library": ms / lib, "x_bound": ms / bnd,
+                                      "library_before_pads_ms": before}
+        big = [r for r in fwd if r["dilation"] == [1, 1] and r["bound_ms"] >= 0.015]
+        if big:
+            worst = max(big, key=lambda r: r["ms"] / r["library_ms"])
+            out[f"{name}/worst_undilated_x_library"] = [worst["shape_nchw"],
+                                                         worst["ms"] / worst["library_ms"]]
+        dil = [[r["shape_nchw"], r["dilation"], r["ms"] / r["library_ms"]]
+               for r in fwd if r["dilation"] != [1, 1]]
+        if dil:
+            out[f"{name}/dilated_x_library"] = dil
+    return out
+
+
 def depthwise_expect(sites, train: bool) -> dict:
     """Launches per ``segment()`` call (K1 once) or per train step (no K1,
     a backward launch beside each forward one) of a model whose forward
@@ -864,6 +909,12 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.build_all()
     print(json.dumps({"kernel_build_s": time.perf_counter() - t0, "sources": _build.sources()}))
+    # what ptxas makes of K2/K3's instantiations: registers and spills
+    ptxas = _build.ptxas_report("depthwise_fwd")
+    print(json.dumps({"ptxas_depthwise_fwd": ptxas}))
+    spilled = [r["kernel"] for r in ptxas if r.get("spill_stores") or r.get("spill_loads")]
+    if spilled or not ptxas:
+        raise SystemExit(f"depthwise_fwd.cu: ptxas reports spills in {spilled} (or no kernels)")
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -884,6 +935,7 @@ def main() -> int:
     agg.update(a)
     by_path.update(p)
     (OUT / "kernel_sites.json").write_text(json.dumps({"card": card, "sites": rows}, indent=1))
+    print(json.dumps({"depthwise_forward_summary": forward_summary(rows), "card": card}))
 
     out = []
     for name in ("upsample_argmax", "depthwise_fwd_s1", "depthwise_fwd_s2",

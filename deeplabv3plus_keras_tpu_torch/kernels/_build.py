@@ -17,6 +17,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -52,6 +53,33 @@ def build_command(src: Path, out: Path, nvcc: str = "nvcc") -> list[str]:
         "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
         "-o", str(out), str(src),
     ]
+
+
+def ptxas_report(name: str) -> list[dict]:
+    """What ``nvcc -Xptxas -v`` says of each kernel of ``csrc/<name>.cu``
+    (one extra ``-cubin`` compile with the build's flags): registers,
+    spill stores and spill loads in bytes, per kernel, names demangled
+    where ``c++filt`` exists."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    cmd = build_command(CSRC / f"{name}.cu", BUILD_DIR / f"{name}.cubin", nvcc_path())
+    cmd = [a for a in cmd if a not in ("-shared", "-Xcompiler", "-fPIC")] + ["-cubin", "-Xptxas", "-v"]
+    done = subprocess.run(cmd, capture_output=True, text=True, check=True)
+    log = done.stderr + done.stdout
+    rows, cur = [], None
+    for line in log.splitlines():
+        if m := re.search(r"Function properties for (\S+)", line):
+            cur = {"kernel": m.group(1)}
+            rows.append(cur)
+        elif cur and (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)):
+            cur["spill_stores"], cur["spill_loads"] = int(m.group(1)), int(m.group(2))
+        elif (m := re.search(r"Used (\d+) registers", line)) and rows:
+            rows[-1]["registers"] = int(m.group(1))
+    if shutil.which("c++filt"):
+        names = subprocess.run(["c++filt"], input="\n".join(r["kernel"] for r in rows),
+                               capture_output=True, text=True, check=True).stdout.splitlines()
+        for r, n in zip(rows, names):
+            r["kernel"] = n
+    return rows
 
 
 def _target(name: str) -> Path:

@@ -19,7 +19,14 @@ On the card the forward is one hand-written CUDA kernel,
 ``csrc/depthwise_bwd.cu`` (dx, and dk as a deterministic two-pass
 reduction), both templated on the stride and joined by a
 ``torch.autograd.Function``.  Both are bound by memory (see the sources'
-notes).
+notes).  The forward's work is laid out by :func:`_fwd_plan`, a pure
+function of the shape: the variant (``tile``: a zero-filled halo window
+per tile in shared memory, one TMA copy each; ``gather``: taps read from
+global memory, for dilated sites), the vector width (16 bytes of channels, or 1 where C
+or a pointer does not allow it), the tile and the grid.  Each call is one
+launch.
+:func:`depthwise_conv_tiled_emulation` walks the same tiles in PyTorch for
+the CPU tests.
 
 Tensors are torch's NCHW logical shape held in ``channels_last`` memory —
 physically NHWC, the layout the kernel indexes and the one cuDNN's convs
@@ -44,6 +51,9 @@ kernels.  :func:`depthwise_route` names the route a site takes.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
+import math
 import os
 
 import torch
@@ -61,6 +71,7 @@ launches = {
 }
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_VARIANT_CODE = {"tile": 0, "gather": 1}
 # dk's first pass aims at this many blocks of 256 threads: 8 on each of
 # the H100's 132 SMs.  A constant, so the row tiles (and with them the
 # order of dk's float sums) depend on the shape alone.
@@ -125,6 +136,171 @@ def _geometry(x: torch.Tensor, k: int, stride: int, dilation):
     return B, C, H, W, Ho, Wo, dh, dw, pt, pl
 
 
+_R = 4  # outputs per thread along W (csrc/depthwise_fwd.cu R)
+
+
+@dataclasses.dataclass(frozen=True)
+class FwdPlan:
+    """How ``csrc/depthwise_fwd.cu`` computes one forward call.
+
+    ``variant`` ``"tile"`` stages each tile's zero-filled input window in
+    shared memory; ``"gather"`` (stride 1, dilated) reads every tap from
+    global memory.  A block computes one tile of ``th`` output rows × ``tw =
+    strips * r`` columns × ``cb = nv * vec`` channels; thread (row, strip,
+    vector) computes ``r`` outputs along W of ``vec`` channels.  ``grid``
+    is (tiles along W × channel blocks, tiles along H, B)."""
+
+    variant: str
+    vec: int
+    nv: int
+    r: int
+    strips: int
+    th: int
+    cblocks: int
+    grid: tuple[int, int, int]
+    smem: int
+    k: int
+    stride: int
+    dilation: tuple[int, int]
+    pads: tuple[int, int]
+    out_hw: tuple[int, int]
+
+    @property
+    def tw(self) -> int:
+        return self.strips * self.r
+
+    @property
+    def cb(self) -> int:
+        return self.nv * self.vec
+
+    @property
+    def threads(self) -> int:
+        return self.nv * self.strips * self.th
+
+    @property
+    def window(self) -> tuple[int, int]:
+        """(rows, columns) of a tile's staged window (tile variant)."""
+        s, (dh, dw) = self.stride, self.dilation
+        return ((self.th - 1) * s + (self.k - 1) * dh + 1,
+                (self.tw - 1) * s + (self.k - 1) * dw + 1)
+
+    def tiles(self):
+        """(b, first channel, first output row, first output column) of every
+        tile, in the kernel's block order: block (x, y, b) decodes
+        ``x = tile_w * cblocks + channel block`` and computes row tile y."""
+        gx, gy, B = self.grid
+        for b in range(B):
+            for y in range(gy):
+                for x in range(gx):
+                    yield b, (x % self.cblocks) * self.cb, y * self.th, (x // self.cblocks) * self.tw
+
+
+def _buf_bytes(rows: int, cols: int, cb: int, itemsize: int) -> int:
+    """Shared bytes of one window buffer, rounded up to 128."""
+    return -(-rows * cols * cb * itemsize // 128) * 128
+
+
+@functools.lru_cache(maxsize=512)
+def _fwd_plan(B: int, C: int, H: int, W: int, k: int, stride: int, dilation,
+              dtype: torch.dtype, ptr_align: int) -> FwdPlan:
+    """The forward kernel's plan for one call, from the shape alone.
+
+    - Variant: ``gather`` at a dilated site (its window would be mostly
+      padding, or re-read (k−1)·d halo rows per tile), else ``tile``.
+    - Vector width: 16 bytes of channels (4 float32, 8 bfloat16) when C is
+      a multiple of it and x and y are 16-byte aligned (``ptr_align``, the
+      largest power of two dividing both pointers), else 1 (the narrow
+      instantiation).
+    - Lanes: 8 channel vectors (one 128-byte line per pixel) or, narrow, up
+      to 32 channels; 2 strips of ``r`` = 4 columns and 8 rows, the tile
+      chosen from those tried at the flagship's sites on the H100
+      (PERF.md §6)."""
+    dh, dw = int(dilation[0]), int(dilation[1])
+    Ho, pt, _ = same_pads(H, k, stride, dh)
+    Wo, pl, _ = same_pads(W, k, stride, dw)
+    itemsize = dtype.itemsize
+    full = 16 // itemsize
+    vec = full if C % full == 0 and ptr_align % 16 == 0 else 1
+    nvec = -(-C // vec)
+    nv = min(nvec, 8 if vec > 1 else 32)
+    cblocks = -(-nvec // nv)
+    variant = "tile" if (dh, dw) == (1, 1) else "gather"
+    strips = max(1, min(2, -(-Wo // _R)))
+    th = min(8, 256 // (nv * strips))  # at most 256 threads a block
+    smem = 0
+    if variant == "tile":
+        rows, cols = (th - 1) * stride + k, (strips * _R - 1) * stride + k
+        # the window, a 16-byte slot for the barrier, the taps when k > 3
+        smem = (_buf_bytes(rows, cols, nv * vec, itemsize) + 16
+                + (k * k * nv * vec * 4 if k > 3 else 0))
+    grid = (-(-Wo // (strips * _R)) * cblocks, -(-Ho // th), B)
+    if grid[0] >= 2**31 or grid[1] > 65535 or B > 65535:
+        raise ValueError(f"depthwise plan: grid {grid} too large")
+    return FwdPlan(variant, vec, nv, _R, strips, th, cblocks, grid, smem, k, stride,
+                   (dh, dw), (pt, pl), (Ho, Wo))
+
+
+def _ptr_align(*ts: torch.Tensor) -> int:
+    """The largest power of two (≤ 16) dividing every tensor's address."""
+    p = 16
+    for t in ts:
+        p = math.gcd(p, t.data_ptr())
+    return p
+
+
+def depthwise_conv_tiled_emulation(
+    x: torch.Tensor, weight: torch.Tensor, stride: int, dilation, plan: FwdPlan
+) -> torch.Tensor:
+    """The forward kernel's decomposition in PyTorch, for tests: walks the
+    plan's tiles in the kernel's order and computes each tile's outputs
+    from what the kernel gives that tile alone.
+
+    - ``tile``: the zero-filled window ``plan.window`` whose top-left input
+      pixel is (ho0·S − pad_t, wo0·S − pad_l), channels [c0, c0 + cb);
+    - ``gather``: the k row bands and k column bands the taps reach, each
+      element zero where it falls outside the image.
+    Outputs past the map or past C are computed and dropped, as the kernel
+    masks its stores."""
+    B, C, H, W = x.shape
+    k = weight.shape[-1]
+    s = stride
+    dh, dw = int(dilation[0]), int(dilation[1])
+    (Ho, Wo), (pt, pl) = plan.out_hw, plan.pads
+    xs = x.permute(0, 2, 3, 1)  # NHWC, as the kernel indexes memory
+    taps = weight.reshape(C, k, k).permute(1, 2, 0).to(x.dtype)  # (ky, kx, C)
+    y = torch.full((B, Ho, Wo, C), float("nan"), dtype=x.dtype)
+    th, tw, cb = plan.th, plan.tw, plan.cb
+
+    def gathered(idx, n):  # clamp and a mask: zero outside [0, n)
+        idx = torch.as_tensor(idx)
+        return idx.clamp(0, n - 1), (idx >= 0) & (idx < n)
+
+    for b, c0, ho0, wo0 in plan.tiles():
+        cs = torch.arange(c0, c0 + cb)
+        cin = cs < C
+        cc = cs.clamp(max=C - 1)
+        tap = taps[:, :, cc] * cin
+        if plan.variant == "tile":
+            rows, cols = plan.window
+            ry, my = gathered(range(ho0 * s - pt, ho0 * s - pt + rows), H)
+            rx, mx = gathered(range(wo0 * s - pl, wo0 * s - pl + cols), W)
+            win = xs[b][ry][:, rx][:, :, cc] * (my[:, None, None] & mx[None, :, None] & cin)
+            out = sum(win[ky * dh: ky * dh + (th - 1) * s + 1: s,
+                          kx * dw: kx * dw + (tw - 1) * s + 1: s] * tap[ky, kx]
+                      for ky in range(k) for kx in range(k))
+        else:  # gather: row band ky holds input rows ho·S − pad_t + ky·dh
+            out = 0
+            for ky in range(k):
+                ry, my = gathered([(ho0 + i) * s - pt + ky * dh for i in range(th)], H)
+                for kx in range(k):
+                    rx, mx = gathered([(wo0 + j) * s - pl + kx * dw for j in range(tw)], W)
+                    band = xs[b][ry][:, rx][:, :, cc] * (my[:, None, None] & mx[None, :, None])
+                    out = out + band * tap[ky, kx]
+        hn, wn, cn = min(th, Ho - ho0), min(tw, Wo - wo0), min(cb, C - c0)
+        y[b, ho0:ho0 + hn, wo0:wo0 + wn, c0:c0 + cn] = out[:hn, :wn, :cn]
+    return y.permute(0, 3, 1, 2)
+
+
 def _taps(weight: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """(C, 1, k, k) → (k*k, C) float32 tap table, tap t = ky*k + kx; taps
     are rounded to the activations' dtype first, as the plain version's
@@ -138,6 +314,7 @@ def _stream(x: torch.Tensor) -> int:
 
 
 def _launch(x: torch.Tensor, weight: torch.Tensor, stride: int, dilation):
+    """One launch of the forward kernel, by :func:`_fwd_plan`'s plan."""
     k = weight.shape[-1]
     B, C, H, W, Ho, Wo, dh, dw, pt, pl = _geometry(x, k, stride, dilation)
     taps = _taps(weight, x.dtype)
@@ -145,14 +322,17 @@ def _launch(x: torch.Tensor, weight: torch.Tensor, stride: int, dilation):
         (B, C, Ho, Wo), dtype=x.dtype, device=x.device,
         memory_format=torch.channels_last,
     )
+    plan = _fwd_plan(B, C, H, W, k, stride, (dh, dw), x.dtype, _ptr_align(x, y))
     fn = _build.function(
         "depthwise_fwd", "dw_fwd",
-        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 13 + [ctypes.c_void_p],
+        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 23 + [ctypes.c_void_p],
     )
     with torch.cuda.device(x.device):
         rc = fn(
             x.data_ptr(), taps.data_ptr(), y.data_ptr(), _DTYPE_CODE[x.dtype],
-            B, H, W, C, Ho, Wo, k, stride, dh, dw, pt, pl, _stream(x),
+            B, H, W, C, Ho, Wo, k, stride, dh, dw, pt, pl,
+            _VARIANT_CODE[plan.variant], plan.vec, plan.nv, plan.r, plan.strips, plan.th,
+            plan.cblocks, plan.grid[0], plan.grid[1], plan.smem, _stream(x),
         )
     if rc != 0:
         raise RuntimeError(f"depthwise_fwd launch failed: CUDA error {rc}")

@@ -23,7 +23,11 @@ from deeplabv3plus_keras_tpu_torch.kernels import (
 )
 
 # (B, H, W, C), k, stride, dilation: taps wholly in the padding, odd sizes
-# at stride 2, k 5 and 7, and one backbone-like stride-2 site.
+# at stride 2, k 5 and 7, one backbone-like stride-2 site, and for the
+# forward plan (kernels/depthwise.py _fwd_plan): tiles cut on both axes at
+# stride 1 (C = 40, 4-channel vectors), odd sizes and C = 21 at stride 2
+# (the narrow instantiation), C = 3 at k 5 with dilation (the gather
+# variant, narrow).
 DEPTHWISE_CASES = [
     ((2, 4, 4, 16), 3, 1, (18, 15)),
     ((1, 4, 4, 8), 3, 1, (6, 21)),
@@ -31,6 +35,9 @@ DEPTHWISE_CASES = [
     ((1, 7, 9, 8), 3, 2, (1, 1)),
     ((1, 6, 6, 8), 7, 2, (1, 1)),
     ((2, 64, 64, 96), 3, 2, (1, 1)),
+    ((2, 37, 45, 40), 3, 1, (1, 1)),
+    ((1, 33, 31, 21), 3, 2, (1, 1)),
+    ((1, 9, 11, 3), 5, 1, (2, 2)),
 ]
 
 
@@ -55,6 +62,41 @@ def test_depthwise_kernel_matches_plain(card, shape, k, stride, dil):
     assert y.is_contiguous(memory_format=torch.channels_last)
     # float32 sums of k² products in another order than cuDNN's
     torch.testing.assert_close(y, depthwise_conv_plain(x, w, stride, dil), atol=1e-5, rtol=1e-5)
+
+
+# (B, H, W, C), k, stride, dilation, dtype, storage offset in elements:
+# bfloat16 with C = 12 (not a multiple of 8: narrow), bfloat16 vectors at
+# both strides, and an x whose data_ptr is not 16-byte aligned.
+FWD_EDGE_CASES = [
+    ((2, 13, 17, 12), 3, 1, (1, 1), torch.bfloat16, 0),
+    ((2, 21, 19, 64), 3, 2, (1, 1), torch.bfloat16, 0),
+    ((1, 16, 16, 64), 3, 1, (4, 2), torch.bfloat16, 0),
+    ((2, 19, 23, 40), 3, 1, (1, 1), torch.float32, 1),
+    ((1, 18, 20, 40), 5, 2, (1, 1), torch.float32, 1),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,k,stride,dil,dtype,offset", FWD_EDGE_CASES)
+def test_depthwise_kernel_edges_match_plain(card, shape, k, stride, dil, dtype, offset):
+    """Against the plain version in float64 on the same (rounded) inputs
+    and taps: 1e-5 of its max for float32, 1e-2 for bfloat16 (the output's
+    rounding).  ``offset`` shifts x's storage by that many elements, so the
+    plan must take the narrow instantiation."""
+    B, H, W, C = shape
+    base = torch.randn(B * H * W * C + offset, device="cuda", generator=card).to(dtype)
+    x = base[offset:].view(B, H, W, C).permute(0, 3, 1, 2)
+    assert x.is_contiguous(memory_format=torch.channels_last)
+    assert (x.data_ptr() % 16 != 0) == (offset != 0)
+    w = torch.randn(C, 1, k, k, device="cuda", generator=card)
+    name = f"depthwise_fwd_s{stride}"
+    before = kernels.launch_counts()[name]
+    y = depthwise_conv(x, w, stride, dil)
+    assert kernels.launch_counts()[name] == before + 1
+    assert y.dtype == dtype and y.is_contiguous(memory_format=torch.channels_last)
+    ref = depthwise_conv_plain(x.double(), w.to(dtype).double(), stride, dil)
+    rel = 1e-5 if dtype == torch.float32 else 1e-2
+    assert (y.double() - ref).abs().max() <= rel * ref.abs().max()
 
 
 def _dw_inputs(card, shape, k, stride, dtype):
