@@ -6,8 +6,9 @@ toolkit:
 
     python3 chip_smoke.py
 
-It builds the port's CUDA kernels from ``deeplabv3plus_keras_tpu_torch/csrc``,
-then drives two models, each with random weights from a seed and BN
+It builds the port's CUDA kernels from ``deeplabv3plus_keras_tpu_torch/csrc``
+(and prints what ``ptxas`` makes of the NHWC depthwise kernels' every
+instantiation, failing on a register spill), then drives two models, each with random weights from a seed and BN
 statistics set from its first batch, at 512², float32, B=16:
 
 - the flagship (MobileNetV2, output stride 16, boundary refinement, 21
@@ -21,10 +22,11 @@ statistics set from its first batch, at 512², float32, B=16:
 For each model it
 
 1. holds every kernel of its paths against its plain PyTorch version at
-   every site shape the serving and training paths give it (TF32 off), and
-   times kernel, plain version and the nearest PyTorch library call with
-   CUDA events (K6/K7 also as the whole channels-first route with its two
-   layout copies, and beside K2/K4 at the same site);
+   every site shape the serving and training paths give it (TF32 off; the
+   backward kernels' dk also bit for bit across two runs), and times
+   kernel, plain version and the nearest PyTorch library call with CUDA
+   events (K6/K7 also as the whole channels-first route with its two
+   layout copies, and beside K2/K4 at the same site, K4 checked there too);
 2. serves it through ``SemanticSegmentation(conf, device="cuda").segment()``
    on 4 batches, checks the labels, the kernels' launch counts per call,
    and one image against the same weights served on the CPU, and reports
@@ -36,8 +38,9 @@ For each model it
    then one step at 2 × 128² on the card and on the CPU from the same
    weights, whose losses and gradients must agree.
 
-Then it prints one JSON line of kernel results (K1-K7), the card's name and
-power limit, and as its last line ``{"ok": true, "device": {...}}``.
+Then it prints the forward and backward depthwise summaries against cuDNN
+and the byte bound, one JSON line of kernel results (K1-K7), the card's
+name and power limit, and as its last line ``{"ok": true, "device": {...}}``.
 
 Any failed check exits non-zero.  Long outputs (the per-site table
 ``kernel_sites.json``, the profiles ``[xception_]segment_profile.txt`` and
@@ -55,6 +58,7 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 MEM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 (NVIDIA data sheet)
@@ -311,6 +315,7 @@ def check_depthwise_backward(sites, g, rows):
         depthwise_conv_backward_plain,
         same_pads,
     )
+    from deeplabv3plus_keras_tpu_torch.kernels.depthwise import _bwd_plan, _ptr_align
 
     cl = torch.channels_last
     distinct = {}
@@ -327,15 +332,19 @@ def check_depthwise_backward(sites, g, rows):
         x = torch.randn(shape, device="cuda", generator=g).contiguous(memory_format=cl)
         gout = torch.randn((B, C, Ho, Wo), device="cuda", generator=g).contiguous(memory_format=cl)
         dx, dk = depthwise_conv_backward(x, w, gout, stride, dil)
+        dx2, dk2 = depthwise_conv_backward(x, w, gout, stride, dil)
         rdx, rdk = depthwise_conv_backward_plain(x, w, gout, stride, dil)
         _, dk_abs = depthwise_conv_backward_plain(x.abs(), w, gout.abs(), stride, dil)
         torch.cuda.synchronize()
         dx_err = (dx - rdx).abs().max().item()
         dx_scale = rdx.abs().max().item()
         dk_err = (dk - rdk).abs().max().item()
-        # dk: 1e-4 of Σ|x·g| per tap and channel, the float32 sum's scale
+        # dk: 1e-4 of Σ|x·g| per tap and channel, the float32 sum's scale;
+        # no atomics, so two runs give the same bits
         dk_ok = bool(((dk - rdk).abs() <= 1e-4 * dk_abs).all())
-        ok = dx_err <= 1e-5 * dx_scale and dk_ok
+        same_bits = torch.equal(dk, dk2) and torch.equal(dx, dx2)
+        ok = dx_err <= 1e-5 * dx_scale and dk_ok and same_bits
+        del dx2, dk2
         if pt == pb and pl == pr:  # cuDNN pads symmetrically itself
             lib_x, lib_pad = x, [pt, pl]
         else:  # stride 2, TF SAME (0, 1): pad once, outside the timed call
@@ -348,7 +357,7 @@ def check_depthwise_backward(sites, g, rows):
             "kernel": name, "shape_nchw": list(shape), "k": k, "stride": stride,
             "dilation": list(dil), "per_step": mult, "max_abs_err": max(dx_err, dk_err),
             "dx_max_abs_err": dx_err, "dx_max_abs_ref": dx_scale, "dk_max_abs_err": dk_err,
-            "dk_max_abs_ref": rdk.abs().max().item(), "ok": ok,
+            "dk_max_abs_ref": rdk.abs().max().item(), "dk_bit_reproducible": same_bits, "ok": ok,
             "ms": cuda_ms(lambda: depthwise_conv_backward(x, w, gout, stride, dil)),
             "plain_ms": cuda_ms(lambda: depthwise_conv_backward_plain(x, w, gout, stride, dil)),
             "library_ms": cuda_ms(lib),
@@ -357,7 +366,11 @@ def check_depthwise_backward(sites, g, rows):
         # element for dx and again for dk
         b_ms, b_by = bound((x.numel() + gout.numel() + dx.numel()) * 4 + 2 * w.numel() * 4,
                            4 * k * k * gout.numel())
-        row.update(bound_ms=b_ms, bound_by=b_by)
+        plan = _bwd_plan(B, C, H, W, k, stride, tuple(dil), x.dtype, _ptr_align(x, gout, dx))
+        row.update(bound_ms=b_ms, bound_by=b_by, plan={
+            "variant": plan.variant, "vec": plan.vec, "tile_hwc": [plan.th, plan.tw, plan.cb],
+            "threads": plan.threads, "walk": plan.walk, "grid": list(plan.grid), "smem": plan.smem,
+            "dk_buffer": list(plan.dk_buffer)})
         rows.append(row)
         print(json.dumps({"site": row}))
         if not ok:
@@ -428,7 +441,13 @@ def check_cf(sites, g, rows):
         # of Σ|x·g| per tap and channel, the float32 sum's scale
         fwd_ok = y_err <= 1e-5 * y_scale
         bwd_ok = dx_err <= 1e-5 * dx_scale and bool(((dk - rdk).abs() <= 1e-4 * dk_abs).all())
-        del y, ref, dx, dx2, dk2, rdx, dk_abs
+        with dw_layout("nhwc"):  # K4 at the same site, by the same rule, two runs
+            ndx, ndk = depthwise_conv_backward(x_cl, w, g_cl)
+            ndx2, ndk2 = depthwise_conv_backward(x_cl, w, g_cl)
+        k4_ok = ((ndx - rdx).abs().max().item() <= 1e-5 * dx_scale
+                 and bool(((ndk - rdk).abs() <= 1e-4 * dk_abs).all())
+                 and torch.equal(ndk, ndk2) and torch.equal(ndx, ndx2))
+        del y, ref, dx, dx2, dk2, rdx, dk_abs, ndx, ndk, ndx2, ndk2
         with dw_layout("bhcw"):
             route_f = cuda_ms(lambda: depthwise_conv(x_cl, w))
             route_b = cuda_ms(lambda: depthwise_conv_backward(x_cl, w, g_cl))
@@ -455,7 +474,8 @@ def check_cf(sites, g, rows):
             ok=bwd_ok and same_bits,
             ms=cuda_ms(lambda: depthwise_cf_backward(x, w, gout)), route_ms=route_b,
             plain_ms=cuda_ms(lambda: depthwise_conv_backward_plain(x, w, gout)),
-            library_ms=cuda_ms(lib), nhwc_kernel="depthwise_bwd_s1", nhwc_kernel_ms=k4_ms)
+            library_ms=cuda_ms(lib), nhwc_kernel="depthwise_bwd_s1", nhwc_kernel_ms=k4_ms,
+            nhwc_kernel_ok=k4_ok)
         # x and g read once, dx written once; 9 multiply-adds per element
         # for dx and again for dk
         b_ms, b_by = bound((x.numel() * 3 + 2 * w.numel()) * 4, 4 * 9 * x.numel())
@@ -463,8 +483,8 @@ def check_cf(sites, g, rows):
         for row in (fwd, bwd):
             rows.append(row)
             print(json.dumps({"site": row}))
-            if not row["ok"]:
-                raise SystemExit(f"channels-first kernel disagrees with plain at {row}")
+            if not row["ok"] or not row.get("nhwc_kernel_ok", True):
+                raise SystemExit(f"channels-first kernel (or K4 beside it) disagrees with plain at {row}")
             _add_site(agg, row, mult)
     # bfloat16 (not on the float32 paths): one site, against float64
     x = torch.randn(16, 128, 127, 127, device="cuda", generator=g).bfloat16()
@@ -767,33 +787,57 @@ def check_training_against_cpu(conf: dict, name: str) -> None:
         raise SystemExit(f"{name}: card loss {lg} vs CPU float64 {l64}: rel {rel}")
 
 
+def kernel_summary(rows, name: str, per: str) -> dict:
+    """One kernel against its library call and the byte bound, from the
+    site rows: sums over one pass of each model's sites that run it
+    (``per``: the rows' calls a pass), the worst undilated site whose bound
+    is at least 0.015 ms, and every dilated site."""
+    out = {}
+    krows = [r for r in rows if r["kernel"] == name]
+    for model in sorted({r["model"] for r in krows}):
+        sites = [r for r in krows if r["model"] == model]
+        ms, lib, bnd = (sum(r[per] * r[f] for r in sites) for f in ("ms", "library_ms", "bound_ms"))
+        out[f"{name}/{model}"] = {"ms": ms, "library_ms": lib, "bound_ms": bnd,
+                                  "x_library": ms / lib, "x_bound": ms / bnd}
+    big = [r for r in krows if r["dilation"] == [1, 1] and r["bound_ms"] >= 0.015]
+    if big:
+        worst = max(big, key=lambda r: r["ms"] / r["library_ms"])
+        out[f"{name}/worst_undilated_x_library"] = [worst["shape_nchw"], worst["ms"] / worst["library_ms"]]
+    dil = [[r["shape_nchw"], r["dilation"], r["ms"] / r["library_ms"]]
+           for r in krows if r["dilation"] != [1, 1]]
+    if dil:
+        out[f"{name}/dilated_x_library"] = dil
+    return out
+
+
 def forward_summary(rows) -> dict:
-    """K2/K3 against cuDNN and the byte bound, from the site rows: sums
-    over one forward of each model, the worst undilated site whose bound
-    is at least 0.015 ms, and every dilated site.  ``library_before_pads_ms``
-    sums the library call as earlier runs timed it (before pads only,
-    where they differ from the symmetric pads)."""
+    """K2/K3 by :func:`kernel_summary` over one forward of each model;
+    ``library_before_pads_ms`` sums the library call as earlier runs timed
+    it (before pads only, where they differ from the symmetric pads)."""
     out = {}
     for name in ("depthwise_fwd_s1", "depthwise_fwd_s2"):
-        fwd = [r for r in rows if r["kernel"] == name]
-        for model in sorted({r["model"] for r in fwd}):
-            sites = [r for r in fwd if r["model"] == model]
-            ms, lib, bnd = (sum(r["per_forward"] * r[f] for r in sites)
-                            for f in ("ms", "library_ms", "bound_ms"))
-            before = sum(r["per_forward"] * r.get("library_before_pads_ms", r["library_ms"])
-                         for r in sites)
-            out[f"{name}/{model}"] = {"ms": ms, "library_ms": lib, "bound_ms": bnd,
-                                      "x_library": ms / lib, "x_bound": ms / bnd,
-                                      "library_before_pads_ms": before}
-        big = [r for r in fwd if r["dilation"] == [1, 1] and r["bound_ms"] >= 0.015]
-        if big:
-            worst = max(big, key=lambda r: r["ms"] / r["library_ms"])
-            out[f"{name}/worst_undilated_x_library"] = [worst["shape_nchw"],
-                                                         worst["ms"] / worst["library_ms"]]
-        dil = [[r["shape_nchw"], r["dilation"], r["ms"] / r["library_ms"]]
-               for r in fwd if r["dilation"] != [1, 1]]
-        if dil:
-            out[f"{name}/dilated_x_library"] = dil
+        out.update(kernel_summary(rows, name, "per_forward"))
+        for model in sorted({r["model"] for r in rows if r["kernel"] == name}):
+            out[f"{name}/{model}"]["library_before_pads_ms"] = sum(
+                r["per_forward"] * r.get("library_before_pads_ms", r["library_ms"])
+                for r in rows if r["kernel"] == name and r["model"] == model)
+    return out
+
+
+def backward_summary(rows) -> dict:
+    """K4/K5 by :func:`kernel_summary` over one train step of each model,
+    against cuDNN's ``convolution_backward``, and K4 at Xception's
+    undilated sites under ``nhwc`` (``nhwc_kernel_ms``, beside K7 and the
+    ``bhcw`` route)."""
+    out = {}
+    for name in ("depthwise_bwd_s1", "depthwise_bwd_s2"):
+        out.update(kernel_summary(rows, name, "per_step"))
+    cf = [r for r in rows if r["kernel"] == "depthwise_bwd_cf"]
+    if cf:
+        out["depthwise_bwd_s1/xception_undilated_nhwc"] = {
+            f: sum(r["per_step"] * r[k] for r in cf)
+            for f, k in (("nhwc_kernel_ms", "nhwc_kernel_ms"), ("k7_ms", "ms"), ("bhcw_route_ms", "route_ms"),
+                         ("library_ms", "library_ms"))}
     return out
 
 
@@ -907,14 +951,18 @@ def main() -> int:
     print(json.dumps({"python": sys.version.split()[0], "torch": torch.__version__,
                       "cuda": torch.version.cuda}))
     t0 = time.perf_counter()
-    _build.build_all()
-    print(json.dumps({"kernel_build_s": time.perf_counter() - t0, "sources": _build.sources()}))
-    # what ptxas makes of K2/K3's instantiations: registers and spills
-    ptxas = _build.ptxas_report("depthwise_fwd")
-    print(json.dumps({"ptxas_depthwise_fwd": ptxas}))
-    spilled = [r["kernel"] for r in ptxas if r.get("spill_stores") or r.get("spill_loads")]
-    if spilled or not ptxas:
-        raise SystemExit(f"depthwise_fwd.cu: ptxas reports spills in {spilled} (or no kernels)")
+    # what ptxas makes of K2-K5's instantiations (registers and spills),
+    # compiled beside the build
+    with ThreadPoolExecutor(3) as pool:
+        reports = {n: pool.submit(_build.ptxas_report, n) for n in ("depthwise_fwd", "depthwise_bwd")}
+        _build.build_all()
+        print(json.dumps({"kernel_build_s": time.perf_counter() - t0, "sources": _build.sources()}))
+        for name, report in reports.items():
+            ptxas = report.result()
+            print(json.dumps({f"ptxas_{name}": ptxas}))
+            spilled = [r["kernel"] for r in ptxas if r.get("spill_stores") or r.get("spill_loads")]
+            if spilled or not ptxas:
+                raise SystemExit(f"{name}.cu: ptxas reports spills in {spilled} (or no kernels)")
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -936,6 +984,7 @@ def main() -> int:
     by_path.update(p)
     (OUT / "kernel_sites.json").write_text(json.dumps({"card": card, "sites": rows}, indent=1))
     print(json.dumps({"depthwise_forward_summary": forward_summary(rows), "card": card}))
+    print(json.dumps({"depthwise_backward_summary": backward_summary(rows), "card": card}))
 
     out = []
     for name in ("upsample_argmax", "depthwise_fwd_s1", "depthwise_fwd_s2",

@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` becomes one shared library with a plain C
 interface, ``build/kernels/<name>-<hash>.so`` at the repository root, keyed
-by a hash of the source and the build command, so an edited source builds
-anew and an unchanged one is reused.  Nothing is built when a module is
+by a hash of the source, the ``csrc/*.cuh`` headers it includes and the
+build command, so an edited source or header builds anew and an unchanged
+one is reused.  Nothing is built when a module is
 imported: :func:`load` builds on the first call that needs a kernel, and
 :func:`build_all` starts one ``nvcc`` per source, all at once, for callers
 that want every kernel ready up front.
@@ -82,9 +83,19 @@ def ptxas_report(name: str) -> list[dict]:
     return rows
 
 
+def _headers(src: Path) -> list[Path]:
+    """The ``csrc/*.cuh`` headers ``src`` includes (``#include "x.cuh"``),
+    in order."""
+    return [CSRC / inc for inc in re.findall(r'^\s*#\s*include\s+"([^"]+\.cuh)"', src.read_text(), re.M)]
+
+
 def _target(name: str) -> Path:
+    """The library's path, keyed by the source, the headers it includes and
+    the build command: an edited header builds anew too."""
     src = CSRC / f"{name}.cu"
     h = hashlib.sha256(src.read_bytes())
+    for header in _headers(src):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
     h.update(" ".join(build_command(Path("s"), Path("o"))).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 

@@ -72,10 +72,6 @@ launches = {
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _VARIANT_CODE = {"tile": 0, "gather": 1}
-# dk's first pass aims at this many blocks of 256 threads: 8 on each of
-# the H100's 132 SMs.  A constant, so the row tiles (and with them the
-# order of dk's float sums) depend on the shape alone.
-_DK_CHANNELS, _DK_BLOCKS = 32, 132 * 8
 
 
 def same_pads(n: int, k: int, stride: int, dilation: int) -> tuple[int, int, int]:
@@ -200,6 +196,20 @@ def _buf_bytes(rows: int, cols: int, cb: int, itemsize: int) -> int:
     return -(-rows * cols * cb * itemsize // 128) * 128
 
 
+def _lanes(C: int, Wo: int, itemsize: int, ptr_align: int):
+    """(vec, nv, cblocks, strips, th), shared by both plans: 16-byte channel
+    vectors when C and the pointers allow them, else 1; 8 vectors (one
+    128-byte line per pixel) or, narrow, up to 32 channels a block; 2
+    strips of ``r`` = 4 columns (1 on a map narrower than a strip) and 8
+    rows, or fewer rows to stay within 256 threads a block."""
+    full = 16 // itemsize
+    vec = full if C % full == 0 and ptr_align % 16 == 0 else 1
+    nvec = -(-C // vec)
+    nv = min(nvec, 8 if vec > 1 else 32)
+    strips = max(1, min(2, -(-Wo // _R)))
+    return vec, nv, -(-nvec // nv), strips, min(8, 256 // (nv * strips))
+
+
 @functools.lru_cache(maxsize=512)
 def _fwd_plan(B: int, C: int, H: int, W: int, k: int, stride: int, dilation,
               dtype: torch.dtype, ptr_align: int) -> FwdPlan:
@@ -219,14 +229,8 @@ def _fwd_plan(B: int, C: int, H: int, W: int, k: int, stride: int, dilation,
     Ho, pt, _ = same_pads(H, k, stride, dh)
     Wo, pl, _ = same_pads(W, k, stride, dw)
     itemsize = dtype.itemsize
-    full = 16 // itemsize
-    vec = full if C % full == 0 and ptr_align % 16 == 0 else 1
-    nvec = -(-C // vec)
-    nv = min(nvec, 8 if vec > 1 else 32)
-    cblocks = -(-nvec // nv)
+    vec, nv, cblocks, strips, th = _lanes(C, Wo, itemsize, ptr_align)
     variant = "tile" if (dh, dw) == (1, 1) else "gather"
-    strips = max(1, min(2, -(-Wo // _R)))
-    th = min(8, 256 // (nv * strips))  # at most 256 threads a block
     smem = 0
     if variant == "tile":
         rows, cols = (th - 1) * stride + k, (strips * _R - 1) * stride + k
@@ -301,6 +305,275 @@ def depthwise_conv_tiled_emulation(
     return y.permute(0, 3, 1, 2)
 
 
+@dataclasses.dataclass(frozen=True)
+class BwdPlan:
+    """How ``csrc/depthwise_bwd.cu`` computes one backward call.
+
+    The lanes (``vec``, ``nv``, ``strips``, ``th``, ``cblocks``) are the
+    forward's.  A block owns one column of tiles (``th`` × ``tw`` outputs ×
+    ``cb`` channels) and walks ``walk`` consecutive row tiles of the
+    flattened (image, row tile) index, ``nty`` row tiles an image; ``grid``
+    is (``tiles_w`` × channel blocks, ⌈B·nty / walk⌉).  Variant ``tile``
+    stages each tile's x window and g window in shared memory; ``gather``
+    (stride 1, dilated) reads both from global memory, one half of its
+    threads computing dx and the other dk.  With ``stages`` = 2 a tile
+    block copies the next tile's windows while it computes on the current
+    ones.  Each block writes one (k², ``cb``) row of the partial buffer
+    ``dk_buffer``; a final pass sums its rows."""
+
+    variant: str
+    vec: int
+    nv: int
+    r: int
+    strips: int
+    th: int
+    cblocks: int
+    tiles_w: int
+    nty: int
+    walk: int
+    stages: int
+    grid: tuple[int, int]
+    smem: int
+    k: int
+    stride: int
+    dilation: tuple[int, int]
+    pads: tuple[int, int]
+    out_hw: tuple[int, int]
+    batch: int
+    channels: int
+
+    @property
+    def tw(self) -> int:
+        return self.strips * self.r
+
+    @property
+    def cb(self) -> int:
+        return self.nv * self.vec
+
+    @property
+    def threads(self) -> int:
+        """Threads a block: ``gather`` runs dx and dk in two roles."""
+        return (2 if self.variant == "gather" else 1) * self.nv * self.strips * self.th
+
+    @property
+    def dk_buffer(self) -> tuple[int, int, int]:
+        """(rows, k², C) of the float32 partial buffer: a row per block
+        column and block row."""
+        return self.grid[1] * self.tiles_w, self.k * self.k, self.channels
+
+    @property
+    def x_window(self) -> tuple[int, int]:
+        """(rows, columns) of a tile's x window (tile variant): the
+        forward's window."""
+        s = self.stride
+        return (self.th - 1) * s + self.k, (self.tw - 1) * s + self.k
+
+    @property
+    def g_window(self) -> tuple[int, int]:
+        """(rows, columns) of a tile's g window (tile variant): the g tile
+        and a halo of k − 1 at stride 1, (k − 1)/2 before it at stride 2."""
+        if self.stride == 1:
+            return self.th + self.k - 1, self.tw + self.k - 1
+        p = (self.k - 1) // 2
+        return self.th + p, self.tw + p
+
+    def g_origin(self, ho0: int, wo0: int) -> tuple[int, int]:
+        """Top-left g pixel of the g window of the tile at (ho0, wo0)."""
+        if self.stride == 1:
+            (pt, pl), k = self.pads, self.k
+            return ho0 + pt - (k - 1), wo0 + pl - (k - 1)
+        p = (self.k - 1) // 2
+        return ho0 - p, wo0 - p
+
+    @property
+    def dx_tile(self) -> tuple[int, int]:
+        return self.stride * self.th, self.stride * self.tw
+
+    def dx_origin(self, ho0: int, wo0: int) -> tuple[int, int]:
+        """Top-left input pixel of the dx tile of the tile at (ho0, wo0):
+        the output tile at stride 1; (2·ho0 − pad_t, 2·wo0 − pad_l) at
+        stride 2, so the dx tiles partition the input."""
+        if self.stride == 1:
+            return ho0, wo0
+        pt, pl = self.pads
+        return 2 * ho0 - pt, 2 * wo0 - pl
+
+    def blocks(self):
+        """(partial row, first channel, first output column, [(b, first
+        output row), ...] of its walk) of every block, in the kernel's block
+        order: block (x, y) decodes ``x = tile_w * cblocks + channel block``
+        and walks row tiles y·walk … of the flattened (b, row tile) index."""
+        gx, gy = self.grid
+        n = self.batch * self.nty
+        for y in range(gy):
+            for x in range(gx):
+                twi = x // self.cblocks
+                walk = [(rt // self.nty, rt % self.nty * self.th)
+                        for rt in range(y * self.walk, min((y + 1) * self.walk, n))]
+                yield y * self.tiles_w + twi, (x % self.cblocks) * self.cb, twi * self.tw, walk
+
+
+@functools.lru_cache(maxsize=512)
+def _bwd_plan(B: int, C: int, H: int, W: int, k: int, stride: int, dilation,
+              dtype: torch.dtype, ptr_align: int) -> BwdPlan:
+    """The backward kernel's plan for one call, from the shape alone (so the
+    order of dk's float sums depends on the shape alone).
+
+    - Variant: ``tile`` at dilation 1, both strides; ``gather`` at dilated
+      stride-1 sites.
+    - Lanes, vector width and tile: the forward's (:func:`_lanes`);
+      ``gather`` runs two roles of threads over the same strips (dx and
+      dk), so its tile has at most 128 threads' rows; ``ptr_align``
+      covers x, g and dx.
+    - Row tiles: enough that the output tiles cover the map and, at stride
+      2, that the dx tiles (2·th rows from 2·ho0 − pad_t) reach the last
+      input row and column.
+    - Walk: the fewest row tiles a block walks for its partial row (k²·cb
+      float32) to be at most 1/64 of the x it covers (th·tw·S²·cb
+      elements), at most all of them.
+    - Stages: two window buffers (the next tile's copy in flight during
+      the current tile) where the vector tile walks and both fit in 96 KiB,
+      else one.
+    - Shared memory: ``csrc/depthwise_bwd.cu`` ``bwd_smem``."""
+    dh, dw = int(dilation[0]), int(dilation[1])
+    Ho, pt, _ = same_pads(H, k, stride, dh)
+    Wo, pl, _ = same_pads(W, k, stride, dw)
+    itemsize = dtype.itemsize
+    vec, nv, cblocks, strips, th = _lanes(C, Wo, itemsize, ptr_align)
+    variant = "tile" if (dh, dw) == (1, 1) else "gather"
+    if variant == "gather":  # two roles (dx, dk) of nv * strips * th threads each
+        th = min(th, 128 // (nv * strips))
+    tw = strips * _R
+    nty, tiles_w = -(-Ho // th), -(-Wo // tw)
+    if stride == 2:
+        nty = max(nty, -(-(H + pt) // (2 * th)))
+        tiles_w = max(tiles_w, -(-(W + pl) // (2 * tw)))
+    walk = min(B * nty, -(-256 * k * k // (th * tw * stride * stride * itemsize)))
+    grid = (tiles_w * cblocks, -(-B * nty // walk))
+    if grid[0] >= 2**31 or grid[1] > 65535:
+        raise ValueError(f"depthwise backward plan: grid {grid} too large")
+    cb, threads = nv * vec, nv * strips * th  # the threads that sum dk
+    # the per-thread dk sums' reduction buffer (k = 3), which overlays the
+    # windows after the walk; two barriers; the taps unless in registers;
+    # the (tap, vector) entries' running sums (k > 3)
+    red = _buf_bytes(threads, k * k * vec + 1, 1, 4) if k == 3 else 0
+    ent = 0 if k == 3 else k * k * cb * 4
+    stages = 1
+    if variant == "gather":
+        smem = red + ent
+    else:
+        p = (k - 1) // 2
+        xw = _buf_bytes((th - 1) * stride + k, (tw - 1) * stride + k, cb, itemsize)
+        gw = (_buf_bytes(th + k - 1, tw + k - 1, cb, itemsize) if stride == 1
+              else _buf_bytes(th + p, tw + p, cb, itemsize))
+        if vec > 1 and walk > 1 and 2 * (xw + gw) <= 96 * 1024:
+            stages = 2
+        reg_taps = k == 3 and vec <= 4
+        smem = (max(stages * (xw + gw), red) + 16 * stages
+                + (0 if reg_taps else k * k * cb * 4) + ent)
+    return BwdPlan(variant, vec, nv, _R, strips, th, cblocks, tiles_w, nty, walk, stages, grid,
+                   smem, k, stride, (dh, dw), (pt, pl), (Ho, Wo), B, C)
+
+
+def depthwise_conv_backward_tiled_emulation(
+    x: torch.Tensor, weight: torch.Tensor, g: torch.Tensor, stride: int, dilation,
+    plan: BwdPlan,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The backward kernel's decomposition in PyTorch, for tests: walks the
+    plan's blocks in the kernel's order and returns (dx, dweight).
+
+    - ``tile``: each tile's dx comes only from its zero-filled g window
+      (the stencil with the taps reversed; at stride 2 each dx row and
+      column takes the taps of its parity), its dk only from its x window
+      and the g tile inside the g window;
+    - ``gather``: dx and dk from the row and column bands the taps reach,
+      zero outside the image or the map.
+    dk is summed per block over its walk into one partial row, then the
+    rows are summed as the final pass does: lane l takes rows l, l + 32, …
+    in order, then the lanes in order.  dx pixels outside the image and
+    channels past C are computed and dropped, as the kernel masks its
+    stores."""
+    B, C, H, W = x.shape
+    k = weight.shape[-1]
+    s = stride
+    dh, dw = int(dilation[0]), int(dilation[1])
+    (Ho, Wo), (pt, pl) = plan.out_hw, plan.pads
+    p = (k - 1) // 2
+    xs, gs = x.permute(0, 2, 3, 1), g.permute(0, 2, 3, 1)  # NHWC, as the kernel indexes memory
+    taps = weight.reshape(C, k, k).permute(1, 2, 0).to(x.dtype)  # (ky, kx, C)
+    dx = torch.full((B, H, W, C), float("nan"), dtype=x.dtype)
+    partial = torch.full(plan.dk_buffer, float("nan"), dtype=x.dtype)
+    th, tw, cb = plan.th, plan.tw, plan.cb
+
+    def gathered(idx, n):  # clamp and a mask: zero outside [0, n)
+        idx = torch.as_tensor(list(idx))
+        return idx.clamp(0, n - 1), (idx >= 0) & (idx < n)
+
+    def band(t, b, rows, cols, n_h, n_w, cc, cin):  # t[b, rows, cols, cc], zero outside
+        ry, my = gathered(rows, n_h)
+        rx, mx = gathered(cols, n_w)
+        return t[b][ry][:, rx][:, :, cc] * (my[:, None, None] & mx[None, :, None] & cin)
+
+    for slot, c0, wo0, walk in plan.blocks():
+        cs = torch.arange(c0, c0 + cb)
+        cin = cs < C
+        cc = cs.clamp(max=C - 1)
+        tap = taps[:, :, cc] * cin
+        rev = tap.flip(0, 1)
+        acc = torch.zeros(k, k, cb, dtype=x.dtype)
+        for b, ho0 in walk:
+            if plan.variant == "tile":
+                (gy0, gx0), (gr, gc) = plan.g_origin(ho0, wo0), plan.g_window
+                gwin = band(gs, b, range(gy0, gy0 + gr), range(gx0, gx0 + gc), Ho, Wo, cc, cin)
+                if s == 1:
+                    dxt = sum(gwin[ky:ky + th, kx:kx + tw] * rev[ky, kx]
+                              for ky in range(k) for kx in range(k))
+                else:  # dx row rho takes g row (rho + ky')/2 where rho + ky' is even
+                    dxt = torch.zeros(2 * th, 2 * tw, cb, dtype=x.dtype)
+                    for ky in range(k):
+                        for kx in range(k):
+                            r0, q0 = ky % 2, kx % 2
+                            u, w = (r0 + ky) // 2, (q0 + kx) // 2
+                            dxt[r0::2, q0::2] += gwin[u:u + th, w:w + tw] * rev[ky, kx]
+                xr, xc = plan.x_window
+                xwin = band(xs, b, range(ho0 * s - pt, ho0 * s - pt + xr),
+                            range(wo0 * s - pl, wo0 * s - pl + xc), H, W, cc, cin)
+                gt = gwin[p:p + th, p:p + tw]
+                for ky in range(k):
+                    for kx in range(k):
+                        xsh = xwin[ky:ky + (th - 1) * s + 1:s, kx:kx + (tw - 1) * s + 1:s]
+                        acc[ky, kx] += (xsh * gt).sum((0, 1))
+            else:  # gather, stride 1: dx row i takes g row i + pad_t − ky·dh
+                dxt = 0
+                gt = band(gs, b, range(ho0, ho0 + th), range(wo0, wo0 + tw), Ho, Wo, cc, cin)
+                for ky in range(k):
+                    for kx in range(k):
+                        gb = band(gs, b, [ho0 + i + pt - ky * dh for i in range(th)],
+                                  [wo0 + j + pl - kx * dw for j in range(tw)], Ho, Wo, cc, cin)
+                        dxt = dxt + gb * tap[ky, kx]
+                        xb = band(xs, b, [ho0 + i - pt + ky * dh for i in range(th)],
+                                  [wo0 + j - pl + kx * dw for j in range(tw)], H, W, cc, cin)
+                        acc[ky, kx] += (xb * gt).sum((0, 1))
+            (dy0, dx0), (dr, dc) = plan.dx_origin(ho0, wo0), plan.dx_tile
+            lo_h, hi_h = max(dy0, 0), min(dy0 + dr, H)
+            lo_w, hi_w = max(dx0, 0), min(dx0 + dc, W)
+            cn = min(cb, C - c0)
+            if lo_h < hi_h and lo_w < hi_w:
+                dx[b, lo_h:hi_h, lo_w:hi_w, c0:c0 + cn] = \
+                    dxt[lo_h - dy0:hi_h - dy0, lo_w - dx0:hi_w - dx0, :cn]
+        partial[slot, :, c0:c0 + min(cb, C - c0)] = acc.reshape(k * k, cb)[:, :C - c0]
+    lanes = []
+    for lane in range(32):
+        sl = torch.zeros(k * k, C, dtype=x.dtype)
+        for i in range(lane, partial.shape[0], 32):
+            sl = sl + partial[i]
+        lanes.append(sl)
+    dk = lanes[0]
+    for sl in lanes[1:]:
+        dk = dk + sl
+    return dx.permute(0, 3, 1, 2), dk.t().reshape(C, 1, k, k).to(weight.dtype)
+
+
 def _taps(weight: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """(C, 1, k, k) → (k*k, C) float32 tap table, tap t = ky*k + kx; taps
     are rounded to the activations' dtype first, as the plain version's
@@ -341,28 +614,30 @@ def _launch(x: torch.Tensor, weight: torch.Tensor, stride: int, dilation):
 
 
 def _launch_backward(x, weight, g, stride: int, dilation, want_dx: bool, want_dk: bool):
-    """(dx or None, dweight or None) from the CUDA backward kernel."""
+    """(dx or None, dweight or None) from one launch of the CUDA backward,
+    by :func:`_bwd_plan`'s plan; dk's final sum is a second, small kernel
+    of the same call."""
     k = weight.shape[-1]
     B, C, H, W, Ho, Wo, dh, dw, pt, pl = _geometry(x, k, stride, dilation)
     if tuple(g.shape) != (B, C, Ho, Wo) or g.dtype != x.dtype:
         raise ValueError(f"depthwise_conv backward: g {tuple(g.shape)} {g.dtype} for x {tuple(x.shape)} {x.dtype}")
     if not g.is_contiguous(memory_format=torch.channels_last):
         raise ValueError("depthwise_conv backward: g must be contiguous in channels_last memory")
-    dx = taps = dk = partial = None
-    rows = tiles = 1
+    if not (want_dx or want_dk):
+        return None, None
+    taps = dx = dk = partial = None
     if want_dx:
         taps = _taps(weight, x.dtype)
         dx = torch.empty_like(x, memory_format=torch.channels_last)
+    plan = _bwd_plan(B, C, H, W, k, stride, (dh, dw), x.dtype,
+                     _ptr_align(*(t for t in (x, g, dx) if t is not None)))
     if want_dk:
-        groups = -(-C // _DK_CHANNELS)
-        rows = max(1, -(-B * Ho * groups // _DK_BLOCKS))
-        tiles = -(-B * Ho // rows)
         f32 = dict(dtype=torch.float32, device=x.device)
-        partial = torch.empty((tiles, k * k, C), **f32)
+        partial = torch.empty(plan.dk_buffer, **f32)
         dk = torch.empty((C, 1, k, k), **f32)
     fn = _build.function(
         "depthwise_bwd", "dw_bwd",
-        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 15 + [ctypes.c_void_p],
+        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 27 + [ctypes.c_void_p],
     )
 
     def ptr(t):
@@ -372,7 +647,9 @@ def _launch_backward(x, weight, g, stride: int, dilation, want_dx: bool, want_dk
         rc = fn(
             x.data_ptr(), g.data_ptr(), ptr(taps), ptr(dx), ptr(dk), ptr(partial),
             _DTYPE_CODE[x.dtype], B, H, W, C, Ho, Wo, k, stride, dh, dw, pt, pl,
-            rows, tiles, _stream(x),
+            _VARIANT_CODE[plan.variant], plan.vec, plan.nv, plan.r, plan.strips, plan.th,
+            plan.cblocks, plan.tiles_w, plan.nty, plan.walk, plan.stages, plan.grid[0],
+            plan.grid[1], plan.smem, _stream(x),
         )
     if rc != 0:
         raise RuntimeError(f"depthwise_bwd launch failed: CUDA error {rc}")

@@ -267,3 +267,21 @@ def test_build_command_targets_hopper(tmp_path):
     assert {"-shared", "-O3", "-std=c++17"} <= set(cmd)
     assert set(_build.sources()) == {"depthwise_bwd", "depthwise_cf", "depthwise_fwd", "upsample_argmax"}
 
+
+def test_build_target_changes_with_an_included_header(tmp_path, monkeypatch):
+    """A library is keyed by its source and the headers it includes, so an
+    edited header builds anew instead of reusing a stale library."""
+    import shutil
+
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc)
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    assert [h.name for h in _build._headers(csrc / "depthwise_bwd.cu")] == ["depthwise_common.cuh"]
+    before = {n: _build._target(n) for n in ("depthwise_bwd", "depthwise_fwd", "upsample_argmax")}
+    header = csrc / "depthwise_common.cuh"
+    header.write_bytes(header.read_bytes() + b"\n// edited\n")
+    after = {n: _build._target(n) for n in before}
+    assert after["depthwise_bwd"] != before["depthwise_bwd"]
+    assert after["depthwise_fwd"] != before["depthwise_fwd"]
+    assert after["upsample_argmax"] == before["upsample_argmax"]  # includes no header
+

@@ -135,6 +135,69 @@ def test_depthwise_backward_kernel_matches_plain(card, shape, k, stride, dil, dt
     assert torch.equal(depthwise_conv_backward(x, w, g, stride, dil)[1], dw)
 
 
+# (B, H, W, C), k, stride, dilation, dtype, storage offset of x and g in
+# elements, for the backward plan (kernels/depthwise.py _bwd_plan): the
+# narrow instantiation (C = 12 bfloat16, C = 21 float32), x and g not
+# 16-byte aligned, bfloat16 vectors at both strides and dilated, odd sizes
+# at stride 2 (k = 5 odd and even: the last dx tile past the output tiles),
+# k = 7, and a walk that crosses images.
+BWD_EDGE_CASES = [
+    ((2, 13, 17, 12), 3, 1, (1, 1), torch.bfloat16, 0),
+    ((1, 19, 23, 21), 3, 2, (1, 1), torch.float32, 0),
+    ((2, 19, 23, 40), 3, 1, (1, 1), torch.float32, 1),
+    ((1, 18, 20, 40), 5, 2, (1, 1), torch.float32, 1),
+    ((2, 21, 19, 64), 3, 2, (1, 1), torch.bfloat16, 0),
+    ((2, 24, 24, 64), 3, 1, (1, 1), torch.bfloat16, 0),
+    ((1, 16, 16, 64), 3, 1, (4, 2), torch.bfloat16, 0),
+    ((1, 9, 11, 16), 5, 2, (1, 1), torch.float32, 0),
+    ((1, 8, 16, 16), 5, 2, (1, 1), torch.float32, 0),
+    ((1, 13, 15, 24), 7, 2, (1, 1), torch.bfloat16, 0),
+    ((1, 12, 20, 40), 7, 1, (1, 1), torch.float32, 0),
+    ((5, 8, 8, 32), 3, 1, (1, 1), torch.float32, 0),
+]
+
+
+def _offset_tensor(card, shape, dtype, offset):
+    """(B, C, H, W) channels_last view of a buffer shifted by ``offset``
+    elements."""
+    B, H, W, C = shape
+    base = torch.randn(B * H * W * C + offset, device="cuda", generator=card).to(dtype)
+    return base[offset:].view(B, H, W, C).permute(0, 3, 1, 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,k,stride,dil,dtype,offset", BWD_EDGE_CASES)
+def test_depthwise_backward_kernel_edges_match_plain(card, shape, k, stride, dil, dtype, offset):
+    """dx and dk against the plain backward in float64 on the same (rounded)
+    inputs and taps, with the bounds of the test above; dk bit-identical
+    across runs; a dx-only and a dk-only call give the same bits as the
+    full one, one launch each."""
+    from deeplabv3plus_keras_tpu_torch.kernels.depthwise import _launch_backward
+
+    B, H, W, C = shape
+    x = _offset_tensor(card, shape, dtype, offset)
+    Ho, Wo = -(-H // stride), -(-W // stride)
+    g = _offset_tensor(card, (B, Ho, Wo, C), dtype, offset)
+    assert (x.data_ptr() % 16 != 0) == (offset != 0)
+    w = torch.randn(C, 1, k, k, device="cuda", generator=card)
+    name = f"depthwise_bwd_s{stride}"
+    before = kernels.launch_counts()[name]
+    dx, dw = depthwise_conv_backward(x, w, g, stride, dil)
+    assert kernels.launch_counts()[name] == before + 1
+    wr = w.to(dtype).double()
+    rdx, rdw = depthwise_conv_backward_plain(x.double(), wr, g.double(), stride, dil)
+    rel = 1e-5 if dtype == torch.float32 else 1e-2
+    assert dx.dtype == dtype and dx.is_contiguous(memory_format=torch.channels_last)
+    assert (dx.double() - rdx).abs().max() <= rel * rdx.abs().max()
+    _, dw_abs = depthwise_conv_backward_plain(x.double().abs(), wr, g.double().abs(), stride, dil)
+    assert ((dw.double() - rdw).abs() <= 1e-4 * dw_abs).all()
+    dx_only, none = _launch_backward(x, w, g, stride, dil, True, False)
+    none2, dk_only = _launch_backward(x, w, g, stride, dil, False, True)
+    assert none is None and none2 is None
+    assert kernels.launch_counts()[name] == before + 3
+    assert torch.equal(dx_only, dx) and torch.equal(dk_only, dw)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("stride,dil", [(1, (6, 21)), (2, (1, 1))])
 def test_autograd_runs_the_backward_kernel_once_per_backward(card, stride, dil):
