@@ -7,8 +7,8 @@ toolkit:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from ``deeplabv3plus_keras_tpu_torch/csrc``
-(and prints what ``ptxas`` makes of the NHWC depthwise kernels' every
-instantiation, failing on a register spill), then drives two models, each with random weights from a seed and BN
+(and prints what ``ptxas`` makes of every instantiation of the four
+sources, failing on a register spill), then drives two models, each with random weights from a seed and BN
 statistics set from its first batch, at 512², float32, B=16:
 
 - the flagship (MobileNetV2, output stride 16, boundary refinement, 21
@@ -39,7 +39,8 @@ For each model it
    weights, whose losses and gradients must agree.
 
 Then it prints the forward and backward depthwise summaries against cuDNN
-and the byte bound, one JSON line of kernel results (K1-K7), the card's
+and the byte bound (K7's beside the one-tile-a-block design it replaced),
+one JSON line of kernel results (K1-K7), the card's
 name and power limit, and as its last line ``{"ok": true, "device": {...}}``.
 
 Any failed check exits non-zero.  Long outputs (the per-site table
@@ -413,6 +414,7 @@ def check_cf(sites, g, rows):
         depthwise_conv_backward_plain,
         depthwise_conv_plain,
     )
+    from deeplabv3plus_keras_tpu_torch.kernels.depthwise import _cf_bwd_plan, _ptr_align
 
     cl = torch.channels_last
     distinct = {}
@@ -479,7 +481,11 @@ def check_cf(sites, g, rows):
         # x and g read once, dx written once; 9 multiply-adds per element
         # for dx and again for dk
         b_ms, b_by = bound((x.numel() * 3 + 2 * w.numel()) * 4, 4 * 9 * x.numel())
-        bwd.update(bound_ms=b_ms, bound_by=b_by)
+        plan = _cf_bwd_plan(B, C, H, W, x.dtype, _ptr_align(x, gout))
+        bwd.update(bound_ms=b_ms, bound_by=b_by, plan={
+            "mode": plan.mode, "block": [plan.ncx, plan.nry], "r": plan.r,
+            "tile_rows": plan.th, "tiles": plan.tiles, "walk": plan.walk,
+            "groups": plan.groups, "grid": list(plan.grid), "smem": plan.smem})
         for row in (fwd, bwd):
             rows.append(row)
             print(json.dumps({"site": row}))
@@ -509,6 +515,7 @@ def check_upsample_argmax(shape, scale, g, rows):
     import torch.nn.functional as F
 
     from deeplabv3plus_keras_tpu_torch.kernels import upsample_argmax, upsample_argmax_plain
+    from deeplabv3plus_keras_tpu_torch.kernels.upsample_argmax import _upsample_argmax_plan
 
     B, h, w, C = shape
     logits = torch.randn(shape, device="cuda", generator=g)
@@ -540,7 +547,9 @@ def check_upsample_argmax(shape, scale, g, rows):
             align_corners=False).argmax(1)),
     }
     b_ms, b_by = bound(logits.numel() * 4 + lab.numel() * 4, 7 * C * lab.numel())
-    row.update(bound_ms=b_ms, bound_by=b_by, max_abs_err=err)
+    plan = _upsample_argmax_plan(B, h, w, C, scale)
+    row.update(bound_ms=b_ms, bound_by=b_by, max_abs_err=err, plan={
+        "band_rows": plan.bh, "tile_cols": plan.bw, "grid": list(plan.grid), "smem": plan.smem})
     rows.append(row)
     print(json.dumps({"site": row}))
     if not row["ok"]:
@@ -841,6 +850,35 @@ def backward_summary(rows) -> dict:
     return out
 
 
+# K7 before its plan, when a block took one 32 x 32 tile of one plane:
+# each Xception site's time and the sum over a train step, chip_smoke.py on
+# an NVIDIA H100 80GB HBM3 at 700 W (PERF.md §6)
+K7_ONE_TILE_MS = {
+    (16, 64, 253, 253): 0.5604, (16, 128, 253, 253): 1.0998, (16, 128, 127, 127): 0.2851,
+    (16, 256, 127, 127): 0.5550, (16, 256, 64, 64): 0.1496, (16, 728, 64, 64): 0.4012,
+    (16, 728, 32, 32): 0.1113, (16, 1024, 32, 32): 0.1516,
+}
+K7_ONE_TILE_STEP_MS = 6.097
+
+
+def cf_backward_summary(rows) -> dict:
+    """K7 summed over one Xception train step against the byte bound,
+    cuDNN's ``convolution_backward`` and the one-tile-a-block design, with
+    each site's plan mode and ratios."""
+    cf = [r for r in rows if r["kernel"] == "depthwise_bwd_cf"]
+    ms, lib, bnd = (sum(r["per_step"] * r[f] for r in cf) for f in ("ms", "library_ms", "bound_ms"))
+    sites = []
+    for r in cf:
+        before = K7_ONE_TILE_MS.get(tuple(r["shape_nchw"]))
+        sites.append({"shape_nchw": r["shape_nchw"], "per_step": r["per_step"], "ms": r["ms"],
+                      "bound_ms": r["bound_ms"], "x_bound": r["ms"] / r["bound_ms"],
+                      "x_library": r["ms"] / r["library_ms"], "one_tile_ms": before,
+                      "x_one_tile": None if before is None else r["ms"] / before,
+                      "mode": r["plan"]["mode"], "groups": r["plan"]["groups"]})
+    return {"ms": ms, "bound_ms": bnd, "library_ms": lib, "x_bound": ms / bnd, "x_library": ms / lib,
+            "one_tile_ms": K7_ONE_TILE_STEP_MS, "x_one_tile": ms / K7_ONE_TILE_STEP_MS, "sites": sites}
+
+
 def depthwise_expect(sites, train: bool) -> dict:
     """Launches per ``segment()`` call (K1 once) or per train step (no K1,
     a backward launch beside each forward one) of a model whose forward
@@ -951,10 +989,10 @@ def main() -> int:
     print(json.dumps({"python": sys.version.split()[0], "torch": torch.__version__,
                       "cuda": torch.version.cuda}))
     t0 = time.perf_counter()
-    # what ptxas makes of K2-K5's instantiations (registers and spills),
-    # compiled beside the build
-    with ThreadPoolExecutor(3) as pool:
-        reports = {n: pool.submit(_build.ptxas_report, n) for n in ("depthwise_fwd", "depthwise_bwd")}
+    # what ptxas makes of every kernel's instantiations (registers and
+    # spills), compiled beside the build
+    with ThreadPoolExecutor(4) as pool:
+        reports = {n: pool.submit(_build.ptxas_report, n) for n in _build.sources()}
         _build.build_all()
         print(json.dumps({"kernel_build_s": time.perf_counter() - t0, "sources": _build.sources()}))
         for name, report in reports.items():
@@ -985,6 +1023,7 @@ def main() -> int:
     (OUT / "kernel_sites.json").write_text(json.dumps({"card": card, "sites": rows}, indent=1))
     print(json.dumps({"depthwise_forward_summary": forward_summary(rows), "card": card}))
     print(json.dumps({"depthwise_backward_summary": backward_summary(rows), "card": card}))
+    print(json.dumps({"depthwise_cf_backward_summary": cf_backward_summary(rows), "card": card}))
 
     out = []
     for name in ("upsample_argmax", "depthwise_fwd_s1", "depthwise_fwd_s2",

@@ -8,7 +8,8 @@ label steps, as the JAX facade does, and answers ``train_step(batch)``,
 ``train()``, ``evaluate()`` and ``test()`` need the data slice, and model
 export comes later (ROADMAP.md Queue A).  Config keys that would change
 the result and are not ported yet (``model_loading``, ``multi_gpu`` with
-``num_gpus`` > 1, ``int8_infer``) raise ``NotImplementedError``.
+``num_gpus`` > 1, ``int8_infer``, ``backbone_weights``, ``mesh_space`` > 1)
+raise ``NotImplementedError``.
 
 The environment variable ``DLV3_DW_LAYOUT=bhcw`` routes the 3×3 stride-1
 undilated depthwise sites through the channels-first kernels
@@ -67,6 +68,18 @@ class SemanticSegmentation:
             raise NotImplementedError(
                 f"multi_gpu with num_gpus={self.conf.num_gpus}: the port trains on one "
                 "device so far (ROADMAP.md Queue A item 13, multi-GPU data parallelism)"
+            )
+        # the JAX facade loads these weights or raises (api.py:131-133); it
+        # skips only an unset or empty key (utils/pretrained.py:79-81)
+        if self.conf.extra.get("backbone_weights"):
+            raise NotImplementedError(
+                f"backbone_weights={self.conf.extra['backbone_weights']!r}: pretrained "
+                "backbones are not ported yet (ROADMAP.md Queue A item 14, the converter)"
+            )
+        if int(self.conf.extra.get("mesh_space", 1)) > 1:
+            raise NotImplementedError(
+                f"mesh_space={self.conf.extra['mesh_space']}: spatial sharding is not "
+                "ported yet (ROADMAP.md Queue A item 13, multi-GPU data parallelism)"
             )
 
         self.model = DeepLabV3Plus(self.conf)

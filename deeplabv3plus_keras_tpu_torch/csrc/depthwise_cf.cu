@@ -11,30 +11,45 @@
 // lanes; dk lived in one output block carried across its sequential grid.
 // Here:
 //
-// - One block per (32 x 32 output tile, channel, image): it loads the
-//   34 x 34 halo tile of its plane into shared memory (zero outside the
-//   image, which is the padding), keeps the nine taps in registers, and
-//   each thread computes 4 rows of one column, sliding a 3 x 3 window of
-//   registers down the column (3 shared-memory reads per output).  Warps
-//   run along W, so global loads and stores coalesce.  Every tap is
-//   bounds-checked by the tile load, so odd H and W (253, 127) work.
-// - dx is the same stencil over g with the taps reversed (the JAX
-//   _bwd_kernel's decomposition, depthwise3.py:151-160), from the same
-//   device code as the forward.
-// - dk[c, t] = sum over (b, h, w) of x[shifted by tap t] * g: a block
-//   that computes dx also holds its x tile and sums the nine products over
-//   its 32 x 32 outputs (registers, then a fixed-order warp and block
-//   reduction), and writes one (9,) slice of a (B * tiles, 9, C) float
-//   buffer.  A second kernel adds those partials in a fixed order.  No
-//   atomics, and the tiling depends on the shape alone, so dk is the same
-//   bit for bit from run to run.
+// - K6, the forward: one block per (32 x 32 output tile, channel, image):
+//   it loads the 34 x 34 halo tile of its plane into shared memory (zero
+//   outside the image, which is the padding), keeps the nine taps in
+//   registers, and each thread computes 4 rows of one column, sliding a
+//   3 x 3 window of registers down the column.  Every tap is bounds-checked
+//   by the tile load, so odd H and W (253, 127) work.  Bound: x read and y
+//   written once over the device memory rate; it reaches about half of it.
+// - K7, the backward (dx and dk), is laid out by kernels/depthwise.py
+//   _cf_bwd_plan.  A block owns one channel and walks `walk` tiles of the
+//   flattened (image, tile) index, as the TPU's sequential grid walked its
+//   (b, row) tiles.  A tile is whole rows: the whole plane at 32^2, half a
+//   plane at 64^2, 16 rows of the odd 127^2 and 253^2 planes.  While it
+//   computes on one tile's x and g windows in shared memory, the copies of
+//   the next tile are in flight (two buffers, cp.async), so a block's loads
+//   overlap its compute, and no block pays a launch, a tile load and a
+//   reduction for 12 KB.  Every copy is 16 bytes: each row into a padded
+//   shared row where W and the pointers allow (LOAD_VEC; a thread then
+//   computes a strip of 4 adjacent outputs, one 16-byte window read and
+//   one vector store a row), else the window's rows as the one contiguous
+//   run of the plane that they are (LOAD_FLAT, for W = 253 or 127, whose
+//   rows are not 16-byte aligned; neighbouring threads then take
+//   neighbouring columns and the halo is masked).  A
+//   thread slides a window of 3 rows in registers down its rows.  dx is the
+//   stencil over g with the taps reversed (the JAX _bwd_kernel's
+//   decomposition, depthwise3.py:151-160).  dk's nine sums stay in
+//   registers across the walk; the block adds them in a fixed order (a
+//   tree over the thread index) and writes dk[c], or, where the plan splits
+//   a channel's positions among `groups` blocks to fill the card evenly,
+//   one row of a (groups, 9, C) buffer that a second kernel adds in a fixed
+//   order.  No atomics, and the plan depends on the shape alone, so dk is
+//   the same bit for bit from run to run.
 //
 // Bound: memory.  The forward does 9 multiply-adds per output for 8 bytes
 // moved (float32), the backward 18 for 12: far below the card's
 // operations-per-byte balance.  The least time is x read and y written
 // (forward: 2 tensors), or x and g read and dx written (backward: 3), over
-// the device memory rate.  The halo re-reads 13 % more of the input, most
-// of it from L2.  Accumulation is float32 for float32 and bfloat16.
+// the device memory rate.  A tile's halo rows are read again by its
+// neighbour, mostly from L2.  Accumulation is float32 for float32 and
+// bfloat16.
 //
 // C interface: dw_cf_fwd(...) and dw_cf_bwd(...) return cudaGetLastError()
 // after their launches.
@@ -42,6 +57,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -138,77 +155,333 @@ dw_cf_fwd_kernel(const T* __restrict__ x, const float* __restrict__ taps,
     store_tile(y + plane, out, H, W, h0, w0);
 }
 
-// grid: (tiles of the plane, C, B); block (TW, TY).  dx (when DX) as the
-// reversed-tap stencil over g; the block's dk partial (when DK) into
-// partial[(b * tiles + tile), t, c].
-template <typename T, bool DX, bool DK>
-__global__ void __launch_bounds__(THREADS)
-dw_cf_bwd_kernel(const T* __restrict__ x, const T* __restrict__ g,
-                 const float* __restrict__ taps, T* __restrict__ dx,
-                 float* __restrict__ partial, int C, int H, int W, int tiles_w) {
-    __shared__ float sg[SH][SW];
-    __shared__ float sx[DK ? SH : 1][SW];
-    __shared__ float red[TY][9];
-    const int c = blockIdx.y;
-    const int b = blockIdx.z;
-    const int h0 = (blockIdx.x / tiles_w) * TH;
-    const int w0 = (blockIdx.x % tiles_w) * TW;
-    const size_t plane = ((size_t)b * C + c) * H * W;
-    load_tile(sg, g + plane, H, W, h0, w0);
-    if (DK) load_tile(sx, x + plane, H, W, h0, w0);
-    __syncthreads();
+// ---- K7: the backward, as kernels/depthwise.py _cf_bwd_plan lays it out ----
 
-    if (DX) {
-        float k[9];
+// How a window reaches shared memory.  A tile is always whole rows.
+// LOAD_VEC: each row by 16-byte cp.async into a row of stride W + PAD
+// whose zero pad columns are the halo (W a multiple of the vector, x, g
+// and dx 16-byte aligned).  LOAD_FLAT: the window's rows that lie in the
+// image are one contiguous run of the plane, copied as the 16-byte chunks
+// that hold it, whatever W and the pointers' alignment (W = 253 and 127,
+// whose rows are not 16-byte aligned); the compute masks the halo.
+enum { LOAD_VEC = 0, LOAD_FLAT = 1 };
+constexpr int STAGES = 2;  // x and g window pairs: the current tile's and the next one's
+
+struct CfGeom {
+    int C, H, W;
+    int th, r;            // tile rows (the tile is whole rows); rows a thread computes
+    int stride, buf;      // shared row stride (LOAD_VEC) and one window buffer, in elements
+    int tiles;            // tiles of a plane
+    int walk, positions;  // tiles a block walks; B * tiles
+    int np2;              // threads a block, rounded up to a power of two
+};
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) { return (unsigned)__cvta_generic_to_shared(p); }
+
+// src_size 0 reads nothing and fills the destination with zeros
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool in) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+                 "r"(in ? 16 : 0) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+// Wait until at most this thread's newest copy group is still in flight.
+__device__ __forceinline__ void cp_async_wait_all_but_newest() {
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+template <typename T> __device__ __forceinline__ T zero_t();
+template <> __device__ __forceinline__ float zero_t<float>() { return 0.f; }
+template <> __device__ __forceinline__ __nv_bfloat16 zero_t<__nv_bfloat16>() { return __float2bfloat16(0.f); }
+
+// LOAD_VEC: the window of the tile whose first row is h0: window row k is
+// image row h0 - 1 + k at s + k * stride + PAD (zero outside the image);
+// only columns [0, W) are copied, so the zero pad columns before a row and
+// after the last are the halo.
+template <typename T>
+__device__ __forceinline__ void load_window_vec(T* s, const T* __restrict__ plane, const CfGeom& g, int h0) {
+    constexpr int PAD = 16 / (int)sizeof(T);
+    for (int k = threadIdx.y; k < g.th + 2; k += blockDim.y) {
+        const int h = h0 - 1 + k;
+        const bool hin = h >= 0 && h < g.H;
+        const T* row = plane + (size_t)(hin ? h : 0) * g.W;
+        T* srow = s + k * g.stride + PAD;
+        for (int v = threadIdx.x * PAD; v < g.W; v += blockDim.x * PAD) cp_async16(srow + v, row + v, hin);
+    }
+}
+
+// LOAD_FLAT: the address of window element (0, 0), image row h0 - 1 (maybe
+// before the plane); window rows [k_lo, k_hi) lie in the image.
+template <typename T>
+__device__ __forceinline__ uintptr_t flat_first(const T* plane, int h0, int W) {
+    return (uintptr_t)plane + (uintptr_t)((long long)(h0 - 1) * W * (long long)sizeof(T));
+}
+__device__ __forceinline__ int flat_k_lo(int h0) { return h0 == 0 ? 1 : 0; }
+__device__ __forceinline__ int flat_k_hi(const CfGeom& g, int h0) { return min(g.th + 2, g.H + 1 - h0); }
+
+// LOAD_FLAT: the window's rows in the image, as the 16-byte chunks that
+// hold them.  The byte at address a lands at byte 16 + a - (first & ~15)
+// of s, so window element (k, j) sits at element PAD + lead + k * W + j,
+// lead = (first & 15) / sizeof(T).  A chunk's bytes outside the rows
+// belong to the neighbouring rows or planes and are never used.  A chunk
+// that crosses either end of the tensor [lo, hi) is copied element by
+// element with plain loads, its elements inside the tensor alone, so no
+// byte outside the tensor is read (its storage may end there); the
+// barrier after the walk's wait publishes those stores.
+template <typename T>
+__device__ __forceinline__ void load_window_flat(T* s, const T* __restrict__ plane, const CfGeom& g, int h0,
+                                                 uintptr_t lo, uintptr_t hi, int tid, int nthreads) {
+    using U = typename std::conditional<sizeof(T) == 4, uint32_t, uint16_t>::type;
+    const uintptr_t first = flat_first(plane, h0, g.W);
+    const uintptr_t row_bytes = (uintptr_t)g.W * sizeof(T);
+    const uintptr_t a = (first + flat_k_lo(h0) * row_bytes) & ~(uintptr_t)15;
+    const uintptr_t e = (first + flat_k_hi(g, h0) * row_bytes + 15) & ~(uintptr_t)15;
+    unsigned char* dst = reinterpret_cast<unsigned char*>(s) + 16 + (a - (first & ~(uintptr_t)15));
+    const int chunks = (int)((e - a) >> 4);
+    for (int i = tid; i < chunks; i += nthreads) {
+        const uintptr_t src = a + 16 * (uintptr_t)i;
+        if (src >= lo && src + 16 <= hi) {
+            cp_async16(dst + 16 * i, reinterpret_cast<const void*>(src), true);
+        } else {
+            for (int b = 0; b < 16; b += (int)sizeof(T))
+                if (src + b >= lo && src + b + sizeof(T) <= hi)
+                    *reinterpret_cast<U*>(dst + 16 * i + b) = *reinterpret_cast<const U*>(src + b);
+        }
+    }
+}
+
+// LOAD_VEC: columns j0 - 1 .. j0 + 4 of a window row, p pointing at column
+// j0 (a multiple of 4 elements from the 16-byte aligned row start).
+template <typename T>
+__device__ __forceinline__ void read6(const T* p, float (&v)[6]) {
+    if constexpr (sizeof(T) == 4) {
+        const float4 f = *reinterpret_cast<const float4*>(p);
+        v[1] = f.x; v[2] = f.y; v[3] = f.z; v[4] = f.w;
+    } else {
+        const uint2 u = *reinterpret_cast<const uint2*>(p);
+        const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+        const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+        v[1] = a.x; v[2] = a.y; v[3] = b.x; v[4] = b.y;
+    }
+    v[0] = to_f(p[-1]);
+    v[5] = to_f(p[4]);
+}
+
+// LOAD_FLAT: columns j - 1 .. j + 1 of a window row, p pointing at column
+// j; zero for a row outside the image (in) and outside columns [0, W).
+template <typename T>
+__device__ __forceinline__ void read3(const T* p, bool in, bool cl, bool cr, float (&v)[3]) {
+    v[0] = in && cl ? to_f(p[-1]) : 0.f;
+    v[1] = in ? to_f(p[0]) : 0.f;
+    v[2] = in && cr ? to_f(p[1]) : 0.f;
+}
+
+// Four adjacent outputs of one image row from column j: one vector store.
+template <typename T>
+__device__ __forceinline__ void store4(T* p, const float (&o)[4]) {
+    if constexpr (sizeof(T) == 4) {
+        *reinterpret_cast<float4*>(p) = make_float4(o[0], o[1], o[2], o[3]);
+    } else {
+        const __nv_bfloat162 a = __floats2bfloat162_rn(o[0], o[1]);
+        const __nv_bfloat162 b = __floats2bfloat162_rn(o[2], o[3]);
+        *reinterpret_cast<uint2*>(p) =
+            make_uint2(*reinterpret_cast<const uint32_t*>(&a), *reinterpret_cast<const uint32_t*>(&b));
+    }
+}
+
+// One output row's share of a thread, from the 3-row windows of x and g
+// around it (xa, ga the row above, xc, gc the row below; N columns, the
+// outputs being columns 1 .. N - 2): the nine dk sums of x[shifted] * g
+// (when dk) and dx, the stencil over g with the taps reversed (the JAX
+// _bwd_kernel's decomposition, depthwise3.py:151-160), into o.
+template <int N>
+__device__ __forceinline__ void row_grads(const float (&xa)[N], const float (&xb)[N], const float (&xc)[N],
+                                          const float (&ga)[N], const float (&gb)[N], const float (&gc)[N],
+                                          const float (&k)[9], float (&acc)[9], bool want_dk,
+                                          float (&o)[N - 2]) {
+    if (want_dk) {
 #pragma unroll
-        for (int t = 0; t < 9; ++t) k[t] = taps[t * C + c];
-        float out[R];
-        stencil<true>(sg, k, out);
-        store_tile(dx + plane, out, H, W, h0, w0);
+        for (int e = 0; e < N - 2; ++e) {
+            const float gv = gb[e + 1];
+#pragma unroll
+            for (int d = 0; d < 3; ++d) {
+                acc[d] = fmaf(xa[e + d], gv, acc[d]);
+                acc[3 + d] = fmaf(xb[e + d], gv, acc[3 + d]);
+                acc[6 + d] = fmaf(xc[e + d], gv, acc[6 + d]);
+            }
+        }
+    }
+#pragma unroll
+    for (int e = 0; e < N - 2; ++e) {
+        float s = 0.f;
+#pragma unroll
+        for (int d = 0; d < 3; ++d) s = fmaf(ga[e + d], k[8 - d], s);
+#pragma unroll
+        for (int d = 0; d < 3; ++d) s = fmaf(gb[e + d], k[5 - d], s);
+#pragma unroll
+        for (int d = 0; d < 3; ++d) s = fmaf(gc[e + d], k[2 - d], s);
+        o[e] = s;
+    }
+}
+
+template <int N>
+__device__ __forceinline__ void shift_rows(float (&a)[N], float (&b)[N], const float (&c)[N]) {
+#pragma unroll
+    for (int e = 0; e < N; ++e) {
+        a[e] = b[e];
+        b[e] = c[e];
+    }
+}
+
+// grid: (C, groups); block (ncx, nry).  Block (c, y) walks tiles y * walk
+// ... of the flattened (image, tile) index of channel c through STAGES
+// pairs of x and g windows: the next tile's copies are in flight while it
+// computes on the current one.  A tile is th whole
+// rows; thread (tx, ty) computes its rows ty * r .. ty * r + r - 1 at the
+// columns 4 tx .. 4 tx + 3 (LOAD_VEC: one 16-byte window read a row, one
+// vector store) or tx, tx + ncx, ... (LOAD_FLAT: neighbouring threads on
+// neighbouring columns, since a row's alignment in shared memory varies),
+// sliding a 3-row window of registers down.  dk's nine sums stay in
+// registers across the walk; then the block adds its threads' sums in a
+// fixed order and writes dk[c] (one group) or partial row y.
+template <typename T, int MODE>
+__global__ void __launch_bounds__(256, MODE == LOAD_VEC ? 2 : 3)
+dw_cf_bwd_kernel(const T* __restrict__ x, const T* __restrict__ g, const float* __restrict__ taps,
+                 T* __restrict__ dx, float* __restrict__ dk, float* __restrict__ partial, const CfGeom geo) {
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    T* sm = reinterpret_cast<T*>(smem_raw);
+    constexpr int PAD = 16 / (int)sizeof(T);
+    const int c = blockIdx.x;
+    const int n0 = blockIdx.y * geo.walk;
+    const int n1 = min(n0 + geo.walk, geo.positions);
+    const int nthreads = blockDim.x * blockDim.y;
+    const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+    const bool want_dx = dx != nullptr, want_dk = dk != nullptr;
+    if constexpr (MODE == LOAD_VEC) {  // the pad columns, which no copy writes
+        for (int i = tid; i < 2 * STAGES * geo.buf; i += nthreads) sm[i] = zero_t<T>();
+        __syncthreads();
+    }
+    // the tensors' ends, which a LOAD_FLAT chunk may cross
+    const size_t total = (size_t)(geo.positions / geo.tiles) * geo.C * geo.H * geo.W;
+
+    float k[9], acc[9];
+#pragma unroll
+    for (int t = 0; t < 9; ++t) {
+        k[t] = want_dx ? taps[t * geo.C + c] : 0.f;
+        acc[t] = 0.f;
+    }
+    const size_t plane = (size_t)geo.H * geo.W;
+    // (offset of the tile's plane, first row) of position n
+    auto locate = [&](int n, size_t& off, int& h0) {
+        const int b = n / geo.tiles;
+        off = ((size_t)b * geo.C + c) * plane;
+        h0 = (n - b * geo.tiles) * geo.th;
+    };
+    auto issue = [&](int n, int stage) {
+        size_t off;
+        int h0;
+        locate(n, off, h0);
+        T* sx = sm + (2 * stage) * geo.buf;
+        if constexpr (MODE == LOAD_VEC) {
+            load_window_vec<T>(sx, x + off, geo, h0);
+            load_window_vec<T>(sx + geo.buf, g + off, geo, h0);
+        } else {
+            load_window_flat<T>(sx, x + off, geo, h0, (uintptr_t)x, (uintptr_t)(x + total), tid, nthreads);
+            load_window_flat<T>(sx + geo.buf, g + off, geo, h0, (uintptr_t)g, (uintptr_t)(g + total), tid,
+                                nthreads);
+        }
+    };
+    // one commit group a tile, in walk order (empty past the walk's end);
+    // tile n0 + i sits in slot i % STAGES
+    issue(n0, 0);
+    cp_async_commit();
+
+    const int r0 = threadIdx.y * geo.r;
+    const int W = geo.W;
+    for (int n = n0; n < n1; ++n) {
+        const int i = n - n0;
+        const int stage = i % STAGES;
+        // the slot of tile n - 1, which every thread has finished with
+        if (n + 1 < n1) issue(n + 1, (i + 1) % STAGES);
+        cp_async_commit();
+        cp_async_wait_all_but_newest();  // tile n + 1 may fly: tile n has landed
+        __syncthreads();
+        size_t off;
+        int h0;
+        locate(n, off, h0);
+        T* dxp = want_dx ? dx + off : nullptr;
+        if constexpr (MODE == LOAD_VEC) {
+            const int j0 = 4 * threadIdx.x;
+            const int S = geo.stride;
+            if (j0 < W) {
+                const T* sx = sm + (2 * stage) * geo.buf + PAD + j0;
+                const T* sg = sx + geo.buf;
+                float xa[6], xb[6], ga[6], gb[6];
+                read6(sx + r0 * S, xa);
+                read6(sx + (r0 + 1) * S, xb);
+                read6(sg + r0 * S, ga);
+                read6(sg + (r0 + 1) * S, gb);
+                for (int rr = 0; rr < geo.r; ++rr) {
+                    // output row h0 + r0 + rr is window row r0 + rr + 1; g outside
+                    // the image is 0, so such rows add nothing to dk
+                    float xc[6], gc[6], o[4];
+                    read6(sx + (r0 + rr + 2) * S, xc);
+                    read6(sg + (r0 + rr + 2) * S, gc);
+                    row_grads<6>(xa, xb, xc, ga, gb, gc, k, acc, want_dk, o);
+                    const int h = h0 + r0 + rr;
+                    if (want_dx && h < geo.H) store4(dxp + (size_t)h * W + j0, o);
+                    shift_rows<6>(xa, xb, xc);
+                    shift_rows<6>(ga, gb, gc);
+                }
+            }
+        } else {
+            const int k_lo = flat_k_lo(h0), k_hi = flat_k_hi(geo, h0);
+            const T* sx = sm + (2 * stage) * geo.buf + PAD + (int)(flat_first(x + off, h0, W) & 15) / (int)sizeof(T);
+            const T* sg = sm + (2 * stage + 1) * geo.buf + PAD + (int)(flat_first(g + off, h0, W) & 15) / (int)sizeof(T);
+            for (int j = threadIdx.x; j < W; j += blockDim.x) {
+                const bool cl = j > 0, cr = j + 1 < W;
+                float xa[3], xb[3], ga[3], gb[3];
+                read3(sx + r0 * W + j, r0 >= k_lo && r0 < k_hi, cl, cr, xa);
+                read3(sx + (r0 + 1) * W + j, r0 + 1 >= k_lo && r0 + 1 < k_hi, cl, cr, xb);
+                read3(sg + r0 * W + j, r0 >= k_lo && r0 < k_hi, cl, cr, ga);
+                read3(sg + (r0 + 1) * W + j, r0 + 1 >= k_lo && r0 + 1 < k_hi, cl, cr, gb);
+                for (int rr = 0; rr < geo.r; ++rr) {
+                    const int kc = r0 + rr + 2;
+                    const bool in = kc >= k_lo && kc < k_hi;
+                    float xc[3], gc[3], o[1];
+                    read3(sx + kc * W + j, in, cl, cr, xc);
+                    read3(sg + kc * W + j, in, cl, cr, gc);
+                    row_grads<3>(xa, xb, xc, ga, gb, gc, k, acc, want_dk, o);
+                    const int h = h0 + r0 + rr;
+                    if (want_dx && h < geo.H) store(dxp + (size_t)h * W + j, o[0]);
+                    shift_rows<3>(xa, xb, xc);
+                    shift_rows<3>(ga, gb, gc);
+                }
+            }
+        }
+        __syncthreads();  // before a later copy overwrites this slot
     }
 
-    if (DK) {
-        // g outside the image was loaded as 0, so those outputs add nothing
-        const int tx = threadIdx.x;
-        const int r0 = threadIdx.y * R;
-        float acc[9];
+    if (want_dk) {
+        // the walk's copies have all landed: the windows become a (9, np2)
+        // table of the threads' sums, added as a tree over the thread index
+        float* red = reinterpret_cast<float*>(smem_raw);
+        const int np2 = geo.np2;
 #pragma unroll
-        for (int t = 0; t < 9; ++t) acc[t] = 0.f;
-        float a0 = sx[r0][tx], a1 = sx[r0][tx + 1], a2 = sx[r0][tx + 2];
-        float b0 = sx[r0 + 1][tx], b1 = sx[r0 + 1][tx + 1], b2 = sx[r0 + 1][tx + 2];
+        for (int t = 0; t < 9; ++t) red[t * np2 + tid] = acc[t];
+        for (int i = nthreads + tid; i < np2; i += nthreads)
 #pragma unroll
-        for (int i = 0; i < R; ++i) {
-            const float c0 = sx[r0 + i + 2][tx], c1 = sx[r0 + i + 2][tx + 1], c2 = sx[r0 + i + 2][tx + 2];
-            const float gv = sg[r0 + i + 1][tx + 1];
-            acc[0] = fmaf(a0, gv, acc[0]);
-            acc[1] = fmaf(a1, gv, acc[1]);
-            acc[2] = fmaf(a2, gv, acc[2]);
-            acc[3] = fmaf(b0, gv, acc[3]);
-            acc[4] = fmaf(b1, gv, acc[4]);
-            acc[5] = fmaf(b2, gv, acc[5]);
-            acc[6] = fmaf(c0, gv, acc[6]);
-            acc[7] = fmaf(c1, gv, acc[7]);
-            acc[8] = fmaf(c2, gv, acc[8]);
-            a0 = b0; a1 = b1; a2 = b2;
-            b0 = c0; b1 = c1; b2 = c2;
-        }
-        // a warp is one threadIdx.y: reduce its 32 lanes by shuffles, then
-        // thread t < 9 adds the warps' sums in order
-#pragma unroll
-        for (int t = 0; t < 9; ++t) {
-            float v = acc[t];
-#pragma unroll
-            for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
-            if (tx == 0) red[threadIdx.y][t] = v;
-        }
+            for (int t = 0; t < 9; ++t) red[t * np2 + i] = 0.f;
         __syncthreads();
-        const int tid = threadIdx.y * TW + tx;
-        if (tid < 9) {
-            float s = red[0][tid];
+        for (int half = np2 / 2; half > 0; half >>= 1) {
+            if (tid < half)
 #pragma unroll
-            for (int l = 1; l < TY; ++l) s += red[l][tid];
-            const size_t slot = (size_t)b * gridDim.x + blockIdx.x;
-            partial[(slot * 9 + tid) * C + c] = s;
+                for (int t = 0; t < 9; ++t) red[t * np2 + tid] += red[t * np2 + tid + half];
+            __syncthreads();
+        }
+        // a block of small planes may have fewer than 9 threads
+        for (int t = tid; t < 9; t += nthreads) {
+            if (gridDim.y == 1) dk[(size_t)c * 9 + t] = red[t * np2];
+            else partial[((size_t)blockIdx.y * 9 + t) * geo.C + c] = red[t * np2];
         }
     }
 }
@@ -239,31 +512,6 @@ __global__ void dw_cf_dk_final(const float* __restrict__ partial, float* __restr
     }
 }
 
-template <typename T, bool DX, bool DK>
-void launch_bwd(const void* x, const void* g, const float* taps, void* dx,
-                float* partial, int B, int C, int H, int W, int tiles_w,
-                int tiles, cudaStream_t st) {
-    dw_cf_bwd_kernel<T, DX, DK><<<dim3(tiles, C, B), dim3(TW, TY), 0, st>>>(
-        (const T*)x, (const T*)g, taps, (T*)dx, partial, C, H, W, tiles_w);
-}
-
-template <typename T>
-void launch_bwd_t(const void* x, const void* g, const float* taps, void* dx,
-                  float* dk, float* partial, int B, int C, int H, int W,
-                  cudaStream_t st) {
-    const int tiles_w = (W + TW - 1) / TW;
-    const int tiles = ((H + TH - 1) / TH) * tiles_w;
-    if (dx && dk)
-        launch_bwd<T, true, true>(x, g, taps, dx, partial, B, C, H, W, tiles_w, tiles, st);
-    else if (dx)
-        launch_bwd<T, true, false>(x, g, taps, dx, partial, B, C, H, W, tiles_w, tiles, st);
-    else
-        launch_bwd<T, false, true>(x, g, taps, dx, partial, B, C, H, W, tiles_w, tiles, st);
-    if (dk)
-        dw_cf_dk_final<<<dim3((C + DK_CH - 1) / DK_CH, 9), dim3(DK_CH, DK_LANES), 0, st>>>(
-            partial, dk, B * tiles, C);
-}
-
 bool bad_shape(int dtype, int B, int C, int H, int W) {
     if (dtype != 0 && dtype != 1) return true;
     if (B < 1 || C < 1 || H < 1 || W < 1 || B > 65535 || C > 65535) return true;
@@ -272,11 +520,6 @@ bool bad_shape(int dtype, int B, int C, int H, int W) {
 }
 
 }  // namespace
-
-// The number of dk partial slots dw_cf_bwd needs: B * (tiles of a plane).
-extern "C" int dw_cf_slots(int B, int H, int W) {
-    return B * ((H + TH - 1) / TH) * ((W + TW - 1) / TW);
-}
 
 // dtype: 0 = float32, 1 = bfloat16.  x, y (B, C, H, W) NCHW-contiguous;
 // taps (9, C) float32, tap t = 3 * dy + dx.
@@ -296,19 +539,59 @@ extern "C" int dw_cf_fwd(const void* x, const void* taps, void* y, int dtype,
     return (int)cudaGetLastError();
 }
 
-// x, g, dx (B, C, H, W) NCHW-contiguous, x and g of dtype; dx or null
-// (taps (9, C) float32 read only for dx); dk (C, 9) float32 or null, with
-// partial (dw_cf_slots(B, H, W), 9, C) float32 scratch.
-extern "C" int dw_cf_bwd(const void* x, const void* g, const void* taps, void* dx,
-                         void* dk, void* partial, int dtype, int B, int C, int H,
-                         int W, void* stream) {
-    if (bad_shape(dtype, B, C, H, W) || (!dx && !dk) || (dk && !partial))
+// x, g, dx (B, C, H, W) NCHW-contiguous, x and g of dtype (0 = float32,
+// 1 = bfloat16); dx or null (taps (9, C) float32 read only for dx); dk
+// (C, 9) float32 or null, with partial (groups, 9, C) float32 scratch when
+// groups > 1.  The rest is the plan of kernels/depthwise.py _cf_bwd_plan:
+// mode (LOAD_VEC, LOAD_FLAT), block (ncx, nry), r rows a thread, tiles of
+// th = nry * r whole rows a plane, walk tiles a block, groups blocks a
+// channel, smem bytes.
+extern "C" int dw_cf_bwd(const void* x, const void* g, const void* taps, void* dx, void* dk,
+                         void* partial, int dtype, int B, int C, int H, int W, int mode, int ncx,
+                         int nry, int r, int tiles, int walk, int groups, int smem, void* stream) {
+    if (bad_shape(dtype, B, C, H, W) || (!dx && !dk) || (dx && !taps)) return (int)cudaErrorInvalidValue;
+    if (mode != LOAD_VEC && mode != LOAD_FLAT) return (int)cudaErrorInvalidValue;
+    const int isz = dtype == 0 ? 4 : 2, pad = 16 / isz;
+    if (mode == LOAD_VEC && ((W * isz) % 16 || ((uintptr_t)x | (uintptr_t)g | (uintptr_t)dx) % 16))
+        return (int)cudaErrorMisalignedAddress;
+    CfGeom geo;
+    geo.C = C; geo.H = H; geo.W = W;
+    geo.th = nry * r; geo.r = r;
+    geo.stride = W + pad;
+    geo.buf = mode == LOAD_VEC ? (geo.th + 2) * geo.stride + pad
+                               : ((geo.th + 2) * W + 3 * pad + pad - 1) / pad * pad;
+    geo.tiles = tiles;
+    geo.walk = walk; geo.positions = B * tiles;
+    const int threads = ncx * nry;
+    geo.np2 = 1;
+    while (geo.np2 < threads) geo.np2 *= 2;
+    const long long windows = 2LL * STAGES * geo.buf * isz;
+    const long long need = windows > 9LL * geo.np2 * 4 ? windows : 9LL * geo.np2 * 4;
+    if (ncx < 1 || nry < 1 || r < 1 || threads > 256
+        || (mode == LOAD_VEC && 4 * ncx < W) || (long long)tiles * geo.th < H || walk < 1 || groups < 1
+        || groups > 65535 || (long long)groups * walk < geo.positions || (long long)(groups - 1) * walk >= geo.positions
+        || (long long)smem < need || smem > 227 * 1024 || (dk && groups > 1 && !partial))
         return (int)cudaErrorInvalidValue;
     cudaStream_t st = (cudaStream_t)stream;
-    const float* t = (const float*)taps;
-    if (dtype == 0)
-        launch_bwd_t<float>(x, g, t, dx, (float*)dk, (float*)partial, B, C, H, W, st);
-    else
-        launch_bwd_t<__nv_bfloat16>(x, g, t, dx, (float*)dk, (float*)partial, B, C, H, W, st);
+    const dim3 grid(C, groups), block(ncx, nry);
+    float* dkp = (float*)dk;
+    float* part = (float*)partial;
+#define CF_LAUNCH(T, M)                                                                                   \
+    do {                                                                                                  \
+        if (smem > 48 * 1024) {                                                                           \
+            const cudaError_t e = cudaFuncSetAttribute(dw_cf_bwd_kernel<T, M>,                            \
+                                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem); \
+            if (e != cudaSuccess) return (int)e;                                                          \
+        }                                                                                                 \
+        dw_cf_bwd_kernel<T, M><<<grid, block, smem, st>>>((const T*)x, (const T*)g, (const float*)taps,  \
+                                                          (T*)dx, dkp, part, geo);                        \
+    } while (0)
+    if (dtype == 0 && mode == LOAD_VEC) CF_LAUNCH(float, LOAD_VEC);
+    else if (dtype == 0) CF_LAUNCH(float, LOAD_FLAT);
+    else if (mode == LOAD_VEC) CF_LAUNCH(__nv_bfloat16, LOAD_VEC);
+    else CF_LAUNCH(__nv_bfloat16, LOAD_FLAT);
+#undef CF_LAUNCH
+    if (dk && groups > 1)
+        dw_cf_dk_final<<<dim3((C + DK_CH - 1) / DK_CH, 9), dim3(DK_CH, DK_LANES), 0, st>>>(part, dkp, groups, C);
     return (int)cudaGetLastError();
 }

@@ -43,7 +43,9 @@ The channels-first route (port of ``depthwise3.py:465-521`` and
 as the JAX package reads it at trace time, a site with k = 3, stride 1 and
 dilation (1, 1) makes x NCHW-contiguous, runs ``csrc/depthwise_cf.cu``
 (K6 forward, ``_dw_fwd_padded`` :105; K7 backward, ``_dw_bwd_padded``
-:185) on it, and returns the result to ``channels_last`` memory.  Every
+:185, laid out by :func:`_cf_bwd_plan`, emulated on the CPU by
+:func:`depthwise_cf_backward_emulation`) on it, and returns the result to
+``channels_last`` memory.  Every
 other site, and every site under ``nhwc`` (the default), keeps the NHWC
 kernels.  :func:`depthwise_route` names the route a site takes.
 """
@@ -734,11 +736,182 @@ def depthwise_cf(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
     return y
 
 
+_CF_MODE = {"vec": 0, "flat": 1}
+_CF_THREADS = 256   # threads a K7 block at most
+_CF_VEC_R = 4       # rows a vec thread computes
+_CF_VEC_NRY = 8     # rows of vec threads: a 32-row tile
+_CF_FLAT_ROWS = 16  # rows of a flat tile
+_CF_WALK = 2        # tiles a block walks
+_CF_STAGES = 2      # csrc/depthwise_cf.cu STAGES: window pairs a block holds
+
+
+@dataclasses.dataclass(frozen=True)
+class CfBwdPlan:
+    """How ``csrc/depthwise_cf.cu`` ``dw_cf_bwd`` (K7) computes one call.
+
+    A tile is ``th`` whole rows of a plane, ``tiles`` tiles a plane.
+    ``mode`` says how a window (the tile and a one-pixel halo) reaches
+    shared memory: ``vec`` (each row by 16-byte copies into a padded row;
+    thread (tx, ty) computes columns 4·tx … 4·tx + 3) or ``flat`` (the
+    window's rows as the one contiguous run of the plane they are, by
+    16-byte copies whatever the alignment; thread (tx, ty) computes columns
+    tx, tx + ncx, …).  Either way it computes rows ty·r … ty·r + r − 1 of
+    each tile.  A block of ``ncx`` × ``nry`` threads owns one channel and
+    walks ``walk`` tiles of the flattened (image, tile) index, the next
+    tile's x and g windows copied while it computes on the current one's.
+    ``groups`` blocks share a
+    channel's tiles; with more than one, each writes a row of a (groups, 9,
+    C) buffer and a final pass adds the rows."""
+
+    mode: str
+    ncx: int
+    nry: int
+    r: int
+    tiles: int
+    walk: int
+    groups: int
+    smem: int
+    batch: int
+    channels: int
+
+    @property
+    def th(self) -> int:
+        return self.nry * self.r
+
+    @property
+    def threads(self) -> int:
+        return self.ncx * self.nry
+
+    @property
+    def grid(self) -> tuple[int, int]:
+        return self.channels, self.groups
+
+    def blocks(self):
+        """(group, [(b, first row), ...] of its walk) of the blocks of any
+        one channel, in the kernel's order."""
+        n = self.batch * self.tiles
+        for grp in range(self.groups):
+            yield grp, [(pos // self.tiles, pos % self.tiles * self.th)
+                        for pos in range(grp * self.walk, min((grp + 1) * self.walk, n))]
+
+
+def _cf_smem(mode: str, W: int, th: int, threads: int, itemsize: int) -> int:
+    """``dw_cf_bwd``'s shared bytes: two pairs of an x and a g window, or the (9, threads rounded up to a power of two) table of dk
+    sums that overlays them after the walk."""
+    pad = 16 // itemsize
+    if mode == "vec":  # the next row's pad columns are a row's right halo
+        buf = (th + 2) * (W + pad) + pad
+    else:  # a 16-byte chunk of slack on each side of the run, 16-byte aligned
+        buf = -(-((th + 2) * W + 3 * pad) // pad) * pad
+    return max(2 * _CF_STAGES * buf * itemsize, 9 * 4 * (1 << (threads - 1).bit_length()))
+
+
+def _cf_mode(W: int, itemsize: int, ptr_align: int) -> str:
+    """``vec`` where W is a multiple of 16 bytes, x, g and dx are 16-byte
+    aligned and a row fits one block's strips (W ≤ 1024), else ``flat``.
+    ``flat`` computes any W too, but ``vec`` took 2–4 % less time at each
+    of Xception's 64² and 32² sites on an H100 (PERF.md §6, PR 6)."""
+    return "vec" if W % (16 // itemsize) == 0 and ptr_align % 16 == 0 and W <= 4 * _CF_THREADS else "flat"
+
+
+def _cf_make(mode: str, B: int, C: int, H: int, W: int, itemsize: int, ncx: int, nry: int, r: int,
+             walk: int):
+    """The plan of that block and walk, or None where its shared memory
+    passes the H100's 227 KB a block."""
+    threads, th = ncx * nry, nry * r
+    tiles = -(-H // th)
+    walk = min(walk, B * tiles)
+    groups = -(-B * tiles // walk)
+    smem = _cf_smem(mode, W, th, threads, itemsize)
+    if smem > 227 * 1024 or groups > 65535:
+        return None
+    return CfBwdPlan(mode, ncx, nry, r, tiles, walk, groups, smem, B, C)
+
+
+@functools.lru_cache(maxsize=512)
+def _cf_bwd_plan(B: int, C: int, H: int, W: int, dtype: torch.dtype, ptr_align: int) -> CfBwdPlan:
+    """K7's plan for one call, from the shape alone (so the order of dk's
+    float sums depends on the shape alone).
+
+    - Mode: ``vec`` where W is a multiple of 16 bytes, x, g and dx are
+      16-byte aligned (``ptr_align``) and W ≤ 1024; else ``flat`` (W =
+      253 and 127: rows of 1012 and 508 float32 bytes).
+    - Block: ``vec``, ⌈W/4⌉ strips × up to 8 rows of threads (at most 256
+      threads), 4 rows a thread: a 32-row tile, so a 32² plane is one tile
+      of 64 threads and a 64² plane two of 128.  ``flat``, the row's columns
+      rounded up to a warp (at most 256 threads, each then taking columns
+      tx, tx + 256, …) × one row of threads, 16 rows a thread: 16-row tiles.
+      Shorter ones where two window pairs of the row would pass 227 KB.
+    - Walk ``_CF_WALK`` tiles, so a channel has ⌈B·tiles/2⌉ groups of
+      blocks, whose dk rows a final pass adds: a block's second tile's
+      copies overlap its first tile's compute, and the grid keeps
+      C·B·tiles/2 blocks to spread over the H100's 132 SMs."""
+    itemsize = dtype.itemsize
+    mode = _cf_mode(W, itemsize, ptr_align)
+    if mode == "vec":
+        ncx = -(-W // 4)
+        nry = max(1, min(_CF_VEC_NRY, _CF_THREADS // ncx, -(-H // _CF_VEC_R)))
+        r = _CF_VEC_R
+    else:
+        ncx = min(_CF_THREADS, -(-W // 32) * 32)
+        nry, r = 1, min(_CF_FLAT_ROWS, H)
+    while True:
+        plan = _cf_make(mode, B, C, H, W, itemsize, ncx, nry, r, _CF_WALK)
+        if plan is not None:
+            return plan
+        if r == 1:
+            raise ValueError(f"depthwise_cf backward plan: W={W} fits no block's shared memory")
+        r //= 2
+
+
+def depthwise_cf_backward_emulation(
+    x: torch.Tensor, weight: torch.Tensor, g: torch.Tensor, plan: CfBwdPlan
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """K7's decomposition in PyTorch, for tests: every channel at once,
+    walks the plan's blocks in the kernel's order and returns (dx,
+    dweight).  Each tile's dx comes only from its g window (the tile's
+    rows and a one-pixel halo, zero outside the image) with the taps
+    reversed, its dk only from its x window and the g tile; dk is summed per
+    block over its walk, then, with several groups, as the final pass sums
+    the rows: lane l takes rows l, l + 8, … in order, then the lanes in
+    order.  dx outside the image is computed and dropped, as the kernel
+    masks its stores."""
+    B, C, H, W = x.shape
+    th = plan.th
+    rev = weight.reshape(C, 3, 3).to(x.dtype).flip(1, 2)[:, :, :, None, None]
+    pad = (1, 1, 1, plan.tiles * th + 1 - H)
+    xp, gp = F.pad(x, pad), F.pad(g, pad)
+    dx = torch.full_like(x, float("nan"))
+    partial = torch.zeros(plan.groups, C, 3, 3, dtype=x.dtype)
+    for grp, walk in plan.blocks():
+        for b, h0 in walk:
+            xw = xp[b, :, h0:h0 + th + 2]
+            gw = gp[b, :, h0:h0 + th + 2]
+            dxt = sum(gw[:, ky:ky + th, kx:kx + W] * rev[:, ky, kx]
+                      for ky in range(3) for kx in range(3))
+            gt = gw[:, 1:1 + th, 1:1 + W]
+            for ky in range(3):
+                for kx in range(3):
+                    partial[grp, :, ky, kx] += (xw[:, ky:ky + th, kx:kx + W] * gt).sum((1, 2))
+            hn = min(th, H - h0)
+            dx[b, :, h0:h0 + hn] = dxt[:, :hn]
+    if plan.groups == 1:
+        dk = partial[0]
+    else:
+        lanes = [sum((partial[i] for i in range(lane, plan.groups, 8)), torch.zeros_like(partial[0]))
+                 for lane in range(8)]
+        dk = lanes[0]
+        for sl in lanes[1:]:
+            dk = dk + sl
+    return dx, dk.reshape(C, 1, 3, 3).to(weight.dtype)
+
+
 def depthwise_cf_backward(x: torch.Tensor, weight: torch.Tensor, g: torch.Tensor,
                           want_dx: bool = True, want_dk: bool = True):
     """K7 alone: (dx or None, dweight or None) of :func:`depthwise_cf` for
-    the output gradient ``g``, all NCHW-contiguous.  The plain backward on
-    CPU tensors."""
+    the output gradient ``g``, all NCHW-contiguous, by :func:`_cf_bwd_plan`'s
+    plan (one launch, and the final dk pass where the plan has several
+    groups).  The plain backward on CPU tensors."""
     if x.device.type == "cpu":
         dx, dk = depthwise_conv_backward_plain(x, weight, g)
         return (dx if want_dx else None), (dk if want_dk else None)
@@ -749,21 +922,22 @@ def depthwise_cf_backward(x: torch.Tensor, weight: torch.Tensor, g: torch.Tensor
     if not (want_dx or want_dk):
         return None, None
     B, C, H, W = x.shape
-    slots = _build.function("depthwise_cf", "dw_cf_slots", [ctypes.c_int] * 3)(B, H, W)
     f32 = dict(dtype=torch.float32, device=x.device)
     taps = _taps(weight, x.dtype) if want_dx else None
     dx = torch.empty_like(x, memory_format=torch.contiguous_format) if want_dx else None
+    plan = _cf_bwd_plan(B, C, H, W, x.dtype, _ptr_align(*(t for t in (x, g, dx) if t is not None)))
     dk = torch.empty((C, 1, 3, 3), **f32) if want_dk else None
-    partial = torch.empty((slots, 9, C), **f32) if want_dk else None
+    partial = torch.empty((plan.groups, 9, C), **f32) if want_dk and plan.groups > 1 else None
     fn = _build.function("depthwise_cf", "dw_cf_bwd",
-                         [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+                         [ctypes.c_void_p] * 6 + [ctypes.c_int] * 13 + [ctypes.c_void_p])
 
     def ptr(t):
         return None if t is None else t.data_ptr()
 
     with torch.cuda.device(x.device):
         rc = fn(x.data_ptr(), g.data_ptr(), ptr(taps), ptr(dx), ptr(dk), ptr(partial),
-                _DTYPE_CODE[x.dtype], B, C, H, W, _stream(x))
+                _DTYPE_CODE[x.dtype], B, C, H, W, _CF_MODE[plan.mode], plan.ncx, plan.nry, plan.r,
+                plan.tiles, plan.walk, plan.groups, plan.smem, _stream(x))
     if rc != 0:
         raise RuntimeError(f"depthwise_cf_backward launch failed: CUDA error {rc}")
     launches["depthwise_bwd_cf"] += 1

@@ -75,16 +75,23 @@ def test_segment_rejects_bad_images_and_unported_options():
     ({"model_loading": True}, "item 11"),
     ({"multi_gpu": True, "num_gpus": 2}, "item 13"),
     ({"multi_gpu": True, "num_gpus": 4, "allow_fewer_devices": True}, "item 13"),
+    ({"backbone_weights": "/nonexistent/backbone.h5"}, "item 14"),
+    ({"backbone_weights": "imagenet"}, "item 14"),
+    ({"mesh_space": 2}, "item 13"),
 ])
 def test_config_keys_that_change_the_result_raise(keys, item):
     """The JAX facade restores the checkpoint in work_dir under
-    ``model_loading`` (api.py:135-136) and builds a num_gpus mesh under
-    ``multi_gpu`` (api.py:90-108); the port does neither yet, so it must
-    refuse rather than train from random weights on one device."""
+    ``model_loading`` (api.py:135-136), builds a num_gpus mesh under
+    ``multi_gpu`` (api.py:90-108), loads ``backbone_weights`` into the
+    backbone (api.py:131-133) and shards space under ``mesh_space`` > 1
+    (api.py:109-113); the port does none of these yet, so it must refuse
+    rather than train from random weights on one device."""
     with pytest.raises(NotImplementedError, match=item):
         SemanticSegmentation({**conf_dict(32), **keys}, device="cpu")
-    # one GPU asked for is what the port does
-    SemanticSegmentation({**conf_dict(32), "multi_gpu": True, "num_gpus": 1}, device="cpu")
+    # one GPU asked for, no backbone weights and no spatial split are what
+    # the port does
+    SemanticSegmentation({**conf_dict(32), "multi_gpu": True, "num_gpus": 1,
+                          "backbone_weights": "", "mesh_space": 1}, device="cpu")
 
 
 def test_port_imports_no_jax():

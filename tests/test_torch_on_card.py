@@ -7,6 +7,8 @@ but no JAX it runs without the suite's ``conftest.py``:
     python -m pytest tests/test_torch_on_card.py --noconftest -m cuda -q
 """
 
+import math
+
 import pytest
 import torch
 
@@ -298,6 +300,64 @@ def test_bhcw_layout_routes_autograd_through_k6_k7(card, monkeypatch):
     assert kernels.launch_counts()["depthwise_fwd_s1"] == before + 1
 
 
+# (B, C, H, W), dtype, storage offset in elements, plan mode, for K7's
+# plan (kernels/depthwise.py _cf_bwd_plan): whole 32² planes that a block
+# walks through the batch, batch groups (a partial buffer and the final
+# pass), the flat copies of odd W (rows of 508 and 1012 float32 bytes,
+# 16-row tiles walked; odd H and W), bfloat16 by both copies, pointer
+# offsets that break 16-byte alignment (x and g then start and end inside
+# a 16-byte chunk and are the last elements of their buffers, so the flat
+# copy's first and last chunks cross the tensor's ends), and blocks of
+# fewer threads than dk's 9 taps.
+CF_BWD_CASES = [
+    ((16, 1024, 32, 32), torch.float32, 0, "vec"),
+    ((16, 728, 32, 32), torch.float32, 0, "vec"),
+    ((4, 96, 127, 127), torch.float32, 0, "flat"),
+    ((2, 64, 253, 253), torch.float32, 0, "flat"),
+    ((2, 600, 61, 99), torch.float32, 0, "flat"),
+    ((4, 256, 64, 64), torch.bfloat16, 0, "vec"),
+    ((4, 128, 127, 127), torch.bfloat16, 0, "flat"),
+    ((8, 300, 32, 32), torch.float32, 1, "flat"),
+    ((2, 48, 37, 45), torch.bfloat16, 1, "flat"),
+    ((2, 64, 31, 31), torch.float32, 3, "flat"),
+    ((2, 600, 8, 8), torch.float32, 0, "vec"),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,dtype,offset,mode", CF_BWD_CASES)
+def test_cf_backward_plan_variants_match_plain(card, shape, dtype, offset, mode):
+    """K7 by each variant of its plan against the plain backward in float64
+    on the same (rounded) inputs and taps (dx 1e-5 of its max in float32,
+    1e-2 in bfloat16; dk 1e-4 of Σ|x·g|); dk and dx the same bits in a
+    second run, and from a dx-only and a dk-only call."""
+    from deeplabv3plus_keras_tpu_torch.kernels.depthwise import _cf_bwd_plan, _ptr_align
+
+    n = math.prod(shape)
+    x = torch.randn(n + offset, device="cuda", generator=card).to(dtype)[offset:].view(shape)
+    g = torch.randn(n + offset, device="cuda", generator=card).to(dtype)[offset:].view(shape)
+    w = torch.randn(shape[1], 1, 3, 3, device="cuda", generator=card)
+    assert (x.data_ptr() % 16 != 0) == (offset != 0)
+    assert offset == 0 or (x.data_ptr() + x.nbytes) % 16 != 0
+    assert _cf_bwd_plan(*shape, dtype, _ptr_align(x, g)).mode == mode
+    before = kernels.launch_counts()["depthwise_bwd_cf"]
+    dx, dw = depthwise_cf_backward(x, w, g)
+    assert kernels.launch_counts()["depthwise_bwd_cf"] == before + 1
+    wr = w.to(dtype).double()
+    rdx, rdw = depthwise_conv_backward_plain(x.double(), wr, g.double())
+    rel = 1e-5 if dtype == torch.float32 else 1e-2
+    assert dx.dtype == dtype and dx.is_contiguous()
+    assert (dx.double() - rdx).abs().max() <= rel * rdx.abs().max()
+    _, dw_abs = depthwise_conv_backward_plain(x.double().abs(), wr, g.double().abs())
+    assert dw.dtype == w.dtype and ((dw.double() - rdw).abs() <= 1e-4 * dw_abs).all()
+    dx2, dw2 = depthwise_cf_backward(x, w, g)
+    assert torch.equal(dx2, dx) and torch.equal(dw2, dw)
+    dx_only, none = depthwise_cf_backward(x, w, g, want_dk=False)
+    none2, dk_only = depthwise_cf_backward(x, w, g, want_dx=False)
+    assert none is None and none2 is None
+    assert torch.equal(dx_only, dx) and torch.equal(dk_only, dw)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("scale", [2, 16])
 def test_upsample_argmax_kernel_matches_plain(card, scale):
@@ -309,3 +369,44 @@ def test_upsample_argmax_kernel_matches_plain(card, scale):
     # only float-rounding ties between two classes may differ
     assert (lab != ref).float().mean().item() <= 1e-5
     assert (upsample_argmax(torch.zeros(1, 4, 4, 7, device="cuda"), 2) == 0).all()
+
+
+# (B, h, w, C), scale: K1's plan (kernels/upsample_argmax.py
+# _upsample_argmax_plan) at s 1, 2, 4, 16 and past 64, odd maps (the last
+# band and column tile cut, rows whose labels a vector store does not
+# take), C of 1, 21 and 150 (a narrower band and tile).
+K1_CASES = [
+    ((2, 9, 13, 21), 1), ((2, 33, 67, 21), 2), ((1, 7, 9, 150), 2), ((1, 5, 11, 1), 2),
+    ((2, 11, 5, 21), 4), ((1, 3, 5, 150), 16), ((1, 6, 7, 1), 16), ((16, 16, 16, 21), 2),
+    ((1, 3, 2, 21), 65), ((1, 2, 3, 5), 100),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,scale", K1_CASES)
+def test_upsample_argmax_plan_matches_its_emulation(card, shape, scale):
+    """The kernel's labels equal, bit for bit, the CPU emulation of its
+    blocks (the same float32 operations in the same order), and the plain
+    version's except at float-rounding near-ties."""
+    from deeplabv3plus_keras_tpu_torch.kernels.upsample_argmax import (
+        _upsample_argmax_plan,
+        upsample_argmax_band_emulation,
+    )
+
+    logits = torch.randn(shape, device="cuda", generator=card)
+    lab = upsample_argmax(logits, scale)
+    plan = _upsample_argmax_plan(*shape, scale)
+    emu = upsample_argmax_band_emulation(logits.cpu(), scale, plan)
+    assert torch.equal(lab.cpu(), emu)
+    assert (lab != upsample_argmax_plain(logits, scale)).float().mean().item() <= 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scale", [1, 2, 3])
+def test_upsample_argmax_ties_keep_the_first_class(card, scale):
+    logits = torch.randn(2, 9, 11, 21, device="cuda", generator=card)
+    top = logits.amax(-1) + 1.0
+    logits[..., 4] = top
+    logits[..., 9] = top
+    logits[..., 20] = top
+    assert (upsample_argmax(logits, scale) == 4).all()
