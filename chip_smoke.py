@@ -38,6 +38,16 @@ For each model it
    then one step at 2 × 128² on the card and on the CPU from the same
    weights, whose losses and gradients must agree.
 
+After the flagship's phases, under ``nhwc``, the ``data_path`` phase drives
+the JSON-config entry points on a VOC-layout tree it writes (64 train, 32
+val and 16 test images, sides 300–500): ``train()`` for 2 epochs with flip
+and scale augmentation, ``evaluate()`` of a second facade restored by
+``model_loading`` (equal to the best epoch's ``val_miou``), ``test()``'s PNGs
+against ``segment()``, ``evaluate()`` with test-time augmentation, and
+``prepare_batch`` on the card against the CPU; it reports ``train()``'s
+images/s beside ``train_step()``'s, the host decode time a batch and the
+card's idle share over one profiled epoch.
+
 Then it prints the forward and backward depthwise summaries against cuDNN
 and the byte bound (K7's beside the one-tile-a-block design it replaced),
 one JSON line of kernel results (K1-K7), the card's
@@ -656,10 +666,10 @@ def run_serving(seg, kernels, card: str, batches, expect: dict, name: str) -> di
     return launches
 
 
-def run_training(seg, kernels, card: str, expect: dict, name: str) -> dict:
+def run_training(seg, kernels, card: str, expect: dict, name: str) -> tuple[dict, float]:
     """The training path: ``TRAIN_STEPS`` steps of ``seg.train_step``
     with TF32 off; checks the loss, the gradients and the launches of every
-    step.  Returns the launch counts of those steps."""
+    step.  Returns the launch counts of those steps and the images/s."""
     import torch
 
     batches = train_batches(TRAIN_STEPS, BATCH, SIZE, "cuda", seed=1)
@@ -711,7 +721,7 @@ def run_training(seg, kernels, card: str, expect: dict, name: str) -> dict:
         "img_per_s_tf32_off": BATCH / step_s, "step_s_tf32_on": tf32_times,
         "img_per_s_tf32_on": BATCH / statistics.median(tf32_times),
         "max_memory_allocated_gib": peak / 2**30, "launches": launches, "card": card}}))
-    return launches
+    return launches, BATCH / step_s
 
 
 def check_training_against_cpu(conf: dict, name: str) -> None:
@@ -909,7 +919,8 @@ def drive_model(name: str, conf: dict, kernels, card: str, g, rows, n_sites: dic
     """Every phase of one model under the current ``DLV3_DW_LAYOUT``: the
     kernels at its sites, ``segment()``, ``train_step()`` and the 2 × 128²
     step against the CPU.  ``n_sites`` is the expected count of forward
-    launches per kernel.  Returns (per-kernel site sums, launches by path)."""
+    launches per kernel.  Returns (per-kernel site sums, launches by path,
+    train_step() images/s with TF32 off)."""
     import torch
 
     from deeplabv3plus_keras_tpu_torch import SemanticSegmentation
@@ -955,7 +966,7 @@ def drive_model(name: str, conf: dict, kernels, card: str, g, rows, n_sites: dic
     key = "" if name == "mobilenetv2" else f"{name}_"
     by_path[f"{key}segment"] = run_serving(seg, kernels, card, batches, expect, name)
     print(json.dumps({"model": name, "phase": "segment", "s": time.perf_counter() - t0}))
-    by_path[f"{key}train_step"] = run_training(
+    by_path[f"{key}train_step"], train_img_s = run_training(
         seg, kernels, card, depthwise_expect(sites, train=True), name)
     print(json.dumps({"model": name, "phase": "train_step", "s": time.perf_counter() - t0}))
     del seg
@@ -963,7 +974,171 @@ def drive_model(name: str, conf: dict, kernels, card: str, g, rows, n_sites: dic
     small = (flagship_conf if name == "mobilenetv2" else xception_conf)(128, batch=2)
     check_training_against_cpu(small, name)
     print(json.dumps({"model": name, "phase": "cpu_step", "s": time.perf_counter() - t0}))
-    return agg, by_path
+    return agg, by_path, train_img_s
+
+
+def device_idle_share(prof, wall_s: float) -> dict:
+    """Device busy time (the union of the CUDA kernels' and copies'
+    intervals in a ``torch.profiler`` run) against the host's wall time of
+    the profiled block."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if str(e.device_type).endswith("CUDA"))
+    busy_us, end = 0.0, -math.inf
+    for a, b in spans:
+        if b > end:
+            busy_us += b - max(a, end)
+            end = b
+    busy_s = busy_us / 1e6
+    return {"wall_s": wall_s, "device_busy_s": busy_s, "idle_share": 1.0 - busy_s / wall_s}
+
+
+def data_path_conf(root: str, **extra) -> dict:
+    """The flagship conf reading a VOC-layout tree at ``root``: 2 epochs,
+    flip + scale 0.5–2.0 augmentation, the reference's 4 loader workers."""
+    conf = flagship_conf()
+    conf.update(resource_type="pascal_voc_2012", resource_path=root, workers=4,
+                augment={"random_flip": True, "scale_range": [0.5, 2.0]}, **extra)
+    conf["hps"]["epochs"] = 2
+    return conf
+
+
+def run_data_path(kernels, card: str, train_step_img_s: float) -> dict:
+    """The JSON-config entry points on a VOC-layout tree written here (64
+    train, 32 val and 16 test images, sides 300–500, as VOC's): ``train()``
+    for 2 epochs with augmentation, a second facade restored by
+    ``model_loading`` whose ``evaluate()`` must give the best epoch's
+    ``val_miou`` exactly, ``test()``'s PNGs against ``segment()`` of the same
+    preprocessed images, ``evaluate()`` with test-time augmentation, and
+    ``prepare_batch`` on the card against the CPU.  Returns the launches of
+    the paths ``train_loop``, ``evaluate`` and ``test``."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from deeplabv3plus_keras_tpu_torch import SemanticSegmentation, native
+    from deeplabv3plus_keras_tpu_torch.data import (
+        MODE_TEST,
+        MODE_TRAIN,
+        MODE_VAL,
+        HostLoader,
+        device_batches,
+        make_synthetic_voc,
+        pascal_voc_2012,
+    )
+    from deeplabv3plus_keras_tpu_torch.ops.preprocess import prepare_batch
+    from torch.profiler import ProfilerActivity, profile
+
+    t0 = time.perf_counter()
+    by_path = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        root, work = os.path.join(tmp, "resource"), os.path.join(tmp, "work")
+        make_synthetic_voc(root, n_train=64, n_val=32, n_test=16, min_size=300, max_size=501)
+        t_written = time.perf_counter() - t0
+
+        # host decode alone: the train split's 4 batches, one worker and four
+        decode = {"backend": "native" if native.native_available() else "pil"}
+        for workers in (1, 4):
+            loader = HostLoader(pascal_voc_2012(root, MODE_TRAIN), BATCH, SIZE, workers=workers)
+            t = time.perf_counter()
+            n = sum(1 for _ in loader)
+            decode[f"ms_per_batch_{workers}_workers"] = (time.perf_counter() - t) * 1e3 / n
+
+        # ---- train(): 2 epochs with augmentation ----
+        seg = SemanticSegmentation(data_path_conf(root), work_dir=work, device="cuda")
+        kernels.reset_launch_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        history = seg.train()
+        train_s = time.perf_counter() - t
+        by_path["train_loop"] = kernels.launch_counts()
+        if len(history["loss"]) != 2 or not all(math.isfinite(v) for k in history
+                                                for v in history[k]):
+            raise SystemExit(f"train(): history {history}")
+        slot = os.path.join(work, seg.MODEL_PATH, "state", "state.pt")
+        if not os.path.isfile(slot):
+            raise SystemExit(f"train() left no checkpoint at {slot}")
+        best = int(np.argmin(history["val_loss"]))
+        del seg
+
+        # ---- restore (model_loading) and evaluate(): the best epoch's CM ----
+        seg = SemanticSegmentation(data_path_conf(root, model_loading=True), work_dir=work,
+                                   device="cuda")
+        kernels.reset_launch_counts()
+        miou = seg.evaluate().result()
+        by_path["evaluate"] = kernels.launch_counts()
+        if miou != history["val_miou"][best]:
+            raise SystemExit(f"restored evaluate() mIoU {miou} != epoch {best + 1}'s val_miou "
+                             f"{history['val_miou'][best]}")
+
+        # ---- test(): PNGs named after the inputs, equal to segment() ----
+        kernels.reset_launch_counts()
+        seg.test()
+        by_path["test"] = kernels.launch_counts()
+        out_dir = os.path.join(work, "test_results")
+        specs = pascal_voc_2012(root, MODE_TEST)
+        if sorted(os.listdir(out_dir)) != sorted(f"{s.name}.png" for s in specs):
+            raise SystemExit(f"test() wrote {sorted(os.listdir(out_dir))[:4]}...")
+        mismatched = 0
+        for batch in device_batches(HostLoader(specs, BATCH, SIZE, with_labels=False), SIZE,
+                                    CLASSES, with_labels=False, device="cuda"):
+            labels = seg.segment(batch["image"])
+            for name, lab in zip(batch["names"], labels):
+                png = np.asarray(Image.open(os.path.join(out_dir, f"{name}.png")))
+                mismatched += int((png != lab.astype(np.uint8)).sum())
+        if mismatched:
+            raise SystemExit(f"test() PNGs differ from segment() on {mismatched} pixels")
+        del seg
+
+        # ---- evaluate() with test-time augmentation ----
+        seg = SemanticSegmentation(
+            data_path_conf(root, model_loading=True, eval_scales=[0.75, 1.0, 1.25],
+                           eval_flip=True), work_dir=work, device="cuda")
+        tta_miou = seg.evaluate().result()
+        if not math.isfinite(tta_miou):
+            raise SystemExit(f"evaluate() with TTA: mIoU {tta_miou}")
+        del seg
+
+        # ---- one profiled training epoch: the card's idle share ----
+        seg = SemanticSegmentation(data_path_conf(root), work_dir=os.path.join(tmp, "prof"),
+                                   device="cuda")
+        seg.hps.epochs = 1
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            seg.train()
+            torch.cuda.synchronize()
+            epoch_wall = time.perf_counter() - t
+        idle = device_idle_share(prof, epoch_wall)
+        del seg, prof
+
+        # ---- prepare_batch on the card against the CPU, one val batch ----
+        host = next(iter(HostLoader(pascal_voc_2012(root, MODE_VAL), BATCH, SIZE)))
+        args = [torch.from_numpy(host[k]) for k in ("image_canvas", "sizes", "label_canvas")]
+        kw = dict(size=SIZE, num_classes=CLASSES, one_hot_labels=False)
+        gi, gl = prepare_batch(*[a.cuda() for a in args], **kw)
+        ci, cl = prepare_batch(*args, **kw)
+        img_err = (gi.cpu() - ci).abs().max().item()
+        label_agree = float((gl.cpu() == cl).float().mean())
+    torch.cuda.empty_cache()
+
+    n_train, epochs = 64, 2
+    print(json.dumps({"data_path": {
+        "model": "mobilenetv2", "batch": BATCH, "image": SIZE, "dtype": "float32",
+        "tree": {"train": 64, "val": 32, "test": 16, "sides": [300, 500], "write_s": t_written},
+        "history": history, "best_epoch": best + 1, "restored_evaluate_miou": miou,
+        "tta_miou": tta_miou, "test_pngs": len(specs),
+        "train_s": train_s, "epoch_s": train_s / epochs,
+        "train_img_per_s": n_train * epochs / train_s,
+        "train_step_img_per_s": train_step_img_s,
+        "host_decode": decode, "profiled_epoch": idle,
+        "prepare_batch_card_vs_cpu": {"image_max_abs_err": img_err, "label_agreement": label_agree},
+        "launches": by_path, "s": time.perf_counter() - t0, "card": card}}))
+    if not img_err <= 1e-5:
+        raise SystemExit(f"prepare_batch images on the card vs the CPU: {img_err} > 1e-5")
+    if not label_agree >= 0.9999:
+        raise SystemExit(f"prepare_batch labels on the card vs the CPU agree on {label_agree}")
+    return by_path
 
 
 def main() -> int:
@@ -1009,15 +1184,26 @@ def main() -> int:
 
     # the flagship under the default layout: K1-K5
     with dw_layout("nhwc"):
-        a, p = drive_model("mobilenetv2", flagship_conf(), kernels, card, g, rows,
-                           {"depthwise_fwd_s1": 15, "depthwise_fwd_s2": 3})
-    agg.update(a)
+        a, p, train_img_s = drive_model("mobilenetv2", flagship_conf(), kernels, card, g, rows,
+                                        {"depthwise_fwd_s1": 15, "depthwise_fwd_s2": 3})
+        agg.update(a)
+        by_path.update(p)
+        # the JSON-config entry points on a dataset on disk: K1-K5 again
+        t1 = time.perf_counter()
+        p = run_data_path(kernels, card, train_img_s)
+        print(json.dumps({"model": "mobilenetv2", "phase": "data_path",
+                          "s": time.perf_counter() - t1}))
     by_path.update(p)
+    missing = [k for k in ("upsample_argmax", "depthwise_fwd_s1", "depthwise_fwd_s2",
+                           "depthwise_bwd_s1", "depthwise_bwd_s2")
+               if not sum(p[path][k] for path in p)]
+    if missing or not all(p["train_loop"][k] for k in ("depthwise_bwd_s1", "depthwise_bwd_s2")):
+        raise SystemExit(f"data path: kernels not launched on train_loop/evaluate/test: {p}")
     # Xception under bhcw: K6/K7 at its 33 undilated sites, K2/K4 at the
     # three dilated ASPP sites, K1 in segment()
     with dw_layout("bhcw"):
-        a, p = drive_model("xception", xception_conf(), kernels, card, g, rows,
-                           {"depthwise_fwd_cf": 33, "depthwise_fwd_s1": 3})
+        a, p, _ = drive_model("xception", xception_conf(), kernels, card, g, rows,
+                              {"depthwise_fwd_cf": 33, "depthwise_fwd_s1": 3})
     agg.update(a)
     by_path.update(p)
     (OUT / "kernel_sites.json").write_text(json.dumps({"card": card, "sites": rows}, indent=1))

@@ -1,15 +1,24 @@
 """Public facade: JSON-config-driven DeepLabV3+ (port of
-``deeplabv3plus_keras_tpu/api.py:71-192, 634-648``).
+``deeplabv3plus_keras_tpu/api.py:71-280, 343-632, 634-648, 732-749``).
 
 It builds and initialises the model (``base_model`` ``mobilenetv2`` or
 ``xception``), the training state (Keras Adam) and the train, eval and
-label steps, as the JAX facade does, and answers ``train_step(batch)``,
-``eval_step(batch)`` and ``segment(images)``.  The epoch loops
-``train()``, ``evaluate()`` and ``test()`` need the data slice, and model
-export comes later (ROADMAP.md Queue A).  Config keys that would change
-the result and are not ported yet (``model_loading``, ``multi_gpu`` with
-``num_gpus`` > 1, ``int8_infer``, ``backbone_weights``, ``mesh_space`` > 1)
-raise ``NotImplementedError``.
+label steps, as the JAX facade does, and answers the reference's entry
+points ``train()``, ``evaluate(mode, result_saving)``, ``test()`` and
+``segment(images)``, plus ``train_step(batch)`` and ``eval_step(batch)``
+on batches the caller builds.
+
+The epoch loops read a VOC-layout (or Open Images) dataset from
+``resource_path``: host threads decode it into uint8 canvases
+(``data/pipeline.py``), which cross to the device and are preprocessed
+there (``ops/preprocess.py``).  The best-val-loss checkpoint lives in
+``work_dir/semantic_segmentation_deeplabv3plus`` (``train/checkpoint.py``)
+and ``model_loading`` restores it.
+
+Config keys that would change the result and are not ported yet
+(``multi_gpu`` with ``num_gpus`` > 1, ``int8_infer``,
+``backbone_weights``, ``mesh_space`` > 1, ``cache_device``, a dtype other
+than float32) raise ``NotImplementedError`` naming their ROADMAP.md item.
 
 The environment variable ``DLV3_DW_LAYOUT=bhcw`` routes the 3×3 stride-1
 undilated depthwise sites through the channels-first kernels
@@ -18,10 +27,22 @@ undilated depthwise sites through the channels-first kernels
 
 from __future__ import annotations
 
+import os
+import shutil
+import time
+
 import numpy as np
 import torch
 
-from .config import Config
+from .config import (
+    DEVICE_CPU,
+    RESOURCE_TYPE_GOOGLE_OPEN_IMAGES_V5,
+    RESOURCE_TYPE_PASCAL_VOC_2012,
+    RESOURCE_TYPE_PASCAL_VOC_2012_EXT,
+    Config,
+)
+from .data import pipeline as pipe
+from .data import voc
 from .models.deeplab import DeepLabV3Plus
 from .parallel.step import (
     build_eval_step,
@@ -30,6 +51,17 @@ from .parallel.step import (
     create_train_state,
     resolve_class_weights,
 )
+from .train import MeanIoU
+from .train.callbacks import LRSchedule, ReduceLROnPlateau
+from .train.checkpoint import (
+    MODEL_DIR,
+    checkpoint_exists,
+    clear_resume_checkpoint,
+    restore_checkpoint,
+    save_checkpoint,
+)
+from .utils import MetricsLogger, StepTimer, profiler_trace
+from .utils.preemption import Preempted, PreemptionGuard
 
 _SEED = 1024  # the reference seeds 1024 (semantic_segmentation.py:1797-1802)
 
@@ -49,21 +81,22 @@ def resolve_device(device=None) -> torch.device:
 class SemanticSegmentation:
     """JSON-config-driven DeepLabV3+ semantic segmentation model."""
 
+    MODEL_PATH = MODEL_DIR
+
     def __init__(self, conf: dict | Config, work_dir: str = ".", device=None):
         self.conf = conf if isinstance(conf, Config) else Config.from_dict(conf)
+        self.hps = self.conf.hps
+        self.nn_arch = self.conf.nn_arch
         self.work_dir = work_dir
         self.device = resolve_device(device)
-        if self.conf.hps.dtype != "float32":
+        extra = self.conf.extra
+        if self.hps.dtype != "float32":
             raise NotImplementedError(
-                f"hps.dtype {self.conf.hps.dtype!r}: the port serves float32 only so far"
+                f"hps.dtype {self.hps.dtype!r}: the port runs float32 only so far "
+                "(ROADMAP.md Queue A item 18, reduced precision)"
             )
-        if self.conf.extra.get("int8_infer", False):
+        if extra.get("int8_infer", False):
             raise NotImplementedError("int8_infer is not ported yet (ROADMAP.md Queue A item 15)")
-        if self.conf.model_loading:
-            raise NotImplementedError(
-                "model_loading (restore the checkpoint in work_dir) is not ported yet "
-                "(ROADMAP.md Queue A item 11, checkpointing)"
-            )
         if self.conf.multi_gpu and self.conf.num_gpus > 1:
             raise NotImplementedError(
                 f"multi_gpu with num_gpus={self.conf.num_gpus}: the port trains on one "
@@ -71,28 +104,43 @@ class SemanticSegmentation:
             )
         # the JAX facade loads these weights or raises (api.py:131-133); it
         # skips only an unset or empty key (utils/pretrained.py:79-81)
-        if self.conf.extra.get("backbone_weights"):
+        if extra.get("backbone_weights"):
             raise NotImplementedError(
-                f"backbone_weights={self.conf.extra['backbone_weights']!r}: pretrained "
+                f"backbone_weights={extra['backbone_weights']!r}: pretrained "
                 "backbones are not ported yet (ROADMAP.md Queue A item 14, the converter)"
             )
-        if int(self.conf.extra.get("mesh_space", 1)) > 1:
+        if int(extra.get("mesh_space", 1)) > 1:
             raise NotImplementedError(
-                f"mesh_space={self.conf.extra['mesh_space']}: spatial sharding is not "
+                f"mesh_space={extra['mesh_space']}: spatial sharding is not "
                 "ported yet (ROADMAP.md Queue A item 13, multi-GPU data parallelism)"
+            )
+        if extra.get("cache_device"):
+            raise NotImplementedError(
+                "cache_device (the dataset resident in device memory) is not ported yet "
+                "(ROADMAP.md Queue A item 19)"
             )
 
         self.model = DeepLabV3Plus(self.conf)
         self.model.init_weights(torch.Generator().manual_seed(_SEED))
         self.model.to(self.device, memory_format=torch.channels_last).eval()
         self.optimizer = create_train_state(self.conf, self.model)
+        if self.conf.model_loading and checkpoint_exists(work_dir):
+            restore_checkpoint(self.model, self.optimizer, work_dir)
         # extra key 'class_weights_npz': the loss's class-balance weights
-        cw = resolve_class_weights(self.conf)
+        self._cw = resolve_class_weights(self.conf)
         self._train_step = build_train_step(self.model, self.optimizer, self.conf,
-                                            class_weights=cw, seed=_SEED)
-        self._eval_step = build_eval_step(self.model, self.conf, class_weights=cw,
-                                          with_probs=False)
+                                            class_weights=self._cw, seed=_SEED)
+        # extra keys 'eval_scales' / 'eval_flip': test-time augmentation
+        self._tta = dict(tta_scales=extra.get("eval_scales"),
+                         tta_flip=bool(extra.get("eval_flip", False)))
+        self._eval_step = build_eval_step(self.model, self.conf, class_weights=self._cw,
+                                          with_probs=False, **self._tta)
+        self._eval_step_probs = None  # built by evaluate(result_saving=True)
         self._label_step = build_label_step(self.model)
+
+    # ------------------------------------------------------------------
+    # Steps on batches the caller builds
+    # ------------------------------------------------------------------
 
     def train_step(self, batch: dict) -> dict:
         """One Keras-Adam step on ``batch`` (``image`` (B,S,S,3), ``label``
@@ -128,3 +176,296 @@ class SemanticSegmentation:
             valid = torch.ones(image.shape[0], dtype=torch.int32, device=self.device)
         return {"image": image, "label": label,
                 "valid": torch.as_tensor(valid, device=self.device)}
+
+    # ------------------------------------------------------------------
+    # Data plumbing
+    # ------------------------------------------------------------------
+
+    def _specs(self, mode: int):
+        rt, rp = self.conf.resource_type, self.conf.resource_path
+        if rt == RESOURCE_TYPE_PASCAL_VOC_2012:
+            return voc.pascal_voc_2012(rp, mode)
+        if rt == RESOURCE_TYPE_PASCAL_VOC_2012_EXT:
+            return voc.pascal_voc_2012_ext(rp, mode, self.hps.val_ratio)
+        if rt == RESOURCE_TYPE_GOOGLE_OPEN_IMAGES_V5:
+            from .data import openimages
+
+            return openimages.google_open_images_v5(rp, mode)
+        raise ValueError(f"unknown resource_type {rt!r}")
+
+    def _loader(self, mode: int, shuffle: bool = False, with_labels: bool = True):
+        return pipe.HostLoader(
+            self._specs(mode),
+            batch_size=self.hps.batch_size,
+            canvas_size=max(512, self.nn_arch.image_size),
+            workers=max(1, self.conf.workers),
+            max_queue_size=self.conf.max_queue_size,
+            shuffle=shuffle,
+            with_labels=with_labels,
+            # an input larger than the canvas is resized on the host
+            # straight to the network geometry (reference :200-280)
+            oversize_target=self.nn_arch.image_size,
+            label_clamp=self.nn_arch.num_classes,
+            # extra key 'cache_decoded': keep decoded uint8 samples in host
+            # RAM, so epochs after the first skip the decode
+            cache=bool(self.conf.extra.get("cache_decoded", False)),
+            # extra key 'loader_backend': auto | native | pil
+            backend=str(self.conf.extra.get("loader_backend", "auto")),
+        )
+
+    def _batches(self, loader, with_labels: bool = True):
+        return pipe.device_batches(
+            loader, self.nn_arch.image_size, self.nn_arch.num_classes, with_labels,
+            # extra key 'sparse_labels': integer labels instead of one-hot
+            one_hot_labels=not self.conf.extra.get("sparse_labels", False),
+            # prepro_device == -1: the reference's host SciPy path
+            host_prepro=self.conf.prepro_device == DEVICE_CPU,
+            device=self.device,
+        )
+
+    # ------------------------------------------------------------------
+    # Entry points (reference :956-1187)
+    # ------------------------------------------------------------------
+
+    def train(self) -> dict:
+        """Train with per-epoch validation, best-val checkpointing and
+        ReduceLROnPlateau on the train loss (reference train(), :956-1009).
+        Returns the history: per-epoch ``loss``, ``miou``, ``val_loss`` and
+        ``val_miou``.
+
+        Extra keys: ``lr_schedule`` (a per-epoch poly or exponential
+        schedule in place of the plateau callback), ``metrics_log`` (JSONL
+        per epoch), ``profile_logdir`` (a ``torch.profiler`` trace of the
+        first epoch), ``nan_guard`` (default on: a non-finite epoch loss
+        raises before the checkpoint is touched), ``resume`` (continue at
+        the epoch the restored step count gives, with that epoch's shuffle)
+        and ``preemption_save`` (default on: SIGTERM finishes the step in
+        flight, saves the resume slot and returns).
+
+        The step loop never waits on the device: losses and confusion
+        matrices stay device tensors until the epoch's end."""
+        plateau = ReduceLROnPlateau(self.hps.reduce_lr_factor, patience=5, min_lr=1e-8)
+        sched_spec = self.conf.extra.get("lr_schedule")
+        schedule = (
+            LRSchedule(sched_spec if isinstance(sched_spec, dict) else {}, self.hps.lr,
+                       self.hps.epochs, default_factor=self.hps.reduce_lr_factor)
+            if sched_spec else None
+        )
+        logger = MetricsLogger(self.conf.extra.get("metrics_log"))
+        profile_logdir = self.conf.extra.get("profile_logdir")
+        history = {"loss": [], "miou": [], "val_loss": [], "val_miou": []}
+        opt = self.optimizer
+
+        def preemption_save(epoch):
+            save_checkpoint(self.model, opt, self.work_dir, best_only=False)
+            logger.log({"preempted": True, "epoch": epoch + 1, "step": opt.iterations})
+            print("SIGTERM received: checkpoint saved, training stopped")
+
+        with PreemptionGuard(self.conf.extra.get("preemption_save", True)) as guard:
+            try:
+                tr_loader = self._loader(voc.MODE_TRAIN, shuffle=True)
+                val_loader = self._loader(voc.MODE_VAL)
+            except Preempted:
+                preemption_save(0)
+                return history
+            self.hps.tr_step = tr_loader.steps()
+            self.hps.val_step = val_loader.steps()
+            # extra key 'resume': the start epoch from the restored step
+            # count; the loader replays that epoch's shuffle.  A preemption
+            # mid-epoch replays its epoch from the top.
+            start_epoch = 0
+            if self.conf.extra.get("resume", False):
+                start_epoch = min(opt.iterations // max(self.hps.tr_step, 1), self.hps.epochs)
+                if start_epoch:
+                    tr_loader.set_epoch(start_epoch)
+                    print(f"resume: continuing at epoch {start_epoch + 1}/{self.hps.epochs} "
+                          f"(step {opt.iterations})")
+            for epoch in range(start_epoch, self.hps.epochs):
+                t0 = time.time()
+                if schedule is not None:
+                    opt.lr = schedule.lr(epoch)
+                losses = []
+                miou = MeanIoU(self.nn_arch.num_classes)
+                timer = StepTimer(warmup=1, device=self.device)
+                with profiler_trace(profile_logdir if epoch == 0 else None):
+                    for batch in self._batches(tr_loader):
+                        batch.pop("names")
+                        with timer:
+                            metrics = self._train_step(batch)
+                        losses.append(metrics["loss"])
+                        miou.update_from_cm(metrics["cm"])
+                        if guard.triggered:
+                            break
+                if guard.triggered:
+                    preemption_save(epoch)
+                    break
+                train_loss = _mean(losses)
+                if self.conf.extra.get("nan_guard", True) and not np.isfinite(train_loss):
+                    logger.log({"nan_abort": True, "epoch": epoch + 1, "loss": train_loss})
+                    raise FloatingPointError(
+                        f"non-finite training loss ({train_loss}) at epoch {epoch + 1}; "
+                        "checkpoint not updated — resume from the last good checkpoint "
+                        "with 'model_loading': true (disable this check with "
+                        "'nan_guard': false)"
+                    )
+
+                val_losses = []
+                val_miou = MeanIoU(self.nn_arch.num_classes)
+                for batch in self._batches(val_loader):
+                    batch.pop("names")
+                    metrics = self._eval_step(batch)
+                    val_losses.append(metrics["loss"])
+                    val_miou.update_from_cm(metrics["cm"])
+                    if guard.triggered:
+                        break
+                if guard.triggered:
+                    # mid-validation: save and stop without recording the
+                    # partial epoch
+                    preemption_save(epoch)
+                    break
+                val_loss = _mean(val_losses)
+
+                history["loss"].append(train_loss)
+                history["miou"].append(miou.result())
+                history["val_loss"].append(val_loss)
+                history["val_miou"].append(val_miou.result())
+
+                lr = opt.lr
+                if schedule is None:
+                    opt.lr = plateau.update(train_loss, lr)
+                saved = save_checkpoint(self.model, opt, self.work_dir, val_loss=val_loss)
+                logger.log({
+                    "epoch": epoch + 1, "loss": train_loss, "miou": history["miou"][-1],
+                    "val_loss": val_loss, "val_miou": history["val_miou"][-1], "lr": opt.lr,
+                    "checkpoint_saved": saved, "step_time": timer.stats(),
+                })
+                print(f"epoch {epoch + 1}/{self.hps.epochs} "
+                      f"loss {train_loss:.4f} miou {history['miou'][-1]:.4f} "
+                      f"val_loss {val_loss:.4f} val_miou {history['val_miou'][-1]:.4f} "
+                      f"lr {opt.lr:.2e} {'[ckpt]' if saved else ''} "
+                      f"({time.time() - t0:.1f}s)")
+            else:
+                # every epoch ran: the best-val slot is the run's artifact
+                clear_resume_checkpoint(self.work_dir)
+        return history
+
+    def evaluate(self, mode: int = voc.MODE_VAL, result_saving: bool = False) -> MeanIoU:
+        """Streaming mIoU over the split ``mode``; ``result_saving`` writes
+        4-panel image | label | prediction | overlay PNGs to
+        ``work_dir/results`` (reference evaluate, :1011-1115).  SIGTERM stops
+        after the batch in flight and returns the metric so far."""
+        with PreemptionGuard(self.conf.extra.get("preemption_save", True)) as guard:
+            try:
+                loader = self._loader(mode)
+            except Preempted:
+                print("SIGTERM received: evaluation stopped")
+                return MeanIoU(self.nn_arch.num_classes)
+            return self._evaluate_inner(loader, result_saving, guard)
+
+    def _evaluate_inner(self, loader, result_saving: bool, guard) -> MeanIoU:
+        self.hps.val_step = loader.steps()
+        results_dir = os.path.join(self.work_dir, "results")
+        if result_saving:
+            if os.path.isdir(results_dir):
+                shutil.rmtree(results_dir)
+            os.makedirs(results_dir, exist_ok=True)
+            if self._eval_step_probs is None:
+                self._eval_step_probs = build_eval_step(
+                    self.model, self.conf, class_weights=self._cw, with_probs=True, **self._tta)
+            eval_step = self._eval_step_probs
+        else:
+            eval_step = self._eval_step
+
+        c_miou = MeanIoU(self.nn_arch.num_classes)
+        sample_idx = 0
+        for batch in self._batches(loader):
+            if guard.triggered:
+                print("SIGTERM received: evaluation stopped (partial metric returned)")
+                break
+            names = batch.pop("names")
+            metrics = eval_step(batch)
+            c_miou.update_from_cm(metrics["cm"])
+            if result_saving:
+                probs = metrics["probs"].cpu().numpy()
+                images = batch["image"].cpu().numpy()
+                labels = batch["label"].cpu().numpy()
+                valid = batch["valid"].cpu().numpy()
+                for i in range(len(names)):
+                    if not valid[i]:
+                        continue
+                    _save_result_panel(images[i], labels[i], probs[i], self.nn_arch.num_classes,
+                                       os.path.join(results_dir, f"result_{sample_idx}.png"))
+                    sample_idx += 1
+        if self.conf.extra.get("eval_per_class_iou", False):
+            names = (voc.CLASS_NAMES
+                     if (self.nn_arch.num_classes == len(voc.CLASS_NAMES)
+                         and self.conf.resource_type.startswith("pascal_voc"))
+                     else None)
+            print("per-class IoU:")
+            print(c_miou.report(names))
+        print(f"mean iou: {c_miou.result():.4f}")
+        return c_miou
+
+    def test(self) -> None:
+        """Label the test split and write class-index PNGs named after the
+        inputs to ``work_dir/test_results`` (reference test(),
+        :1117-1187).  SIGTERM stops after the batch in flight; PNGs written
+        so far stay."""
+        with PreemptionGuard(self.conf.extra.get("preemption_save", True)) as guard:
+            try:
+                loader = self._loader(voc.MODE_TEST, with_labels=False)
+            except Preempted:
+                print("SIGTERM received: test stopped")
+                return
+            self._test_inner(loader, guard)
+
+    def _test_inner(self, loader, guard) -> None:
+        from PIL import Image
+
+        self.hps.test_step = loader.steps()
+        out_dir = os.path.join(self.work_dir, "test_results")
+        if os.path.isdir(out_dir):
+            shutil.rmtree(out_dir)
+        os.makedirs(out_dir, exist_ok=True)
+        for batch in self._batches(loader, with_labels=False):
+            if guard.triggered:
+                print("SIGTERM received: test stopped (partial results kept)")
+                break
+            # argmax on the device (K1); only the labels cross to the host
+            labels = self._label_step(batch["image"]).cpu().numpy().astype(np.uint8)
+            valid = batch["valid"].cpu().numpy()
+            for i, name in enumerate(batch["names"]):
+                if valid[i]:
+                    Image.fromarray(labels[i]).save(os.path.join(out_dir, f"{name}.png"))
+
+    def convert_to_tf_lite(self, representative_images=None):
+        """Model export (reference convert_to_tf_lite, :1189-1205): not
+        ported yet."""
+        raise NotImplementedError(
+            "model export is not ported yet (ROADMAP.md Queue A item 12b, CLI and export)")
+
+
+def _mean(values: list) -> float:
+    """The float64 mean of a list of device scalars (one transfer); NaN
+    for none."""
+    if not values:
+        return float("nan")
+    return float(np.mean(torch.stack(values).cpu().numpy().astype(np.float64)))
+
+
+def _save_result_panel(image, label, probs, num_classes, path):
+    """4-panel composite: input | label map | prediction map | overlay
+    (reference :1090-1106: class map ×255/21 in grey, a 50/50 overlay of
+    the prediction on the input).  ``label``: one-hot (S, S, C) or integer
+    (S, S)."""
+    from PIL import Image
+
+    img = ((image + 1.0) * 127.5).clip(0, 255).astype(np.uint8)
+    scale = 255.0 / num_classes
+    label_idx = label if label.ndim == 2 else label.argmax(-1)
+    lab = (label_idx * scale).astype(np.uint8)
+    pred = (probs.argmax(-1) * scale).astype(np.uint8)
+    lab3 = np.stack([lab] * 3, axis=-1)
+    pred3 = np.stack([pred] * 3, axis=-1)
+    overlay = (0.5 * img + 0.5 * pred3).astype(np.uint8)
+    Image.fromarray(np.concatenate([img, lab3, pred3, overlay], axis=1)).save(path)

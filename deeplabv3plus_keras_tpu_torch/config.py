@@ -28,6 +28,21 @@ import dataclasses
 import json
 from typing import Any
 
+# Run modes (reference semantic_segmentation.py:1807-1843).
+MODE_TRAIN = "train"
+MODE_EVALUATE = "evaluate"
+MODE_TEST = "test"
+MODE_CONVERT_TO_TF_LITE = "convert_to_tf_lite"
+
+# Resource types (reference semantic_segmentation.py:115-117).
+RESOURCE_TYPE_PASCAL_VOC_2012 = "pascal_voc_2012"
+RESOURCE_TYPE_PASCAL_VOC_2012_EXT = "pascal_voc_2012_ext"
+RESOURCE_TYPE_GOOGLE_OPEN_IMAGES_V5 = "google_open_images_v5"
+
+# Preprocessing device selector (reference semantic_segmentation.py:49,
+# ``DEVICE_CPU = -1``; >= 0 selects the on-device preprocessing).
+DEVICE_CPU = -1
+
 # Backbone names (reference semantic_segmentation.py:96-112).
 BASE_MODEL_MOBILENETV2 = "mobilenetv2"
 ALL_BASE_MODELS = (

@@ -1,5 +1,5 @@
 """Train, eval, predict and label steps (port of
-``deeplabv3plus_keras_tpu/parallel/step.py:63-265, 305-407``).
+``deeplabv3plus_keras_tpu/parallel/step.py:63-407``).
 
 The JAX steps are pure functions of ``(state, batch, rng)``.  Here the
 model module holds the parameters and the BN running statistics, and the
@@ -17,7 +17,10 @@ the confusion matrix.
 The eval, predict and label steps run under ``torch.inference_mode()`` in
 eval mode (BN on running statistics, dropout off); the train step in
 train mode (BN on batch statistics, dropout drawn from a generator seeded
-from (seed, step)).
+from (seed, step)).  The extra key ``augment`` draws a flip and a scale
+jitter from that generator before the dropout (ops/augment.py), and
+``eval_scales``/``eval_flip`` make the eval step average the probabilities
+over scales and a horizontal flip (test-time augmentation).
 """
 
 from __future__ import annotations
@@ -26,9 +29,11 @@ from typing import Callable
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..config import Config
 from ..kernels import upsample_argmax
+from ..ops.augment import augment_batch, parse_augment_conf
 from ..train.loss import (
     SS_NW,
     SS_PW,
@@ -42,10 +47,7 @@ from ..train.optimizer import KerasAdam, make_optimizer
 # Extra config keys of the JAX steps that the port does not take yet, and
 # where ROADMAP.md queues them.
 _UNPORTED = {
-    "augment": "on-device augmentation, ROADMAP.md Queue A item 9",
     "fused_tail": "the parity-decomposed loss tail, ROADMAP.md Queue A item 16",
-    "eval_scales": "test-time augmentation, ROADMAP.md Queue A item 8",
-    "eval_flip": "test-time augmentation, ROADMAP.md Queue A item 8",
 }
 
 
@@ -117,11 +119,12 @@ def build_train_step(model, optimizer: KerasAdam, conf: Config, class_weights=No
     matrices summed, and BN's running statistics move once per microbatch
     (each sees its microbatch's statistics), as in the JAX step.  The
     gradients of the last update stay in each parameter's ``.grad``."""
-    _refuse_unported(conf, ("augment", "fused_tail"))
+    _refuse_unported(conf, ("fused_tail",))
     wd = conf.hps.weight_decay
     num_classes = conf.nn_arch.num_classes
     pw, nw = class_weights or default_class_weights(num_classes)
     accum = max(1, int(conf.extra.get("grad_accum", 1)))
+    aug = parse_augment_conf(conf.extra.get("augment"))
 
     def train_step(batch: dict) -> dict:
         model.train()
@@ -131,11 +134,16 @@ def build_train_step(model, optimizer: KerasAdam, conf: Config, class_weights=No
             raise ValueError(f"grad_accum {accum} must divide batch size {B}")
         mb = B // accum
         step = optimizer.iterations
+        gen = step_generator(seed, step, image.device)
+        if aug is not None:
+            # drawn before the dropout, as the JAX step splits its step key
+            image, label = augment_batch(image, label, gen, flip=aug[0], scale_range=aug[1])
         optimizer.zero_grad()
         loss_sum, cm_sum = 0.0, 0
         for i in range(accum):
             part = slice(i * mb, (i + 1) * mb)
-            gen = step_generator(seed, step, image.device, i if accum > 1 else None)
+            if accum > 1:
+                gen = step_generator(seed, step, image.device, i)
             probs = model(image[part], generator=gen)
             loss = _loss_for(label[part], probs, pw, nw, valid[part]) + l2_penalty(model, wd)
             loss.backward()
@@ -156,19 +164,59 @@ def build_train_step(model, optimizer: KerasAdam, conf: Config, class_weights=No
     return train_step
 
 
-def build_eval_step(model, conf: Config, class_weights=None,
-                    with_probs: bool = True) -> Callable[[dict], dict]:
+def _resize_linear(x: torch.Tensor, size: int) -> torch.Tensor:
+    """(B, H, W, C) → (B, size, size, C) as ``jax.image.resize(...,
+    "linear")``: half-pixel bilinear, antialiased (a triangle filter
+    widened by the scale) where it shrinks."""
+    y = F.interpolate(x.permute(0, 3, 1, 2), size=(size, size), mode="bilinear",
+                      align_corners=False, antialias=size < x.shape[1])
+    return y.permute(0, 2, 3, 1)
+
+
+def _tta_probs_fn(model, conf: Config, scales, flip: bool) -> Callable[[torch.Tensor], torch.Tensor]:
+    """Multi-scale and horizontal-flip test-time augmentation: each scaled
+    size is rounded to a multiple of ``output_stride``, each variant's
+    probabilities are resized back to the input size and all are
+    averaged."""
+    os_ = conf.nn_arch.output_stride
+    scales = tuple(float(s) for s in (scales or (1.0,)))
+
+    def tta_probs(images: torch.Tensor) -> torch.Tensor:
+        S = images.shape[1]
+        acc, n = 0.0, 0
+        for s in scales:
+            sz = max(os_, int(round(S * s / os_)) * os_)
+            x = images if sz == S else _resize_linear(images, sz)
+            variants = [x, x.flip(2)] if flip else [x]
+            for i, xv in enumerate(variants):
+                p = model(xv)
+                if i == 1:
+                    p = p.flip(2)  # the prediction, flipped back
+                if sz != S:
+                    p = _resize_linear(p, S)
+                acc = acc + p
+                n += 1
+        return acc / n
+
+    return tta_probs
+
+
+def build_eval_step(model, conf: Config, class_weights=None, with_probs: bool = True,
+                    tta_scales=None, tta_flip: bool = False) -> Callable[[dict], dict]:
     """``eval_step(batch) -> {"loss", "cm"[, "probs"]}`` in eval mode.
-    ``with_probs=False`` drops the (B, S, S, C) probabilities."""
-    _refuse_unported(conf, ("eval_scales", "eval_flip", "fused_tail"))
+    ``with_probs=False`` drops the (B, S, S, C) probabilities.
+    ``tta_scales``/``tta_flip`` (extra keys ``eval_scales``/``eval_flip``)
+    turn on test-time augmentation (:func:`_tta_probs_fn`)."""
+    _refuse_unported(conf, ("fused_tail",))
     wd = conf.hps.weight_decay
     num_classes = conf.nn_arch.num_classes
     pw, nw = class_weights or default_class_weights(num_classes)
+    probs_fn = _tta_probs_fn(model, conf, tta_scales, tta_flip) if tta_scales or tta_flip else model
 
     def eval_step(batch: dict) -> dict:
         model.eval()
         with torch.inference_mode():
-            probs = model(batch["image"])
+            probs = probs_fn(batch["image"])
             loss = _loss_for(batch["label"], probs, pw, nw, batch["valid"])
             out = {
                 "loss": loss + l2_penalty(model, wd),

@@ -109,3 +109,22 @@ def l2_penalty(model: nn.Module, weight_decay: float):
         if any("_l2" in part for part in name.split(".")):
             total = total + p.to(_acc_dtype(p)).square().sum()
     return weight_decay * total
+
+
+def compute_class_balance_weights(label_paths, num_classes: int = 21):
+    """Offline class-imbalance weights (the reference's
+    ``cal_ss_class_imbalance_weights``, semantic_segmentation.py:365-407,
+    one ``np.bincount`` per label image instead of a per-pixel loop).  Ids
+    above num_classes − 1 count as 0.  Returns (pw, nw) float32 arrays of
+    shape (num_classes,): pw = 1 − freq, nw = freq."""
+    from PIL import Image
+
+    counts = np.zeros(num_classes, np.int64)
+    total = 0
+    for p in label_paths:
+        lab = np.asarray(Image.open(p))
+        lab = np.where(lab > num_classes - 1, 0, lab)
+        counts += np.bincount(lab.ravel(), minlength=num_classes)
+        total += lab.size
+    freq = counts / max(total, 1)
+    return (1.0 - freq).astype(np.float32), freq.astype(np.float32)

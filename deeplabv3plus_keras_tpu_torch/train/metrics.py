@@ -6,9 +6,11 @@ and prediction, accumulate a confusion matrix, reduce with the Keras
 MeanIoU formula: per-class IoU = diag / (rowsum + colsum − diag), averaged
 over classes whose denominator is > 0.
 
-The update counts ``t·C + p`` with ``torch.bincount`` (integer counts,
-exact; the JAX package's one-hot matmul existed to avoid a serialized
-scatter on the TPU).  Pixels of padded samples (``valid == 0``) go to an
+The update counts ``t·C + p`` into a fixed (C² + 1) histogram with an
+integer ``scatter_add_`` (exact; the JAX package's one-hot matmul existed
+to avoid a serialized scatter on the TPU).  Not ``torch.bincount``: on a
+card it reads the largest index back to size its output, a synchronise
+in every step.  Pixels of padded samples (``valid == 0``) go to an
 overflow bin that is dropped, so no host sync selects them.  Counts are
 int32 per batch; the host accumulator sums them in int64.
 """
@@ -26,7 +28,9 @@ def _cm_count(t: torch.Tensor, p: torch.Tensor, num_classes: int, sample_valid) 
     if sample_valid is not None:
         keep = sample_valid.reshape((-1,) + (1,) * (idx.dim() - 1)).to(idx.device) != 0
         idx = torch.where(keep, idx, n * n)  # the overflow bin
-    counts = torch.bincount(idx.reshape(-1), minlength=n * n + 1)
+    idx = idx.reshape(-1)
+    counts = torch.zeros(n * n + 1, dtype=torch.int64, device=idx.device)
+    counts.scatter_add_(0, idx, torch.ones_like(idx))
     return counts[: n * n].reshape(n, n).to(torch.int32)
 
 

@@ -63,6 +63,25 @@ class KerasAdam:
         torch._foreach_addcdiv_(params, self.m, denom, value=-lr_t * alpha)
         self.iterations = t
 
+    def state_dict(self) -> dict:
+        """The optimizer's state: moments, update count and learning rate
+        (the hyperparameters come from the config)."""
+        return {"m": list(self.m), "v": list(self.v), "iterations": self.iterations,
+                "lr": self.lr}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: dict) -> None:
+        if len(state["m"]) != len(self.m) or len(state["v"]) != len(self.v):
+            raise ValueError(f"optimizer state holds {len(state['m'])} moments, "
+                             f"this optimizer {len(self.m)}")
+        for dst, src in zip(self.m + self.v, list(state["m"]) + list(state["v"])):
+            if dst.shape != src.shape:
+                raise ValueError(f"moment of shape {tuple(src.shape)} for a parameter "
+                                 f"of shape {tuple(dst.shape)}")
+            dst.copy_(src)
+        self.iterations = int(state["iterations"])
+        self.lr = float(state["lr"])
+
 
 def make_optimizer(params, hps: HParams) -> KerasAdam:
     return KerasAdam(params, hps.lr, hps.beta_1, hps.beta_2, hps.decay, epsilon=1e-7)

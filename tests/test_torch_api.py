@@ -12,7 +12,8 @@ import torch
 import jax.numpy as jnp
 
 from deeplabv3plus_keras_tpu.kernels.upsample_argmax import upsample_argmax_reference
-from deeplabv3plus_keras_tpu_torch import SemanticSegmentation, api
+from deeplabv3plus_keras_tpu_torch import SemanticSegmentation, api, cli
+from deeplabv3plus_keras_tpu_torch.data import HostLoader, device_batches
 from deeplabv3plus_keras_tpu_torch.parallel import build_predict_step
 from deeplabv3plus_keras_tpu_torch.utils.jax_weights import load_jax_variables
 
@@ -59,6 +60,12 @@ def test_no_device_without_cuda_raises(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         SemanticSegmentation(conf_dict(64))
     assert api.resolve_device("cpu") == torch.device("cpu")
+    # the data path and the CLI: no silent CPU either
+    loader = HostLoader([], batch_size=1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        next(device_batches(loader, 32, 21))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cli.main(["/nonexistent/conf.json"])
 
 
 def test_segment_rejects_bad_images_and_unported_options():
@@ -72,20 +79,22 @@ def test_segment_rejects_bad_images_and_unported_options():
 
 
 @pytest.mark.parametrize("keys,item", [
-    ({"model_loading": True}, "item 11"),
     ({"multi_gpu": True, "num_gpus": 2}, "item 13"),
     ({"multi_gpu": True, "num_gpus": 4, "allow_fewer_devices": True}, "item 13"),
     ({"backbone_weights": "/nonexistent/backbone.h5"}, "item 14"),
     ({"backbone_weights": "imagenet"}, "item 14"),
     ({"mesh_space": 2}, "item 13"),
+    ({"cache_device": True}, "item 19"),
+    ({"hps": {"dtype": "bfloat16"}}, "item 18"),
 ])
 def test_config_keys_that_change_the_result_raise(keys, item):
-    """The JAX facade restores the checkpoint in work_dir under
-    ``model_loading`` (api.py:135-136), builds a num_gpus mesh under
-    ``multi_gpu`` (api.py:90-108), loads ``backbone_weights`` into the
-    backbone (api.py:131-133) and shards space under ``mesh_space`` > 1
-    (api.py:109-113); the port does none of these yet, so it must refuse
-    rather than train from random weights on one device."""
+    """The JAX facade builds a num_gpus mesh under ``multi_gpu``
+    (api.py:90-108), loads ``backbone_weights`` into the backbone
+    (api.py:131-133), shards space under ``mesh_space`` > 1
+    (api.py:109-113), keeps the dataset in device memory under
+    ``cache_device`` (api.py:221-236) and computes in the ``hps.dtype``;
+    the port does none of these yet, so it must refuse rather than train
+    from random weights on one device."""
     with pytest.raises(NotImplementedError, match=item):
         SemanticSegmentation({**conf_dict(32), **keys}, device="cpu")
     # one GPU asked for, no backbone weights and no spatial split are what
@@ -110,10 +119,18 @@ bad = sorted(m for m in sys.modules
              or m.startswith(("jax.", "flax.", "deeplabv3plus_keras_tpu.")))
 print("BAD", bad)
 print("N", sum(m.startswith("deeplabv3plus_keras_tpu_torch") for m in sys.modules))
+print("MODULES", " ".join(m for m in sys.modules if m.startswith("deeplabv3plus_keras_tpu_torch")))
 """
     out = subprocess.run(
         [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120
     )
     assert out.returncode == 0, out.stderr
     assert "BAD []" in out.stdout, out.stdout
-    assert int(out.stdout.split("N ")[1]) >= 15
+    assert int(out.stdout.split("N ")[1].split()[0]) >= 30
+    # the modules of the data path, the loops, checkpoints and the CLI
+    loaded = set(out.stdout.split("MODULES ")[1].split())
+    for m in ("api", "cli", "config", "data", "data.openimages", "data.pipeline",
+              "data.synthetic", "data.voc", "native", "ops.augment", "ops.preprocess",
+              "ops.resize", "parallel.step", "train.callbacks", "train.checkpoint",
+              "train.loss", "utils.preemption", "utils.profiling"):
+        assert f"deeplabv3plus_keras_tpu_torch.{m}" in loaded, m

@@ -341,12 +341,10 @@ def test_facade_trains_evaluates_and_serves():
     assert seg.optimizer.iterations == 2
 
 
-@pytest.mark.parametrize("key,item", [("augment", "item 9"), ("fused_tail", "item 16"),
-                                      ("eval_scales", "item 8"), ("eval_flip", "item 8")])
+@pytest.mark.parametrize("key,item", [("fused_tail", "item 16")])
 def test_unported_step_options_name_the_roadmap_item(key, item):
-    value = [0.5, 1.0] if key == "eval_scales" else True
     with pytest.raises(NotImplementedError, match=item):
-        SemanticSegmentation(conf_dict(32, **{key: value}), device="cpu")
+        SemanticSegmentation(conf_dict(32, **{key: True}), device="cpu")
 
 
 def test_jax_variables_round_trip_through_the_port():
