@@ -48,9 +48,29 @@ against ``segment()``, ``evaluate()`` with test-time augmentation, and
 images/s beside ``train_step()``'s, the host decode time a batch and the
 card's idle share over one profiled epoch.
 
+After Xception, under ``nhwc``, the flagship again with the weights and
+BN statistics of its float32 phases:
+
+- in bfloat16, then float16 (``hps.dtype``): K2–K5 against their plain
+  versions at every site in that dtype (times beside cuDNN's in that
+  dtype and the dtype's byte bound), ``segment()`` on the 4 serving
+  batches (labels against the float32 labels, with a floor), 6
+  ``train_step()``s, every depthwise launch counted in that dtype, and one
+  2 × 128² step against the CPU in the same dtype;
+- ``remat``: peak memory and step time with and without it, and one step
+  with it against the plain step (and the plain step against itself);
+- ``cache_device`` on a 64/32-image VOC tree: an epoch's batches from the
+  device cache against the streamed ones, ``train()``'s history, images/s
+  and a profiled epoch's idle share streamed and cached, a partial cache
+  (40 of 64 samples);
+- export: ``convert_to_tf_lite()``, the depthwise operator nodes of the
+  ``.pt2``, and ``torch.export.load`` of it at B=1 and B=16 against the
+  model.
+
 Then it prints the forward and backward depthwise summaries against cuDNN
 and the byte bound (K7's beside the one-tile-a-block design it replaced),
-one JSON line of kernel results (K1-K7), the card's
+one JSON line of kernel results (K1-K7; K2-K5 also in bfloat16 and
+float16; launches by path, the new phases' paths included), the card's
 name and power limit, and as its last line ``{"ok": true, "device": {...}}``.
 
 Any failed check exits non-zero.  Long outputs (the per-site table
@@ -247,8 +267,17 @@ def _add_site(agg: dict, row: dict, mult: int) -> None:
     a["max_abs_err"] = max(a["max_abs_err"], row["max_abs_err"])
 
 
-def check_depthwise(sites, g, rows):
-    """Kernel vs plain at each distinct site; returns per-kernel sums."""
+# Bounds of a low-precision kernel against the plain version in float64 on
+# the same (rounded) inputs: the output's rounding, 2^-8 (bfloat16) and
+# 2^-11 (float16) relative.
+LOW_REL = {"bfloat16": 1e-2, "float16": 1e-3}
+
+
+def check_depthwise(sites, g, rows, dtype="float32"):
+    """Kernel vs plain at each distinct site; returns per-kernel sums.  In
+    bfloat16/float16 the inputs are in that dtype (taps rounded to it), the
+    kernel is held against the plain version in float64 on the same values,
+    and the plain and library times are cuDNN's in that dtype."""
     import torch
     import torch.nn.functional as F
 
@@ -262,15 +291,20 @@ def check_depthwise(sites, g, rows):
     agg = {}
     for (shape, stride, dil, wshape), (mod, mult) in distinct.items():
         B, C, H, W = shape
-        x = torch.randn(shape, device="cuda", generator=g).contiguous(memory_format=torch.channels_last)
-        w = mod.weight.detach()
+        tdt = getattr(torch, dtype)
+        x = torch.randn(shape, device="cuda", generator=g).to(tdt).contiguous(
+            memory_format=torch.channels_last)
+        w = mod.weight.detach().to(tdt)
         k = w.shape[-1]
         y = depthwise_conv(x, w, stride, dil)
-        ref = depthwise_conv_plain(x, w, stride, dil)
+        if dtype == "float32":
+            ref = depthwise_conv_plain(x, w, stride, dil)
+        else:
+            ref = depthwise_conv_plain(x.double(), w.double(), stride, dil)
         torch.cuda.synchronize()
-        err = (y - ref).abs().max().item()
+        err = (y.double() - ref.double()).abs().max().item()
         scale = ref.abs().max().item()
-        ok = err <= 1e-5 * scale
+        ok = y.dtype == tdt and err <= LOW_REL.get(dtype, 1e-5) * scale
         # cuDNN pads symmetrically: where TF pads (0, 1) (stride 2, even
         # size) it gets (1, 1), so that it computes as many outputs as the
         # kernel from the same input (a window one pixel up and left)
@@ -280,14 +314,15 @@ def check_depthwise(sites, g, rows):
         if lib().shape != y.shape:
             raise SystemExit(f"library call's output {tuple(lib().shape)} is not {tuple(y.shape)}")
         row = {
-            "kernel": f"depthwise_fwd_s{stride}", "shape_nchw": list(shape), "k": k,
+            "kernel": f"depthwise_fwd_s{stride}", "dtype": dtype, "shape_nchw": list(shape), "k": k,
             "stride": stride, "dilation": list(dil), "per_forward": mult,
             "max_abs_err": err, "max_abs_ref": scale, "ok": ok,
             "ms": cuda_ms(lambda: depthwise_conv(x, w, stride, dil)),
             "plain_ms": cuda_ms(lambda: depthwise_conv_plain(x, w, stride, dil)),
             "library_ms": cuda_ms(lib),
         }
-        b_ms, b_by = bound((x.numel() + y.numel()) * 4 + w.numel() * 4, 2 * k * k * y.numel())
+        b_ms, b_by = bound((x.numel() + y.numel()) * x.element_size() + w.numel() * 4,
+                           2 * k * k * y.numel())
         plan = _fwd_plan(B, C, H, W, k, stride, tuple(dil), x.dtype, _ptr_align(x, y))
         row.update(bound_ms=b_ms, bound_by=b_by, plan={
             "variant": plan.variant, "vec": plan.vec, "tile_hwc": [plan.th, plan.tw, plan.cb],
@@ -303,22 +338,16 @@ def check_depthwise(sites, g, rows):
         if not ok:
             raise SystemExit(f"depthwise kernel disagrees with plain at {row}")
         _add_site(agg, row, mult)
-    # bfloat16 (not on the float32 serving path): one site, fp32 accumulate
-    x = torch.randn(4, 96, 64, 64, device="cuda", generator=g).to(torch.bfloat16)
-    x = x.contiguous(memory_format=torch.channels_last)
-    w = torch.randn(96, 1, 3, 3, device="cuda", generator=g)
-    for s in (1, 2):
-        y, ref = depthwise_conv(x, w, s), depthwise_conv_plain(x, w, s)
-        err = (y.float() - ref.float()).abs().max().item()
-        if not err <= 1e-2 * ref.float().abs().max().item():
-            raise SystemExit(f"bfloat16 depthwise stride {s} disagrees: {err}")
-    print(json.dumps({"bf16_depthwise_check": "ok"}))
     return agg
 
 
-def check_depthwise_backward(sites, g, rows):
+def check_depthwise_backward(sites, g, rows, dtype="float32"):
     """K4/K5 (dx and dk) vs the plain backward at each distinct site of a
-    training step; returns per-kernel sums over one step's sites."""
+    training step; returns per-kernel sums over one step's sites.  In
+    bfloat16/float16, x and g are in that dtype and the weight float32 with
+    the dtype's values (so dk stays a float32 sum), held against the plain
+    backward in float64 on the same values; plain and library times are
+    cuDNN's in that dtype."""
     import torch
 
     from deeplabv3plus_keras_tpu_torch.kernels import (
@@ -336,47 +365,52 @@ def check_depthwise_backward(sites, g, rows):
     agg = {}
     for (shape, stride, dil, _), (mod, mult) in distinct.items():
         B, C, H, W = shape
-        w = mod.weight.detach()
+        tdt = getattr(torch, dtype)
+        w = mod.weight.detach().to(tdt).float()
         k = w.shape[-1]
         Ho, pt, pb = same_pads(H, k, stride, dil[0])
         Wo, pl, pr = same_pads(W, k, stride, dil[1])
-        x = torch.randn(shape, device="cuda", generator=g).contiguous(memory_format=cl)
-        gout = torch.randn((B, C, Ho, Wo), device="cuda", generator=g).contiguous(memory_format=cl)
+        x = torch.randn(shape, device="cuda", generator=g).to(tdt).contiguous(memory_format=cl)
+        gout = torch.randn((B, C, Ho, Wo), device="cuda", generator=g).to(tdt).contiguous(
+            memory_format=cl)
         dx, dk = depthwise_conv_backward(x, w, gout, stride, dil)
         dx2, dk2 = depthwise_conv_backward(x, w, gout, stride, dil)
-        rdx, rdk = depthwise_conv_backward_plain(x, w, gout, stride, dil)
-        _, dk_abs = depthwise_conv_backward_plain(x.abs(), w, gout.abs(), stride, dil)
+        f64 = dtype != "float32"  # the plain backward in float64 on the same values
+        cast = (lambda t: t.double()) if f64 else (lambda t: t)
+        rdx, rdk = depthwise_conv_backward_plain(cast(x), cast(w), cast(gout), stride, dil)
+        _, dk_abs = depthwise_conv_backward_plain(cast(x).abs(), cast(w), cast(gout).abs(), stride, dil)
         torch.cuda.synchronize()
-        dx_err = (dx - rdx).abs().max().item()
+        dx_err = (dx.double() - rdx.double()).abs().max().item()
         dx_scale = rdx.abs().max().item()
-        dk_err = (dk - rdk).abs().max().item()
+        dk_err = (dk.double() - rdk.double()).abs().max().item()
         # dk: 1e-4 of Σ|x·g| per tap and channel, the float32 sum's scale;
         # no atomics, so two runs give the same bits
-        dk_ok = bool(((dk - rdk).abs() <= 1e-4 * dk_abs).all())
+        dk_ok = bool(((dk.double() - rdk.double()).abs() <= 1e-4 * dk_abs.double()).all())
         same_bits = torch.equal(dk, dk2) and torch.equal(dx, dx2)
-        ok = dx_err <= 1e-5 * dx_scale and dk_ok and same_bits
+        ok = dx.dtype == tdt and dx_err <= LOW_REL.get(dtype, 1e-5) * dx_scale and dk_ok and same_bits
         del dx2, dk2
         if pt == pb and pl == pr:  # cuDNN pads symmetrically itself
             lib_x, lib_pad = x, [pt, pl]
         else:  # stride 2, TF SAME (0, 1): pad once, outside the timed call
             lib_x, lib_pad = torch.nn.functional.pad(x, (pl, pr, pt, pb)), [0, 0]
+        wt = w.to(tdt)  # cuDNN and the plain version take the weight in x's dtype
         lib = lambda: torch.ops.aten.convolution_backward(  # noqa: E731
-            gout, lib_x, w, None, [stride, stride], lib_pad, list(dil), False, [0, 0], C,
+            gout, lib_x, wt, None, [stride, stride], lib_pad, list(dil), False, [0, 0], C,
             [True, True, False])
         name = f"depthwise_bwd_s{stride}"
         row = {
-            "kernel": name, "shape_nchw": list(shape), "k": k, "stride": stride,
+            "kernel": name, "dtype": dtype, "shape_nchw": list(shape), "k": k, "stride": stride,
             "dilation": list(dil), "per_step": mult, "max_abs_err": max(dx_err, dk_err),
             "dx_max_abs_err": dx_err, "dx_max_abs_ref": dx_scale, "dk_max_abs_err": dk_err,
             "dk_max_abs_ref": rdk.abs().max().item(), "dk_bit_reproducible": same_bits, "ok": ok,
             "ms": cuda_ms(lambda: depthwise_conv_backward(x, w, gout, stride, dil)),
-            "plain_ms": cuda_ms(lambda: depthwise_conv_backward_plain(x, w, gout, stride, dil)),
+            "plain_ms": cuda_ms(lambda: depthwise_conv_backward_plain(x, wt, gout, stride, dil)),
             "library_ms": cuda_ms(lib),
         }
         # x and g read once, dx written once; k² multiply-adds per output
         # element for dx and again for dk
-        b_ms, b_by = bound((x.numel() + gout.numel() + dx.numel()) * 4 + 2 * w.numel() * 4,
-                           4 * k * k * gout.numel())
+        b_ms, b_by = bound((x.numel() + gout.numel() + dx.numel()) * x.element_size()
+                           + 2 * w.numel() * 4, 4 * k * k * gout.numel())
         plan = _bwd_plan(B, C, H, W, k, stride, tuple(dil), x.dtype, _ptr_align(x, gout, dx))
         row.update(bound_ms=b_ms, bound_by=b_by, plan={
             "variant": plan.variant, "vec": plan.vec, "tile_hwc": [plan.th, plan.tw, plan.cb],
@@ -387,20 +421,6 @@ def check_depthwise_backward(sites, g, rows):
         if not ok:
             raise SystemExit(f"depthwise backward kernel disagrees with plain at {row}")
         _add_site(agg, row, mult)
-    # bfloat16 (not on the float32 training path): one site, fp32 accumulate
-    x = torch.randn(4, 96, 64, 64, device="cuda", generator=g).to(torch.bfloat16).contiguous(memory_format=cl)
-    w = torch.randn(96, 1, 3, 3, device="cuda", generator=g)
-    for s in (1, 2):
-        gout = torch.randn(4, 96, 64 // s, 64 // s, device="cuda", generator=g).to(torch.bfloat16)
-        gout = gout.contiguous(memory_format=cl)
-        dx, dk = depthwise_conv_backward(x, w, gout, s)
-        wr = w.bfloat16().double()  # the taps the kernel uses for dx
-        rdx, rdk = depthwise_conv_backward_plain(x.double(), wr, gout.double(), s)
-        _, dk_abs = depthwise_conv_backward_plain(x.double().abs(), wr, gout.double().abs(), s)
-        if not ((dx.double() - rdx).abs().max() <= 1e-2 * rdx.abs().max()
-                and ((dk.double() - rdk).abs() <= 1e-4 * dk_abs).all()):
-            raise SystemExit(f"bfloat16 depthwise backward stride {s} disagrees")
-    print(json.dumps({"bf16_depthwise_backward_check": "ok"}))
     return agg
 
 
@@ -756,11 +776,11 @@ def check_training_against_cpu(conf: dict, name: str) -> None:
     gpu = SemanticSegmentation(conf, device="cuda")
     cpu = SemanticSegmentation(conf, device="cpu")
     cpu.model.load_state_dict(gpu.model.state_dict())
-    ref = DeepLabV3Plus(Config.from_dict(conf))
+    ref_conf = Config.from_dict({**conf, "hps": {**conf["hps"], "dtype": "float64"}})
+    ref = DeepLabV3Plus(ref_conf)
     ref.load_state_dict(gpu.model.state_dict())
     ref = ref.double().to(memory_format=torch.channels_last)
-    ref_step = build_train_step(ref, create_train_state(Config.from_dict(conf), ref),
-                                Config.from_dict(conf))
+    ref_step = build_train_step(ref, create_train_state(ref_conf, ref), ref_conf)
     rng = np.random.default_rng(5)
     batch = {"image": rng.uniform(-1, 1, (2, 128, 128, 3)).astype(np.float32),
              "label": rng.integers(0, CLASSES, (2, 128, 128))}
@@ -1141,6 +1161,450 @@ def run_data_path(kernels, card: str, train_step_img_s: float) -> dict:
     return by_path
 
 
+LOW_PRECISION = ("bfloat16", "float16")
+# Random weights leave many pixels' top two classes within a low-precision
+# rounding of each other (on the CPU, JAX's own bfloat16 labels agree with
+# its float32 ones on 66-90 % of pixels, tests/test_torch_dtype.py); a
+# kernel or a rounding in the wrong place gives chance agreement (1/21).
+LOW_LABEL_FLOOR = {"bfloat16": 0.5, "float16": 0.8}
+# One 2 x 128² step on the card against the CPU in the same dtype: the loss
+# to 1e-3 relative (both round the same way; the sums' order differs).
+# Gradients of this random net in training mode are dominated by the
+# dtype's rounding (on the CPU the bfloat16 step's gradients are 1.09 away
+# from float64 in relative 2-norm, float16's 0.47), so the card's distance
+# to float64 must be of the CPU's size: at most twice it.
+LOW_CPU_LOSS_REL = 1e-3
+LOW_CPU_GRAD_FACTOR = 2.0
+
+
+def calibrated_flagship(batches) -> tuple[dict, list]:
+    """The float32 flagship's weights from the seed with BN statistics set
+    from the first serving batch, as ``drive_model`` sets them, and its
+    ``segment()`` labels of ``batches``."""
+    import torch
+
+    from deeplabv3plus_keras_tpu_torch import SemanticSegmentation
+
+    seg = SemanticSegmentation(flagship_conf(), device="cuda")
+    calibrate_bn(seg.model, torch.from_numpy(batches[0]).cuda())
+    labels = [seg.segment(images) for images in batches]
+    return {k: v.detach().clone() for k, v in seg.model.state_dict().items()}, labels
+
+
+def _dtype_launches(kernels, dtype: str, names) -> dict:
+    """Launches of ``names`` in ``dtype`` since the last reset; every
+    depthwise launch of the phase must be in ``dtype``."""
+    by_dtype = kernels.launch_counts_by_dtype()
+    other = {k: v for k, v in by_dtype.items() if not k.endswith(f"/{dtype}") and v}
+    if other:
+        raise SystemExit(f"{dtype} phase launched kernels in another dtype: {other}")
+    got = {n: by_dtype.get(f"{n}/{dtype}", 0) for n in names}
+    missing = [n for n, v in got.items() if v < 1]
+    if missing:
+        raise SystemExit(f"{dtype} phase: no {dtype} launch of {missing}: {by_dtype}")
+    return got
+
+
+def check_low_precision_against_cpu(dtype: str) -> dict:
+    """One 2 × 128² train step of the flagship in ``dtype`` on the card and
+    on the CPU, and in float64 on the CPU, from the same weights and batch
+    (dropout 0): the loss against the CPU in the same dtype, the gradients'
+    relative 2-norm distance to float64 against the CPU's own."""
+    import numpy as np
+    import torch
+
+    from deeplabv3plus_keras_tpu_torch import SemanticSegmentation
+
+    conf = flagship_conf(128, batch=2)
+    conf["nn_arch"]["dropout_rate"] = 0.0
+    conf["hps"]["dtype"] = dtype
+    gpu = SemanticSegmentation(conf, device="cuda")
+    cpu = SemanticSegmentation(conf, device="cpu")
+    ref = SemanticSegmentation({**conf, "hps": {**conf["hps"], "dtype": "float64"}}, device="cpu")
+    cpu.model.load_state_dict(gpu.model.state_dict())
+    ref.model.load_state_dict(gpu.model.state_dict())
+    ref.model.double()
+    rng = np.random.default_rng(5)
+    batch = {"image": rng.uniform(-1, 1, (2, 128, 128, 3)).astype(np.float32),
+             "label": rng.integers(0, CLASSES, (2, 128, 128))}
+    losses = {name: seg.train_step(batch)["loss"].item()
+              for name, seg in (("card", gpu), ("cpu", cpu), ("f64", ref))}
+    sq = {"card": 0.0, "cpu": 0.0, "ref": 0.0}
+    for pg, pc, pr in zip(gpu.model.parameters(), cpu.model.parameters(), ref.model.parameters()):
+        sq["card"] += (pg.grad.cpu().double() - pr.grad).square().sum().item()
+        sq["cpu"] += (pc.grad.double() - pr.grad).square().sum().item()
+        sq["ref"] += pr.grad.square().sum().item()
+    rel_card, rel_cpu = (math.sqrt(sq[k] / sq["ref"]) for k in ("card", "cpu"))
+    loss_rel = abs(losses["card"] - losses["cpu"]) / abs(losses["cpu"])
+    out = {"dtype": dtype, "batch": 2, "image": 128, "losses": losses, "loss_rel_card_cpu": loss_rel,
+           "grad_rel_2norm_vs_f64_card": rel_card, "grad_rel_2norm_vs_f64_cpu": rel_cpu,
+           "bounds": {"loss_rel": LOW_CPU_LOSS_REL, "grad_factor": LOW_CPU_GRAD_FACTOR}}
+    print(json.dumps({"low_precision_cpu_step": out}))
+    if not loss_rel <= LOW_CPU_LOSS_REL:
+        raise SystemExit(f"{dtype}: card loss {losses['card']} vs CPU {losses['cpu']}")
+    if not rel_card <= LOW_CPU_GRAD_FACTOR * rel_cpu:
+        raise SystemExit(f"{dtype}: card gradients {rel_card} from float64, CPU's {rel_cpu}")
+    return out
+
+
+def run_low_precision(kernels, card: str, dtype: str, state: dict, labels32, g, rows) -> dict:
+    """The flagship in ``dtype`` (``hps.dtype``; parameters float32, the
+    float32 phase's weights and BN statistics): K2–K5 against their plain
+    versions at every site in that dtype, ``segment()`` on the serving
+    batches (labels against the float32 labels, K1 on float32 logits),
+    ``train_step()`` for ``TRAIN_STEPS`` steps and one 2 × 128² step
+    against the CPU.  Returns the launches of the paths
+    ``segment_<dtype>`` and ``train_step_<dtype>``."""
+    import numpy as np
+    import torch
+
+    from deeplabv3plus_keras_tpu_torch import SemanticSegmentation
+
+    t0 = time.perf_counter()
+    conf = flagship_conf()
+    conf["hps"]["dtype"] = dtype
+    seg = SemanticSegmentation(conf, device="cuda")
+    seg.model.load_state_dict(state)
+    batches = serving_batches()
+    first = torch.from_numpy(batches[0]).cuda()
+    sites = depthwise_sites(seg.model, first)
+    with torch.inference_mode():
+        logits, _ = seg.model(first, return_presample=True)
+    if logits.dtype != torch.float32:  # K1 takes float32 logits in every dtype
+        raise SystemExit(f"{dtype}: pre-upsample logits are {logits.dtype}")
+    del logits, first
+    n0 = len(rows)
+    agg = check_depthwise(sites, g, rows, dtype)
+    agg.update(check_depthwise_backward(sites, g, rows, dtype))
+    for row in rows[n0:]:
+        row["model"] = f"mobilenetv2_{dtype}"
+    by_path = {}
+
+    # ---- segment() ----
+    expect = depthwise_expect(sites, train=False)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    times, agree = [], []
+    for i, images in enumerate(batches):
+        before = kernels.launch_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        labels = seg.segment(images)
+        times.append(time.perf_counter() - t)
+        delta = {k: v - before[k] for k, v in kernels.launch_counts().items()}
+        if delta != expect:
+            raise SystemExit(f"{dtype} segment() call {i}: launches {delta}, expected {expect}")
+        agree.append(float((labels == labels32[i]).mean()))
+    by_path[f"segment_{dtype}"] = kernels.launch_counts()
+    seg_dtype = _dtype_launches(kernels, dtype, ("depthwise_fwd_s1", "depthwise_fwd_s2"))
+    seg_peak = torch.cuda.max_memory_allocated()
+    prof = profile_device(lambda: seg.segment(batches[1]), OUT / f"segment_{dtype}_profile.txt",
+                          f"{card}\nmobilenetv2 {dtype}, B={BATCH}, {SIZE}^2", 25)
+    agreement = float(np.mean(agree))
+    serve = {"img_per_s": BATCH / statistics.median(times[1:]), "call_s": times,
+             "device_ms": prof["device_ms"], "top_kernels_ms": prof["top_kernels_ms"],
+             "max_memory_allocated_gib": seg_peak / 2**30, "launches_in_dtype": seg_dtype,
+             "label_agreement_with_float32": agreement, "label_floor": LOW_LABEL_FLOOR[dtype]}
+    if agreement < LOW_LABEL_FLOOR[dtype]:
+        raise SystemExit(f"{dtype} labels agree with float32 on {agreement:.4f} of pixels")
+
+    # ---- train_step() ----
+    train = train_batches(TRAIN_STEPS, BATCH, SIZE, "cuda", seed=1)
+    expect = depthwise_expect(sites, train=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    times, losses = [], []
+    for i, batch in enumerate(train):
+        before = kernels.launch_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = seg.train_step(batch)
+        loss = out["loss"].item()
+        times.append(time.perf_counter() - t)
+        losses.append(loss)
+        delta = {k: v - before[k] for k, v in kernels.launch_counts().items()}
+        if delta != expect or not math.isfinite(loss):
+            raise SystemExit(f"{dtype} train_step {i}: loss {loss}, launches {delta}, expected {expect}")
+    by_path[f"train_step_{dtype}"] = kernels.launch_counts()
+    train_dtype = _dtype_launches(kernels, dtype, ("depthwise_fwd_s1", "depthwise_fwd_s2",
+                                                   "depthwise_bwd_s1", "depthwise_bwd_s2"))
+    train_peak = torch.cuda.max_memory_allocated()
+    wrong = [n for n, p in seg.model.named_parameters() if p.dtype != torch.float32
+             or p.grad is None or p.grad.dtype != torch.float32 or not bool(torch.isfinite(p.grad).all())]
+    wrong += [f"moment {i}" for i, m in enumerate(seg.optimizer.m + seg.optimizer.v)
+              if m.dtype != torch.float32]
+    if wrong:
+        raise SystemExit(f"{dtype}: training state not float32 and finite: {wrong[:6]}")
+    prof = profile_device(lambda: seg.train_step(train[1])["loss"].item(),
+                          OUT / f"train_{dtype}_profile.txt",
+                          f"{card}\nmobilenetv2 {dtype}, B={BATCH}, {SIZE}^2, one train_step", 30)
+    step = {"img_per_s": BATCH / statistics.median(times[1:]), "step_s": times, "losses": losses,
+            "device_ms": prof["device_ms"], "top_kernels_ms": prof["top_kernels_ms"],
+            "max_memory_allocated_gib": train_peak / 2**30, "launches_in_dtype": train_dtype}
+    del seg, train
+    torch.cuda.empty_cache()
+    cpu_step = check_low_precision_against_cpu(dtype)
+    print(json.dumps({"low_precision": {
+        "model": "mobilenetv2", "dtype": dtype, "batch": BATCH, "image": SIZE, "segment": serve,
+        "train_step": step, "cpu_step": cpu_step, "kernels": agg,
+        "s": time.perf_counter() - t0, "card": card}}))
+    return by_path, agg
+
+
+def run_remat(kernels, card: str, state: dict) -> dict:
+    """The flagship's ``train_step()`` at B=16, 512², float32 with and
+    without the extra key ``remat``, from the same weights: peak memory and
+    step time of steps 2–4, and one step's loss, gradients and BN running
+    statistics compared with cuDNN in deterministic mode, beside the plain
+    step run twice.  Returns the launches of the path
+    ``train_step_remat``."""
+    import torch
+
+    from deeplabv3plus_keras_tpu_torch import SemanticSegmentation
+    from deeplabv3plus_keras_tpu_torch.models.blocks import DepthwiseConv
+
+    t0 = time.perf_counter()
+    train = train_batches(4, BATCH, SIZE, "cuda", seed=3)
+    result, first = {}, {}
+    by_path = {}
+    # "again": the plain step a second time, the yardstick of run-to-run
+    # differences (the bilinear resizes' backward adds atomically)
+    for variant in ("plain", "again", "remat"):
+        remat = variant == "remat"
+        conf = flagship_conf()
+        conf["remat"] = remat
+        seg = SemanticSegmentation(conf, device="cuda")
+        seg.model.load_state_dict(state)
+        torch.backends.cudnn.deterministic = True
+        out = seg.train_step(train[0])
+        torch.backends.cudnn.deterministic = False
+        first[variant] = {
+            "loss": out["loss"].item(),
+            "grads": [p.grad.detach().clone() for p in seg.model.parameters()],
+            "stats": [b.detach().clone() for b in seg.model.buffers() if b.is_floating_point()]}
+        if variant == "again":
+            del seg, out
+            continue
+        # the depthwise launches a step: with remat the backbone's sites
+        # run their forward twice (the recompute)
+        base_dw = sum(isinstance(m, DepthwiseConv) for m in seg.model.base.modules())
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        times = []
+        for batch in train[1:]:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            seg.train_step(batch)["loss"].item()
+            times.append(time.perf_counter() - t)
+        counts = kernels.launch_counts()
+        fwd = (counts["depthwise_fwd_s1"] + counts["depthwise_fwd_s2"]) // len(times)
+        bwd = (counts["depthwise_bwd_s1"] + counts["depthwise_bwd_s2"]) // len(times)
+        if fwd != bwd + (base_dw if remat else 0):
+            raise SystemExit(f"remat={remat}: {fwd} forward and {bwd} backward depthwise launches "
+                             f"a step ({base_dw} in the backbone)")
+        if remat:
+            by_path["train_step_remat"] = counts
+        result[variant] = {
+            "step_s": times, "img_per_s": BATCH / statistics.median(times),
+            "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "depthwise_forward_launches_a_step": fwd}
+        del seg, out
+        torch.cuda.empty_cache()
+
+    def diff(a, b):
+        """Loss and BN statistics: the largest relative difference; the
+        gradients: their relative 2-norm distance over all parameters."""
+        grad = math.sqrt(sum((x - y).double().square().sum().item()
+                             for x, y in zip(a["grads"], b["grads"])))
+        grad /= math.sqrt(sum(x.double().square().sum().item() for x in a["grads"]))
+        stat = max(((x - y).abs().max() / x.abs().max().clamp_min(1e-30)).item()
+                   for x, y in zip(a["stats"], b["stats"]))
+        return {"loss_rel": abs(a["loss"] - b["loss"]) / abs(a["loss"]), "grad_rel_2norm": grad,
+                "bn_stat_max_rel": stat,
+                "grads_bitwise_equal": all(torch.equal(x, y) for x, y in zip(a["grads"], b["grads"]))}
+
+    remat_vs_plain = diff(first["plain"], first["remat"])
+    plain_vs_again = diff(first["plain"], first["again"])
+    # cuDNN deterministic: the recompute gives the forward's activations,
+    # so the remat step is the plain one up to the run-to-run differences
+    # of the atomic adds: the loss and the statistics equal, the gradients
+    # within 10x the plain step's own spread (and 1e-5)
+    bound = max(10 * plain_vs_again["grad_rel_2norm"], 1e-5)
+    out = {**result, "remat_vs_plain": remat_vs_plain, "plain_vs_plain": plain_vs_again,
+           "grad_bound": bound, "s": time.perf_counter() - t0, "card": card}
+    print(json.dumps({"remat": out}))
+    if not (remat_vs_plain["loss_rel"] == 0 and remat_vs_plain["bn_stat_max_rel"] == 0
+            and remat_vs_plain["grad_rel_2norm"] <= bound):
+        raise SystemExit(f"remat step differs from the plain step: {out}")
+    if not result["remat"]["max_memory_allocated_gib"] < result["plain"]["max_memory_allocated_gib"]:
+        raise SystemExit(f"remat did not lower the peak memory: {result}")
+    return by_path
+
+
+def run_cache_device(kernels, card: str) -> dict:
+    """``cache_device`` on the data path's tree (64 train, 32 val images,
+    sides 300–500; flip + scale augmentation): an epoch's batches from the
+    device cache equal the streamed ones bit for bit; ``train()`` for 2
+    epochs gives the streamed history (cuDNN deterministic, within the
+    streamed history's own run-to-run spread); then, for the
+    streamed and the cached loader (built once, outside the timed calls),
+    one profiled epoch (idle share) and 2 timed epochs (images/s of epochs
+    that decode nothing on the host when cached); a partial cache (40 of
+    64 samples) trains.  Returns the launches of the path
+    ``train_loop_cache_device``."""
+    import contextlib
+    import io
+    import tempfile
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from deeplabv3plus_keras_tpu_torch import SemanticSegmentation
+    from deeplabv3plus_keras_tpu_torch.data import MODE_TRAIN, MODE_VAL, DeviceDataset, make_synthetic_voc
+
+    t0 = time.perf_counter()
+    by_path, out = {}, {}
+    n_train = 64
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "resource")
+        make_synthetic_voc(root, n_train=n_train, n_val=32, n_test=0, min_size=300, max_size=501)
+
+        def facade(name, **extra):
+            return SemanticSegmentation(data_path_conf(root, **extra),
+                                        work_dir=os.path.join(tmp, name), device="cuda")
+
+        streamed, cached = facade("s"), facade("c", cache_device=True)
+        t = time.perf_counter()
+        ds_train = cached._loader(MODE_TRAIN, shuffle=True)
+        torch.cuda.synchronize()
+        out["build_s"] = time.perf_counter() - t
+        ds_val = cached._loader(MODE_VAL)
+        if not isinstance(ds_train, DeviceDataset) or ds_train.n != n_train:
+            raise SystemExit(f"cache_device: train loader {type(ds_train).__name__}")
+        same, n = True, 0
+        for a, b in zip(streamed._batches(streamed._loader(MODE_TRAIN, shuffle=True)),
+                        cached._batches(ds_train)):
+            same &= a["names"] == b["names"] and all(
+                torch.equal(a[k], b[k]) for k in ("image", "label", "valid"))
+            n += 1
+        out["epoch_batches_bit_equal"] = bool(same) and n == n_train // BATCH
+
+        # the histories (cuDNN deterministic), beside the streamed run
+        # twice: the bilinear resizes' backward adds atomically
+        torch.backends.cudnn.deterministic = True
+        h_stream = facade("s2").train()
+        h_again = facade("s3").train()
+        h_cache = facade("c2", cache_device=True).train()
+        torch.backends.cudnn.deterministic = False
+
+        def max_rel(h1, h2):
+            return max(abs(a - b) / max(abs(a), 1e-30) for k in h1 for a, b in zip(h1[k], h2[k]))
+
+        worst, spread = max_rel(h_stream, h_cache), max_rel(h_stream, h_again)
+        history_bound = max(10 * spread, 1e-6)
+        out.update(history_stream=h_stream, history_cache=h_cache,
+                   histories_equal=h_stream == h_cache, history_max_rel=worst,
+                   stream_twice_max_rel=spread, history_bound=history_bound)
+
+        # the cached facade reads the loaders built above: its epochs
+        # decode nothing on the host
+        cached._loader = lambda mode, shuffle=False, with_labels=True: (
+            ds_train if mode == MODE_TRAIN else ds_val)
+        for name, seg in (("stream", streamed), ("cache", cached)):
+            seg.hps.epochs = 1
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t = time.perf_counter()
+                seg.train()
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t
+            idle = device_idle_share(prof, wall)
+            del prof
+            seg.hps.epochs = 2
+            kernels.reset_launch_counts()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            seg.train()
+            torch.cuda.synchronize()
+            timed = time.perf_counter() - t
+            if name == "cache":
+                by_path["train_loop_cache_device"] = kernels.launch_counts()
+            out[name] = {"profiled_epoch": idle, "two_epochs_s": timed,
+                         "train_img_per_s": 2 * n_train / timed}
+
+        # a partial cache: 40 of the 64 samples
+        log = io.StringIO()
+        partial = facade("p", cache_device=True,
+                         cache_device_max_bytes=40 * (SIZE * SIZE * 4 + 8))
+        partial.hps.epochs = 1
+        with contextlib.redirect_stdout(log):
+            h_partial = partial.train()
+        out.update(partial_history=h_partial, partial_log=[
+            line for line in log.getvalue().splitlines() if line.startswith("cache_device")])
+        del streamed, cached, partial, ds_train, ds_val
+    torch.cuda.empty_cache()
+    out.update(s=time.perf_counter() - t0, card=card)
+    print(json.dumps({"cache_device": out}))
+    if not out["epoch_batches_bit_equal"]:
+        raise SystemExit("cache_device: an epoch's batches differ from the streamed ones")
+    # the same batches through the same steps: within 10x the streamed
+    # path's own run-to-run spread (and 1e-6)
+    if not worst <= history_bound:
+        raise SystemExit(f"cache_device history differs from streaming by {worst} "
+                         f"(streamed twice: {spread})")
+    if (not any("fits 40/64" in line for line in out["partial_log"])
+            or not all(math.isfinite(v) for k in h_partial for v in h_partial[k])):
+        raise SystemExit(f"partial cache: {out['partial_log']} {h_partial}")
+    return by_path
+
+
+def run_export(kernels, card: str, state: dict) -> dict:
+    """``convert_to_tf_lite()`` of the float32 flagship on the card: the
+    ``.pt2`` holds the depthwise custom operators, and ``torch.export.load``
+    of it gives the model's probabilities at B=1 and B=16 (the same
+    kernels; cuDNN may choose other algorithms, so within 1e-6).  Returns the launches of the path
+    ``export_program`` (the loaded program's two calls)."""
+    import tempfile
+
+    import torch
+
+    from deeplabv3plus_keras_tpu_torch import SemanticSegmentation
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        seg = SemanticSegmentation(flagship_conf(), work_dir=tmp, device="cuda")
+        seg.model.load_state_dict(state)
+        t = time.perf_counter()
+        paths = seg.convert_to_tf_lite()
+        export_s = time.perf_counter() - t
+        program = torch.export.load(paths[0])
+        size_mb = os.path.getsize(paths[0]) / 2**20
+    ops = {torch.ops.dlv3_port.depthwise_fwd.default, torch.ops.dlv3_port.depthwise_cf_fwd.default}
+    nodes = sum(n.target in ops for n in program.graph.nodes)
+    errs, launches = {}, {}
+    module = program.module()
+    for b in (1, BATCH):
+        x = torch.rand(b, SIZE, SIZE, 3, device="cuda", generator=torch.Generator("cuda").manual_seed(b))
+        x = x * 2 - 1
+        with torch.no_grad():
+            kernels.reset_launch_counts()
+            got = module(x)
+            for k, v in kernels.launch_counts().items():
+                launches[k] = launches.get(k, 0) + v
+            ref = seg.model.eval()(x)
+        errs[b] = (got - ref).abs().max().item()
+    by_path = {"export_program": launches}
+    out = {"artifact": os.path.basename(paths[0]), "mb": size_mb, "export_s": export_s,
+           "depthwise_op_nodes": nodes, "max_abs_err_by_batch": errs,
+           "launches": by_path["export_program"], "s": time.perf_counter() - t0, "card": card}
+    print(json.dumps({"export": out}))
+    if nodes < 1 or not all(e <= 1e-6 for e in errs.values()):
+        raise SystemExit(f"export: {out}")
+    return by_path
+
+
 def main() -> int:
     import torch
 
@@ -1206,6 +1670,24 @@ def main() -> int:
                               {"depthwise_fwd_cf": 33, "depthwise_fwd_s1": 3})
     agg.update(a)
     by_path.update(p)
+    # the flagship in bfloat16 and float16, remat, the device-resident
+    # dataset and export, under nhwc
+    with dw_layout("nhwc"):
+        t1 = time.perf_counter()
+        batches = serving_batches()
+        state, labels32 = calibrated_flagship(batches)
+        low = {}
+        for dtype in LOW_PRECISION:
+            p, low[dtype] = run_low_precision(kernels, card, dtype, state, labels32, g, rows)
+            by_path.update(p)
+            print(json.dumps({"model": "mobilenetv2", "phase": dtype, "s": time.perf_counter() - t1}))
+        by_path.update(run_remat(kernels, card, state))
+        print(json.dumps({"model": "mobilenetv2", "phase": "remat", "s": time.perf_counter() - t1}))
+        by_path.update(run_cache_device(kernels, card))
+        print(json.dumps({"model": "mobilenetv2", "phase": "cache_device",
+                          "s": time.perf_counter() - t1}))
+        by_path.update(run_export(kernels, card, state))
+        print(json.dumps({"model": "mobilenetv2", "phase": "export", "s": time.perf_counter() - t1}))
     (OUT / "kernel_sites.json").write_text(json.dumps({"card": card, "sites": rows}, indent=1))
     print(json.dumps({"depthwise_forward_summary": forward_summary(rows), "card": card}))
     print(json.dumps({"depthwise_backward_summary": backward_summary(rows), "card": card}))
@@ -1225,6 +1707,10 @@ def main() -> int:
         for f in ("route_ms", "nhwc_kernel_ms"):
             if f in a:
                 entry[f] = a[f]
+        for dtype in LOW_PRECISION:  # K2-K5 at the flagship's sites in that dtype
+            if name in low[dtype]:
+                entry[dtype] = {f: low[dtype][name][f] for f in
+                                ("ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err")}
         if entry["launches"] < 1:
             raise SystemExit(f"{name} was not launched on its path {MAIN_PATH[name]}")
         out.append(entry)

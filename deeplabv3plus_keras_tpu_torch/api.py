@@ -15,10 +15,19 @@ there (``ops/preprocess.py``).  The best-val-loss checkpoint lives in
 ``work_dir/semantic_segmentation_deeplabv3plus`` (``train/checkpoint.py``)
 and ``model_loading`` restores it.
 
+``hps.dtype`` (float32, bfloat16, float16; float64 for parity tests) is
+the compute dtype; parameters, BN statistics, optimizer state and
+checkpoints stay float32.  The extra keys ``remat`` (recompute the
+backbone's activations in the backward pass) and ``cache_device`` /
+``cache_device_max_bytes`` (the decoded dataset resident in device
+memory, ``data/pipeline.py`` ``DeviceDataset``) are taken as the JAX
+facade takes them.  ``convert_to_tf_lite()`` writes a ``torch.export``
+program (``EXPORT_MODEL_PATH``).
+
 Config keys that would change the result and are not ported yet
 (``multi_gpu`` with ``num_gpus`` > 1, ``int8_infer``,
-``backbone_weights``, ``mesh_space`` > 1, ``cache_device``, a dtype other
-than float32) raise ``NotImplementedError`` naming their ROADMAP.md item.
+``backbone_weights``, ``mesh_space`` > 1) raise ``NotImplementedError``
+naming their ROADMAP.md item.
 
 The environment variable ``DLV3_DW_LAYOUT=bhcw`` routes the 3×3 stride-1
 undilated depthwise sites through the channels-first kernels
@@ -64,6 +73,9 @@ from .utils import MetricsLogger, StepTimer, profiler_trace
 from .utils.preemption import Preempted, PreemptionGuard
 
 _SEED = 1024  # the reference seeds 1024 (semantic_segmentation.py:1797-1802)
+# convert_to_tf_lite()'s artifact: the inference forward as a torch.export
+# program (the JAX package writes a StableHLO one beside the .tflite)
+EXPORT_MODEL_PATH = "semantic_segmentation_deeplabv3plus.pt2"
 
 
 def resolve_device(device=None) -> torch.device:
@@ -90,11 +102,6 @@ class SemanticSegmentation:
         self.work_dir = work_dir
         self.device = resolve_device(device)
         extra = self.conf.extra
-        if self.hps.dtype != "float32":
-            raise NotImplementedError(
-                f"hps.dtype {self.hps.dtype!r}: the port runs float32 only so far "
-                "(ROADMAP.md Queue A item 18, reduced precision)"
-            )
         if extra.get("int8_infer", False):
             raise NotImplementedError("int8_infer is not ported yet (ROADMAP.md Queue A item 15)")
         if self.conf.multi_gpu and self.conf.num_gpus > 1:
@@ -113,11 +120,6 @@ class SemanticSegmentation:
             raise NotImplementedError(
                 f"mesh_space={extra['mesh_space']}: spatial sharding is not "
                 "ported yet (ROADMAP.md Queue A item 13, multi-GPU data parallelism)"
-            )
-        if extra.get("cache_device"):
-            raise NotImplementedError(
-                "cache_device (the dataset resident in device memory) is not ported yet "
-                "(ROADMAP.md Queue A item 19)"
             )
 
         self.model = DeepLabV3Plus(self.conf)
@@ -194,6 +196,23 @@ class SemanticSegmentation:
         raise ValueError(f"unknown resource_type {rt!r}")
 
     def _loader(self, mode: int, shuffle: bool = False, with_labels: bool = True):
+        loader = self._host_loader(mode, shuffle, with_labels)
+        # extra key 'cache_device': the decoded dataset resident in device
+        # memory (~1 MiB a sample at a 512² canvas); epochs gather their
+        # batches there.  Not with the host SciPy path (prepro_device -1),
+        # which needs the pixels on the host.
+        if self.conf.extra.get("cache_device") and self.conf.prepro_device != DEVICE_CPU:
+            # the device cache supersedes the host RAM cache
+            loader.cache = False
+            # 'cache_device_max_bytes' caps it (default: half the card's
+            # free memory); the samples beyond stream each epoch
+            max_bytes = self.conf.extra.get("cache_device_max_bytes")
+            return pipe.DeviceDataset(
+                loader, self.device, max_bytes=None if max_bytes is None else int(max_bytes),
+                residual_cache=bool(self.conf.extra.get("cache_decoded", False)))
+        return loader
+
+    def _host_loader(self, mode: int, shuffle: bool, with_labels: bool) -> pipe.HostLoader:
         return pipe.HostLoader(
             self._specs(mode),
             batch_size=self.hps.batch_size,
@@ -438,11 +457,49 @@ class SemanticSegmentation:
                 if valid[i]:
                     Image.fromarray(labels[i]).save(os.path.join(out_dir, f"{name}.png"))
 
-    def convert_to_tf_lite(self, representative_images=None):
-        """Model export (reference convert_to_tf_lite, :1189-1205): not
-        ported yet."""
-        raise NotImplementedError(
-            "model export is not ported yet (ROADMAP.md Queue A item 12b, CLI and export)")
+    def convert_to_tf_lite(self, representative_images=None) -> list[str]:
+        """Model export (reference convert_to_tf_lite, :1189-1205; JAX
+        ``api.py:650-729``): writes the inference forward (images (B, S, S,
+        3) float32 → softmax probabilities (B, S, S, classes), BN on running
+        statistics) as a ``torch.export`` program with a dynamic batch
+        dimension, ``work_dir/semantic_segmentation_deeplabv3plus.pt2``
+        (``torch.export.save``), and returns the paths written.
+
+        The JAX package also converts to ``.tflite`` where TensorFlow is
+        installed; no torch→TFLite converter is installed here, so none is
+        written (it says so).  On the card the depthwise sites are the
+        custom operators of ``kernels/depthwise.py``: load the program with
+        ``torch.export.load`` after ``import deeplabv3plus_keras_tpu_torch``.
+        ``representative_images`` (int8 calibration) raises: int8 is
+        ROADMAP.md Queue A item 15."""
+        if representative_images is not None or self.conf.extra.get("int8_infer", False):
+            raise NotImplementedError(
+                "an int8 (representative_images / int8_infer) export is not ported yet "
+                "(ROADMAP.md Queue A item 15, int8 PTQ serving)")
+        size = self.nn_arch.image_size
+        self.model.eval()
+        example = torch.zeros(2, size, size, 3, device=self.device)
+        with torch.no_grad():
+            program = torch.export.export(
+                _ProbabilityForward(self.model), (example,),
+                dynamic_shapes={"images": {0: torch.export.Dim("batch", min=1, max=4096)}})
+        os.makedirs(self.work_dir, exist_ok=True)
+        path = os.path.join(self.work_dir, EXPORT_MODEL_PATH)
+        torch.export.save(program, path)
+        print(f"no torch->TFLite converter is installed: no .tflite written; "
+              f"artifacts written: {[os.path.basename(path)]}")
+        return [path]
+
+
+class _ProbabilityForward(torch.nn.Module):
+    """The exported function: the model's eval forward, probabilities."""
+
+    def __init__(self, model: torch.nn.Module):
+        super().__init__()
+        self.model = model
+
+    def forward(self, images: torch.Tensor) -> torch.Tensor:
+        return self.model(images)
 
 
 def _mean(values: list) -> float:

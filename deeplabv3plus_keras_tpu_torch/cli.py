@@ -2,8 +2,9 @@
 reference's ``main()``, semantic_segmentation.py:1793-1845): reads the
 JSON config (a path argument, or the reference's file name in the working
 directory), seeds Python's and NumPy's generators with 1024, runs the
-``mode`` (train, evaluate or test; convert_to_tf_lite raises, export is
-not ported yet) on CUDA and prints its time.
+``mode`` (train, evaluate, test or convert_to_tf_lite, which writes a
+``torch.export`` program into the working directory) on CUDA and prints
+its time.
 
 Usage:
     python -m deeplabv3plus_keras_tpu_torch.cli [conf.json] [--device cpu]
@@ -52,7 +53,7 @@ def main(argv: list[str] | None = None) -> int:
     elif mode == MODE_TEST:
         ss.test()
     else:
-        ss.convert_to_tf_lite()  # raises: export is ROADMAP item 12b
+        ss.convert_to_tf_lite()
     print(f"Elapsed time: {time.time() - start:.1f}s ({mode})")
     return 0
 

@@ -1,6 +1,6 @@
 // Depthwise k x k convolution backward, NHWC, TF "SAME" zero padding,
 // stride 1 (any dilation) or stride 2 (dilation 1); k in {3, 5, 7}; x, g
-// and dx float32 or bfloat16, float32 accumulation: the input gradient dx
+// and dx float32, bfloat16 or float16, float32 accumulation: the input gradient dx
 // and the weight gradient dk of depthwise_fwd.cu's forward.
 //
 // Replaces the Pallas TPU kernels _dw_bwd_nhwc (stride 1,
@@ -54,9 +54,10 @@
 //   No float atomics anywhere, so dk is the same bit for bit from run to run.
 //
 // Lanes take consecutive 16-byte channel vectors first (V = 4 float32 or 8
-// bfloat16 channels), so every global access is a full 128-byte line per
-// pixel and shared-memory reads are conflict-free.  k = 3 float32 keeps its
-// taps in registers; bfloat16 and k = 5, 7 read them from shared memory.
+// bfloat16/float16 channels), so every global access is a full 128-byte line
+// per pixel and shared-memory reads are conflict-free.  k = 3 float32 keeps
+// its taps in registers; 16-bit types and k = 5, 7 read them from shared
+// memory.
 // A narrow instantiation (V = 1) takes what the vector one cannot (C not a
 // multiple of V, or a pointer not 16-byte aligned): its threads load the
 // windows themselves.  The plan chooses it; there is no other fallback.
@@ -703,7 +704,7 @@ int launch_v(int variant, int k, int stride, const void* x, const void* g, const
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (x, g and dx).  x (B,H,W,C), g
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16 (x, g and dx).  x (B,H,W,C), g
 // (B,Ho,Wo,C); dx (B,H,W,C) or null, with taps (k*k,C) float32 (read only
 // for dx); dk (C,k*k) float32 or null, with partial (gy*tiles_w, k*k, C)
 // float32 scratch.  The rest is the plan (kernels/depthwise.py _bwd_plan):
@@ -721,7 +722,7 @@ extern "C" int dw_bwd(const void* x, const void* g, const void* taps, void* dx, 
     const int itemsize = dtype == 0 ? 4 : 2;
     const int threads = (variant == 1 ? 2 : 1) * nv * strips * th;  // the gather's two roles
     const int tw = strips * R;
-    if ((stride != 1 && stride != 2) || (dtype != 0 && dtype != 1) || variant < 0 || variant > 1)
+    if ((stride != 1 && stride != 2) || (dtype < 0 || dtype > 2) || variant < 0 || variant > 1)
         return (int)cudaErrorInvalidValue;
     if ((!dx && !dk) || (dx && !taps) || (dk && !partial) || (k != 3 && k != 5 && k != 7))
         return (int)cudaErrorInvalidValue;
@@ -760,9 +761,12 @@ extern "C" int dw_bwd(const void* x, const void* g, const void* taps, void* dx, 
     if (dtype == 0)
         rc = vec == 1 ? launch_v<float, 1>(variant, k, stride, x, g, t, dx, pf, geo, xmap, gmap, grid, threads, smem, st)
                       : launch_v<float, 4>(variant, k, stride, x, g, t, dx, pf, geo, xmap, gmap, grid, threads, smem, st);
-    else
+    else if (dtype == 1)
         rc = vec == 1 ? launch_v<__nv_bfloat16, 1>(variant, k, stride, x, g, t, dx, pf, geo, xmap, gmap, grid, threads, smem, st)
                       : launch_v<__nv_bfloat16, 8>(variant, k, stride, x, g, t, dx, pf, geo, xmap, gmap, grid, threads, smem, st);
+    else
+        rc = vec == 1 ? launch_v<__half, 1>(variant, k, stride, x, g, t, dx, pf, geo, xmap, gmap, grid, threads, smem, st)
+                      : launch_v<__half, 8>(variant, k, stride, x, g, t, dx, pf, geo, xmap, gmap, grid, threads, smem, st);
     if (rc) return rc;
     if (dk)
         dw_bwd_dk_final<<<dim3((C + DK_CH - 1) / DK_CH, k * k), dim3(DK_CH, DK_LANES), 0, st>>>(

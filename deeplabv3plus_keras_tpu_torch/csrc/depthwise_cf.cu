@@ -48,13 +48,14 @@
 // operations-per-byte balance.  The least time is x read and y written
 // (forward: 2 tensors), or x and g read and dx written (backward: 3), over
 // the device memory rate.  A tile's halo rows are read again by its
-// neighbour, mostly from L2.  Accumulation is float32 for float32 and
-// bfloat16.
+// neighbour, mostly from L2.  Accumulation is float32 for float32,
+// bfloat16 and float16.
 //
 // C interface: dw_cf_fwd(...) and dw_cf_bwd(...) return cudaGetLastError()
 // after their launches.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -74,8 +75,26 @@ constexpr int DK_LANES = 8;  // partial lanes of a dk_final block (threadIdx.y)
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_f(__half v) { return __half2float(v); }
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
+__device__ __forceinline__ void store(__half* p, float v) { *p = __float2half(v); }
+
+// Two 16-bit elements packed in 32 bits, to and from two floats.
+__device__ __forceinline__ float2 unpack2(uint32_t w, __nv_bfloat16) {
+    return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w));
+}
+__device__ __forceinline__ float2 unpack2(uint32_t w, __half) {
+    return __half22float2(*reinterpret_cast<const __half2*>(&w));
+}
+__device__ __forceinline__ uint32_t pack2(float a, float b, __nv_bfloat16) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+    return *reinterpret_cast<const uint32_t*>(&h);
+}
+__device__ __forceinline__ uint32_t pack2(float a, float b, __half) {
+    const __half2 h = __floats2half2_rn(a, b);
+    return *reinterpret_cast<const uint32_t*>(&h);
+}
 
 // The halo tile of one plane whose first output is (h0, w0): s[r][j] =
 // plane[h0 + r - 1][w0 + j - 1], zero outside the image.
@@ -192,6 +211,7 @@ __device__ __forceinline__ void cp_async_wait_all_but_newest() {
 template <typename T> __device__ __forceinline__ T zero_t();
 template <> __device__ __forceinline__ float zero_t<float>() { return 0.f; }
 template <> __device__ __forceinline__ __nv_bfloat16 zero_t<__nv_bfloat16>() { return __float2bfloat16(0.f); }
+template <> __device__ __forceinline__ __half zero_t<__half>() { return __float2half(0.f); }
 
 // LOAD_VEC: the window of the tile whose first row is h0: window row k is
 // image row h0 - 1 + k at s + k * stride + PAD (zero outside the image);
@@ -258,8 +278,8 @@ __device__ __forceinline__ void read6(const T* p, float (&v)[6]) {
         v[1] = f.x; v[2] = f.y; v[3] = f.z; v[4] = f.w;
     } else {
         const uint2 u = *reinterpret_cast<const uint2*>(p);
-        const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
-        const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+        const float2 a = unpack2(u.x, T{});
+        const float2 b = unpack2(u.y, T{});
         v[1] = a.x; v[2] = a.y; v[3] = b.x; v[4] = b.y;
     }
     v[0] = to_f(p[-1]);
@@ -281,10 +301,7 @@ __device__ __forceinline__ void store4(T* p, const float (&o)[4]) {
     if constexpr (sizeof(T) == 4) {
         *reinterpret_cast<float4*>(p) = make_float4(o[0], o[1], o[2], o[3]);
     } else {
-        const __nv_bfloat162 a = __floats2bfloat162_rn(o[0], o[1]);
-        const __nv_bfloat162 b = __floats2bfloat162_rn(o[2], o[3]);
-        *reinterpret_cast<uint2*>(p) =
-            make_uint2(*reinterpret_cast<const uint32_t*>(&a), *reinterpret_cast<const uint32_t*>(&b));
+        *reinterpret_cast<uint2*>(p) = make_uint2(pack2(o[0], o[1], T{}), pack2(o[2], o[3], T{}));
     }
 }
 
@@ -513,7 +530,7 @@ __global__ void dw_cf_dk_final(const float* __restrict__ partial, float* __restr
 }
 
 bool bad_shape(int dtype, int B, int C, int H, int W) {
-    if (dtype != 0 && dtype != 1) return true;
+    if (dtype < 0 || dtype > 2) return true;
     if (B < 1 || C < 1 || H < 1 || W < 1 || B > 65535 || C > 65535) return true;
     const long long tiles = (long long)((H + TH - 1) / TH) * ((W + TW - 1) / TW);
     return tiles > 0x7fffffffLL;
@@ -521,7 +538,7 @@ bool bad_shape(int dtype, int B, int C, int H, int W) {
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  x, y (B, C, H, W) NCHW-contiguous;
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16.  x, y (B, C, H, W) NCHW-contiguous;
 // taps (9, C) float32, tap t = 3 * dy + dx.
 extern "C" int dw_cf_fwd(const void* x, const void* taps, void* y, int dtype,
                          int B, int C, int H, int W, void* stream) {
@@ -533,14 +550,17 @@ extern "C" int dw_cf_fwd(const void* x, const void* taps, void* y, int dtype,
     if (dtype == 0)
         dw_cf_fwd_kernel<float><<<grid, block, 0, st>>>(
             (const float*)x, (const float*)taps, (float*)y, C, H, W, tiles_w);
-    else
+    else if (dtype == 1)
         dw_cf_fwd_kernel<__nv_bfloat16><<<grid, block, 0, st>>>(
             (const __nv_bfloat16*)x, (const float*)taps, (__nv_bfloat16*)y, C, H, W, tiles_w);
+    else
+        dw_cf_fwd_kernel<__half><<<grid, block, 0, st>>>(
+            (const __half*)x, (const float*)taps, (__half*)y, C, H, W, tiles_w);
     return (int)cudaGetLastError();
 }
 
 // x, g, dx (B, C, H, W) NCHW-contiguous, x and g of dtype (0 = float32,
-// 1 = bfloat16); dx or null (taps (9, C) float32 read only for dx); dk
+// 1 = bfloat16, 2 = float16); dx or null (taps (9, C) float32 read only for dx); dk
 // (C, 9) float32 or null, with partial (groups, 9, C) float32 scratch when
 // groups > 1.  The rest is the plan of kernels/depthwise.py _cf_bwd_plan:
 // mode (LOAD_VEC, LOAD_FLAT), block (ncx, nry), r rows a thread, tiles of
@@ -588,8 +608,10 @@ extern "C" int dw_cf_bwd(const void* x, const void* g, const void* taps, void* d
     } while (0)
     if (dtype == 0 && mode == LOAD_VEC) CF_LAUNCH(float, LOAD_VEC);
     else if (dtype == 0) CF_LAUNCH(float, LOAD_FLAT);
-    else if (mode == LOAD_VEC) CF_LAUNCH(__nv_bfloat16, LOAD_VEC);
-    else CF_LAUNCH(__nv_bfloat16, LOAD_FLAT);
+    else if (dtype == 1 && mode == LOAD_VEC) CF_LAUNCH(__nv_bfloat16, LOAD_VEC);
+    else if (dtype == 1) CF_LAUNCH(__nv_bfloat16, LOAD_FLAT);
+    else if (mode == LOAD_VEC) CF_LAUNCH(__half, LOAD_VEC);
+    else CF_LAUNCH(__half, LOAD_FLAT);
 #undef CF_LAUNCH
     if (dk && groups > 1)
         dw_cf_dk_final<<<dim3((C + DK_CH - 1) / DK_CH, 9), dim3(DK_CH, DK_LANES), 0, st>>>(part, dkp, groups, C);

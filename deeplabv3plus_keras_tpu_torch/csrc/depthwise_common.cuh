@@ -11,6 +11,7 @@
 
 #include <cuda.h>  // CUtensorMap (the tensor map is encoded through the runtime's driver entry point)
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -18,27 +19,51 @@ namespace {
 
 constexpr int R = 4;  // outputs per thread along W
 
-template <typename T> __device__ __forceinline__ T zero();
-template <> __device__ __forceinline__ float zero<float>() { return 0.f; }
-template <> __device__ __forceinline__ __nv_bfloat16 zero<__nv_bfloat16>() { return __float2bfloat16(0.f); }
+// Element conversions: float32, bfloat16 and float16 (dtype codes 0, 1, 2);
+// arithmetic is float32.
+__device__ __forceinline__ float to_float(float v) { return v; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_float(__half v) { return __half2float(v); }
+template <typename T> __device__ __forceinline__ T from_float(float v);
+template <> __device__ __forceinline__ float from_float<float>(float v) { return v; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) { return __float2bfloat16(v); }
+template <> __device__ __forceinline__ __half from_float<__half>(float v) { return __float2half(v); }
+template <typename T> __device__ __forceinline__ T zero() { return from_float<T>(0.f); }
+
+// Two 16-bit elements packed in 32 bits, to and from two floats.
+template <typename T> __device__ __forceinline__ float2 unpack2(uint32_t w);
+template <> __device__ __forceinline__ float2 unpack2<__nv_bfloat16>(uint32_t w) {
+    return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w));
+}
+template <> __device__ __forceinline__ float2 unpack2<__half>(uint32_t w) {
+    return __half22float2(*reinterpret_cast<const __half2*>(&w));
+}
+template <typename T> __device__ __forceinline__ uint32_t pack2(float a, float b);
+template <> __device__ __forceinline__ uint32_t pack2<__nv_bfloat16>(float a, float b) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+    return *reinterpret_cast<const uint32_t*>(&h);
+}
+template <> __device__ __forceinline__ uint32_t pack2<__half>(float a, float b) {
+    const __half2 h = __floats2half2_rn(a, b);
+    return *reinterpret_cast<const uint32_t*>(&h);
+}
 
 // V elements of T at p (16-byte aligned when V * sizeof(T) == 16) as floats.
 template <typename T, int V>
 __device__ __forceinline__ void load_f(const T* p, float (&v)[V]) {
     if constexpr (V == 1) {
-        if constexpr (sizeof(T) == 4) v[0] = *(const float*)p;
-        else v[0] = __bfloat162float(*(const __nv_bfloat16*)p);
+        v[0] = to_float(*p);
     } else if constexpr (sizeof(T) == 4) {
         static_assert(V == 4, "float32 vectors are 4 channels");
         const float4 f = *reinterpret_cast<const float4*>(p);
         v[0] = f.x; v[1] = f.y; v[2] = f.z; v[3] = f.w;
     } else {
-        static_assert(V == 8, "bfloat16 vectors are 8 channels");
+        static_assert(V == 8, "16-bit vectors are 8 channels");
         const uint4 u = *reinterpret_cast<const uint4*>(p);
         const uint32_t w[4] = {u.x, u.y, u.z, u.w};
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
-            const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[i]));
+            const float2 f = unpack2<T>(w[i]);
             v[2 * i] = f.x;
             v[2 * i + 1] = f.y;
         }
@@ -48,17 +73,13 @@ __device__ __forceinline__ void load_f(const T* p, float (&v)[V]) {
 template <typename T, int V>
 __device__ __forceinline__ void store_f(T* p, const float (&v)[V]) {
     if constexpr (V == 1) {
-        if constexpr (sizeof(T) == 4) *(float*)p = v[0];
-        else *(__nv_bfloat16*)p = __float2bfloat16(v[0]);
+        *p = from_float<T>(v[0]);
     } else if constexpr (sizeof(T) == 4) {
         *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
     } else {
         uint32_t w[4];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-            const __nv_bfloat162 h = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
-            w[i] = *reinterpret_cast<const uint32_t*>(&h);
-        }
+        for (int i = 0; i < 4; ++i) w[i] = pack2<T>(v[2 * i], v[2 * i + 1]);
         *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
     }
 }
@@ -162,7 +183,8 @@ typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, v
                                 CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
                                 CUtensorMapFloatOOBfill);
 
-// The tensor map of x (B, H, W, C) whose box is one window: (cb, cols, rows, 1).
+// The tensor map of x (B, H, W, C) whose box is one window: (cb, cols, rows, 1);
+// dtype 0 = float32, 1 = bfloat16, 2 = float16.
 int window_map(CUtensorMap* map, const void* x, int dtype, int B, int H, int W, int C,
                int cb, int cols, int rows) {
     static EncodeTiled encode = nullptr;
@@ -175,12 +197,14 @@ int window_map(CUtensorMap* map, const void* x, int dtype, int B, int H, int W, 
         }
     }
     const cuuint64_t es = dtype == 0 ? 4 : 2;
+    const CUtensorMapDataType type = dtype == 0   ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                                     : dtype == 1 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                                                  : CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
     const cuuint64_t dims[4] = {(cuuint64_t)C, (cuuint64_t)W, (cuuint64_t)H, (cuuint64_t)B};
     const cuuint64_t strides[3] = {C * es, (cuuint64_t)W * C * es, (cuuint64_t)H * W * C * es};
     const cuuint32_t box[4] = {(cuuint32_t)cb, (cuuint32_t)cols, (cuuint32_t)rows, 1};
     const cuuint32_t one[4] = {1, 1, 1, 1};
-    const CUresult r = encode(map, dtype == 0 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
-                              4, (void*)x, dims, strides, box, one, CU_TENSOR_MAP_INTERLEAVE_NONE,
+    const CUresult r = encode(map, type, 4, (void*)x, dims, strides, box, one, CU_TENSOR_MAP_INTERLEAVE_NONE,
                               CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
     return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;

@@ -1,6 +1,6 @@
 // Depthwise k x k convolution forward, NHWC, TF "SAME" zero padding,
 // stride 1 (any dilation) or stride 2 (dilation 1); k in {3, 5, 7};
-// float32 or bfloat16 in and out, float32 accumulation.
+// float32, bfloat16 or float16 in and out, float32 accumulation.
 //
 // Replaces the Pallas TPU kernels _dw_fwd_nhwc (stride 1,
 // deeplabv3plus_keras_tpu/kernels/depthwise3.py:318, body :267) and
@@ -28,7 +28,7 @@
 //   16-byte loads, skipping taps outside the image.
 //
 // In both, the lanes of a warp take consecutive 16-byte channel vectors
-// first (V = 4 float32 or 8 bfloat16 channels; 8 vectors = one 128-byte
+// first (V = 4 float32 or 8 16-bit channels; 8 vectors = one 128-byte
 // line per pixel), so global accesses are full lines and shared-memory
 // reads are conflict-free at both strides.  Each thread computes a strip of
 // R = 4 consecutive outputs along W for its vector and slides the k-wide
@@ -275,7 +275,7 @@ int launch_v(int variant, int k, int stride, const void* x, const float* taps, v
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  x (B,H,W,C), y (B,Ho,Wo,C), taps (k*k,C)
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16.  x (B,H,W,C), y (B,Ho,Wo,C), taps (k*k,C)
 // float32.  The rest is the plan (kernels/depthwise.py _fwd_plan): variant
 // 0 = tile, 1 = gather; vec channels per vector (16 bytes' worth, or 1);
 // nv vectors x strips x th threads per block; r outputs per thread (must be
@@ -289,7 +289,7 @@ extern "C" int dw_fwd(const void* x, const void* taps, void* y, int dtype,
                       void* stream) {
     const int itemsize = dtype == 0 ? 4 : 2;
     const int threads = nv * strips * th;
-    if ((stride != 1 && stride != 2) || (dtype != 0 && dtype != 1) || variant < 0 || variant > 1)
+    if ((stride != 1 && stride != 2) || (dtype < 0 || dtype > 2) || variant < 0 || variant > 1)
         return (int)cudaErrorInvalidValue;
     if (r != R || threads < 1 || threads > MAX_THREADS || cblocks < 1 || B > 65535)
         return (int)cudaErrorInvalidValue;
@@ -316,9 +316,12 @@ extern "C" int dw_fwd(const void* x, const void* taps, void* y, int dtype,
     if (dtype == 0)
         rc = vec == 1 ? launch_v<float, 1>(variant, k, stride, x, t, y, g, map, grid, threads, smem, st)
                       : launch_v<float, 4>(variant, k, stride, x, t, y, g, map, grid, threads, smem, st);
-    else
+    else if (dtype == 1)
         rc = vec == 1 ? launch_v<__nv_bfloat16, 1>(variant, k, stride, x, t, y, g, map, grid, threads, smem, st)
                       : launch_v<__nv_bfloat16, 8>(variant, k, stride, x, t, y, g, map, grid, threads, smem, st);
+    else
+        rc = vec == 1 ? launch_v<__half, 1>(variant, k, stride, x, t, y, g, map, grid, threads, smem, st)
+                      : launch_v<__half, 8>(variant, k, stride, x, t, y, g, map, grid, threads, smem, st);
     if (rc) return rc;
     return (int)cudaGetLastError();
 }

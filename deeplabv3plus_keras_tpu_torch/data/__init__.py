@@ -1,7 +1,7 @@
 """Datasets and the host loader of the port (port of
 ``deeplabv3plus_keras_tpu/data/``)."""
 
-from .pipeline import HostLoader, device_batches, load_sample
+from .pipeline import DeviceDataset, HostLoader, device_batches, load_sample
 from .synthetic import make_synthetic_openimages, make_synthetic_voc
 from .voc import (
     CLASS_NAMES,
@@ -15,6 +15,7 @@ from .voc import (
 
 __all__ = [
     "CLASS_NAMES",
+    "DeviceDataset",
     "MODE_TEST",
     "MODE_TRAIN",
     "MODE_VAL",

@@ -1,6 +1,6 @@
 """Host data loading: threaded decode and prefetch feeding the on-device
-preprocessing (port of ``deeplabv3plus_keras_tpu/data/pipeline.py:27-300,
-694-788``).
+preprocessing (port of ``deeplabv3plus_keras_tpu/data/pipeline.py:27-520,
+631-788``).
 
 Host threads only decode images and paste raw uint8 pixels into
 fixed-size canvases (the reference's ``OrderedEnqueuer`` workers, knobs
@@ -10,6 +10,10 @@ canvases to the card from pinned host memory and runs
 
 The ragged last batch is emitted at full batch size with a 0/1 ``valid``
 mask, so every step sees one batch shape.
+
+:class:`DeviceDataset` (config key ``cache_device``) keeps the decoded
+uint8 canvases in device memory, so epochs after the build gather their
+batches there and decode nothing on the host.
 """
 
 from __future__ import annotations
@@ -301,6 +305,167 @@ class HostLoader:
             stop.set()
 
 
+def _auto_device_budget(device: torch.device) -> int | None:
+    """Half the free memory of a CUDA ``device`` (the training step still
+    needs room for activations; parameters and optimizer state are
+    already allocated); no limit elsewhere (the JAX package's
+    ``_auto_hbm_budget``)."""
+    if device.type != "cuda":
+        return None
+    free, _ = torch.cuda.mem_get_info(device)
+    return int(free) // 2
+
+
+class DeviceDataset:
+    """The decoded dataset resident in device memory (config key
+    ``cache_device``; port of the JAX package's ``DeviceDataset``, one
+    device).  Every decoded uint8 canvas, label canvas and (h, w) lives in
+    a tensor on ``device``; an epoch gathers its batches there by index
+    (``index_select``) and preprocesses them (``prepare_batch_from_cache``),
+    so epochs after the build move only the (B,) indices and validity
+    flags to the card.  Memory: canvas² × 4 bytes a sample (1 MiB at 512²;
+    about 11 GiB for VOC-Aug's 10,582 training images).
+
+    The cache holds at most ``max_bytes`` (config
+    ``cache_device_max_bytes``; default half the card's free memory, no
+    limit on the CPU): the first K samples that fit are cached, the rest
+    stream through a residual :class:`HostLoader` each epoch, and one line
+    states the split.  K = 0 is the plain host path (with the host RAM
+    cache when ``residual_cache``).
+
+    Built by draining ``loader`` once in spec order (a SIGTERM during the
+    build unwinds as ``Preempted``); each epoch then shuffles with the
+    loader's formula, ``default_rng(seed + epoch)`` over ``arange``, so a
+    full cache gives the host path's batches in its order (a partial cache
+    shuffles the cached and the streamed samples apart).  The layout
+    sharded over several devices waits for multi-GPU data parallelism
+    (ROADMAP.md Queue A item 13)."""
+
+    def __init__(self, loader: HostLoader, device=None, max_bytes: int | None = None,
+                 residual_cache: bool = False):
+        from ..utils.preemption import PreemptionGuard
+
+        self.device = torch.device(device) if device is not None else torch.device("cpu")
+        self.batch_size = loader.batch_size
+        self.shuffle = loader.shuffle
+        self.seed = loader.seed
+        self.with_labels = loader.with_labels
+        self.epoch = loader.epoch
+
+        n_specs = len(loader.specs)
+        CH = loader.canvas_size
+        bps = CH * CH * (4 if loader.with_labels else 3) + 8  # image, label, sizes
+        if max_bytes is None:
+            max_bytes = _auto_device_budget(self.device)
+        cap_n = n_specs if max_bytes is None else min(n_specs, max(0, int(max_bytes)) // bps)
+        if cap_n < n_specs:
+            print(f"cache_device: HBM budget fits {cap_n}/{n_specs} samples "
+                  f"({cap_n * bps / 2**30:.2f} GiB cached); streaming the remaining "
+                  f"{n_specs - cap_n} through the host pipeline each epoch")
+
+        # the device buffers, filled batch by batch as the host decodes
+        u8 = dict(dtype=torch.uint8, device=self.device)
+        img = torch.empty((cap_n, CH, CH, 3), **u8)
+        lab = torch.empty((cap_n, CH, CH), **u8) if loader.with_labels else None
+        sizes = torch.empty((cap_n, 2), dtype=torch.int32, device=self.device)
+        names = []
+        orig_shuffle, orig_epoch = loader.shuffle, loader.epoch
+        loader.shuffle = False
+        try:
+            for b in loader if cap_n else ():
+                # minutes of decode at full size: a SIGTERM unwinds here so
+                # the caller can save and exit
+                PreemptionGuard.check_active()
+                rows = np.flatnonzero(b["valid"].astype(bool))[: cap_n - len(names)]
+                if not len(rows):
+                    break
+                got = slice(len(names), len(names) + len(rows))
+                img[got] = _to_device(b["image_canvas"][rows], self.device)
+                if lab is not None and b["label_canvas"] is not None:
+                    lab[got] = _to_device(b["label_canvas"][rows], self.device)
+                sizes[got] = _to_device(b["sizes"][rows], self.device)
+                names += [b["names"][r] for r in rows]
+                if len(names) >= cap_n:
+                    break
+        finally:
+            loader.shuffle, loader.epoch = orig_shuffle, orig_epoch
+
+        # the specs beyond the cached prefix stream through a host loader
+        self.residual_loader = None
+        if cap_n < n_specs:
+            import copy
+
+            residual = copy.copy(loader)
+            residual.specs = list(loader.specs[cap_n:])
+            residual.cache = residual_cache
+            residual._cache = {}
+            residual.epoch = self.epoch
+            self.residual_loader = residual
+
+        self.names = names
+        self.n = len(names)
+        self.data_img = img[: self.n] if self.n else None
+        self.data_lab = lab[: self.n] if self.n and lab is not None else None
+        self.data_sizes = sizes[: self.n] if self.n else None
+
+    def _cached_steps(self) -> int:
+        return (self.n + self.batch_size - 1) // self.batch_size
+
+    def __len__(self):
+        residual = self.residual_loader.steps() if self.residual_loader else 0
+        return self._cached_steps() + residual
+
+    def steps(self) -> int:
+        return len(self)
+
+    def set_epoch(self, epoch: int) -> None:
+        """Fast-forward the epoch counter, the streamed residual's too (see
+        :meth:`HostLoader.set_epoch`)."""
+        self.epoch = int(epoch)
+        if self.residual_loader is not None:
+            self.residual_loader.set_epoch(epoch)
+
+    def _order(self):
+        order = np.arange(self.n)
+        if self.shuffle:
+            np.random.default_rng(self.seed + self.epoch).shuffle(order)
+        return order
+
+
+def _device_dataset_batches(ds: DeviceDataset, image_size: int, num_classes: int,
+                            with_labels: bool, one_hot_labels: bool) -> Iterator[dict]:
+    """One epoch of ``ds``: its cached samples gathered and preprocessed on
+    its device, then the uncached suffix streamed (same seed + epoch
+    formula)."""
+    from ..ops.preprocess import prepare_batch_from_cache
+
+    epoch_now = ds.epoch
+    order = ds._order()
+    ds.epoch += 1
+    B = ds.batch_size
+    cached_labels = with_labels and ds.data_lab is not None
+    for s in range(0, ds.n, B):
+        sel = order[s:s + B]
+        valid = np.zeros((B,), np.int32)
+        valid[:len(sel)] = 1
+        idx = np.zeros((B,), np.int64)
+        idx[:len(sel)] = sel
+        valid_t = _to_device(valid, ds.device)
+        images, labels = prepare_batch_from_cache(
+            ds.data_img, ds.data_lab if cached_labels else None, ds.data_sizes,
+            _to_device(idx, ds.device), valid_t, size=image_size, num_classes=num_classes,
+            with_labels=cached_labels, one_hot_labels=one_hot_labels)
+        out = {"image": images, "valid": valid_t, "names": [ds.names[i] for i in sel]}
+        if cached_labels:
+            out["label"] = labels
+        yield out
+
+    if ds.residual_loader is not None:
+        ds.residual_loader.epoch = epoch_now
+        yield from device_batches(ds.residual_loader, image_size, num_classes, with_labels,
+                                  one_hot_labels, device=ds.device)
+
+
 def _to_device(array: np.ndarray, device: torch.device) -> torch.Tensor:
     """A host array on ``device``: to a card through pinned memory and an
     asynchronous copy (the pinned block is reused only after the copy has
@@ -311,7 +476,7 @@ def _to_device(array: np.ndarray, device: torch.device) -> torch.Tensor:
     return t.to(device)
 
 
-def device_batches(loader: HostLoader, image_size: int, num_classes: int,
+def device_batches(loader: HostLoader | DeviceDataset, image_size: int, num_classes: int,
                    with_labels: bool = True, one_hot_labels: bool = True,
                    host_prepro: bool = False, device=None) -> Iterator[dict]:
     """Batches of ``loader`` ready for a step on ``device``: dicts of
@@ -325,8 +490,14 @@ def device_batches(loader: HostLoader, image_size: int, num_classes: int,
     the consumer's step.  ``host_prepro=True`` is the reference's
     ``prepro_device == -1`` path (per-sample SciPy resize on the host,
     ``ops.preprocess.host_prepare_sample``).  ``device`` defaults to the
-    first CUDA card, never to the CPU."""
+    first CUDA card, never to the CPU.  A :class:`DeviceDataset` yields its
+    batches from its own device, ``device`` and ``host_prepro`` aside."""
     from ..ops.preprocess import host_prepare_sample, prepare_batch
+
+    if isinstance(loader, DeviceDataset):
+        yield from _device_dataset_batches(loader, image_size, num_classes, with_labels,
+                                           one_hot_labels)
+        return
 
     if device is None and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device is available; pass device='cpu' to preprocess "

@@ -26,10 +26,17 @@ def launch_counts() -> dict[str, int]:
     return {k: v for c in _COUNTERS for k, v in c.items()}
 
 
+def launch_counts_by_dtype() -> dict[str, int]:
+    """The depthwise kernels' launches since the last reset, by
+    ``"<kernel>/<dtype>"``."""
+    return dict(_depthwise.launches_by_dtype)
+
+
 def reset_launch_counts() -> None:
     for c in _COUNTERS:
         for k in c:
             c[k] = 0
+    _depthwise.launches_by_dtype.clear()
 
 
 __all__ = [
@@ -41,6 +48,7 @@ __all__ = [
     "depthwise_conv_plain",
     "depthwise_route",
     "launch_counts",
+    "launch_counts_by_dtype",
     "reset_launch_counts",
     "same_pads",
     "upsample_argmax",

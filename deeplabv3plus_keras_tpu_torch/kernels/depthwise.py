@@ -17,9 +17,11 @@ Port of the Pallas TPU depthwise stencils of
 On the card the forward is one hand-written CUDA kernel,
 ``csrc/depthwise_fwd.cu``, and the backward another,
 ``csrc/depthwise_bwd.cu`` (dx, and dk as a deterministic two-pass
-reduction), both templated on the stride and joined by a
-``torch.autograd.Function``.  Both are bound by memory (see the sources'
-notes).  The forward's work is laid out by :func:`_fwd_plan`, a pure
+reduction), both templated on the stride, in float32, bfloat16 or
+float16 with float32 accumulation.  The forward launch is the custom
+operator ``dlv3_port::depthwise_fwd`` (so ``torch.export`` records it) and
+the backward its registered gradient.  Both are bound by memory (see the
+sources' notes).  The forward's work is laid out by :func:`_fwd_plan`, a pure
 function of the shape: the variant (``tile``: a zero-filled halo window
 per tile in shared memory, one TMA copy each; ``gather``: taps read from
 global memory, for dilated sites), the vector width (16 bytes of channels, or 1 where C
@@ -60,7 +62,6 @@ import os
 
 import torch
 import torch.nn.functional as F
-from torch.autograd.function import once_differentiable
 
 from . import _build
 
@@ -72,7 +73,16 @@ launches = {
     "depthwise_fwd_cf": 0, "depthwise_bwd_cf": 0,
 }
 
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# The same launches by dtype, "<kernel>/<dtype>" (float32, bfloat16, float16).
+launches_by_dtype: dict[str, int] = {}
+
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+
+
+def _count(name: str, dtype: torch.dtype) -> None:
+    launches[name] += 1
+    key = f"{name}/{str(dtype).removeprefix('torch.')}"
+    launches_by_dtype[key] = launches_by_dtype.get(key, 0) + 1
 _VARIANT_CODE = {"tile": 0, "gather": 1}
 
 
@@ -219,7 +229,7 @@ def _fwd_plan(B: int, C: int, H: int, W: int, k: int, stride: int, dilation,
 
     - Variant: ``gather`` at a dilated site (its window would be mostly
       padding, or re-read (k−1)·d halo rows per tile), else ``tile``.
-    - Vector width: 16 bytes of channels (4 float32, 8 bfloat16) when C is
+    - Vector width: 16 bytes of channels (4 float32, 8 bfloat16 or float16) when C is
       a multiple of it and x and y are 16-byte aligned (``ptr_align``, the
       largest power of two dividing both pointers), else 1 (the narrow
       instantiation).
@@ -590,6 +600,7 @@ def _stream(x: torch.Tensor) -> int:
 
 def _launch(x: torch.Tensor, weight: torch.Tensor, stride: int, dilation):
     """One launch of the forward kernel, by :func:`_fwd_plan`'s plan."""
+    _check_channels_last(x)
     k = weight.shape[-1]
     B, C, H, W, Ho, Wo, dh, dw, pt, pl = _geometry(x, k, stride, dilation)
     taps = _taps(weight, x.dtype)
@@ -611,7 +622,7 @@ def _launch(x: torch.Tensor, weight: torch.Tensor, stride: int, dilation):
         )
     if rc != 0:
         raise RuntimeError(f"depthwise_fwd launch failed: CUDA error {rc}")
-    launches[f"depthwise_fwd_s{stride}"] += 1
+    _count(f"depthwise_fwd_s{stride}", x.dtype)
     return y
 
 
@@ -619,6 +630,7 @@ def _launch_backward(x, weight, g, stride: int, dilation, want_dx: bool, want_dk
     """(dx or None, dweight or None) from one launch of the CUDA backward,
     by :func:`_bwd_plan`'s plan; dk's final sum is a second, small kernel
     of the same call."""
+    _check_channels_last(x)
     k = weight.shape[-1]
     B, C, H, W, Ho, Wo, dh, dw, pt, pl = _geometry(x, k, stride, dilation)
     if tuple(g.shape) != (B, C, Ho, Wo) or g.dtype != x.dtype:
@@ -655,30 +667,49 @@ def _launch_backward(x, weight, g, stride: int, dilation, want_dx: bool, want_dk
         )
     if rc != 0:
         raise RuntimeError(f"depthwise_bwd launch failed: CUDA error {rc}")
-    launches[f"depthwise_bwd_s{stride}"] += 1
+    _count(f"depthwise_bwd_s{stride}", x.dtype)
     return dx, (None if dk is None else dk.to(weight.dtype))
 
 
-class _DepthwiseConv(torch.autograd.Function):
-    """The CUDA forward, and the CUDA backward as its gradient.  Saves x
-    and the weight (no padded copies); a frozen weight or input skips its
-    half of the backward."""
+# The forward launches are custom operators (``torch.library``), so that
+# ``torch.export`` records them as one node each with the fake kernel's
+# shape, dtype and strides (it cannot trace through the ctypes launch); a
+# process that loads an exported program imports this module first.  Their
+# gradients are the backward kernels (``register_autograd``).
 
-    @staticmethod
-    def forward(ctx, x, weight, stride, dilation):
-        ctx.save_for_backward(x, weight)
-        ctx.stride, ctx.dilation = stride, dilation
-        return _launch(x, weight, stride, dilation)
+@torch.library.custom_op("dlv3_port::depthwise_fwd", mutates_args=())
+def _depthwise_fwd_op(x: torch.Tensor, weight: torch.Tensor, stride: int, dh: int,
+                      dw: int) -> torch.Tensor:
+    """K2/K3: one launch of the NHWC forward kernel."""
+    return _launch(x, weight, stride, (dh, dw))
 
-    @staticmethod
-    @once_differentiable
-    def backward(ctx, g):
-        x, weight = ctx.saved_tensors
-        g = g.to(x.dtype).contiguous(memory_format=torch.channels_last)
-        dx, dweight = _launch_backward(
-            x, weight, g, ctx.stride, ctx.dilation, *ctx.needs_input_grad[:2]
-        )
-        return dx, dweight, None, None
+
+@_depthwise_fwd_op.register_fake
+def _(x, weight, stride, dh, dw):
+    B, C, H, W = x.shape
+    return torch.empty((B, C, -(-H // stride), -(-W // stride)), dtype=x.dtype, device=x.device,
+                       memory_format=torch.channels_last)
+
+
+def _depthwise_fwd_setup(ctx, inputs, output):
+    x, weight, stride, dh, dw = inputs
+    ctx.save_for_backward(x, weight)
+    ctx.stride, ctx.dilation = stride, (dh, dw)
+
+
+def _depthwise_fwd_backward(ctx, g):
+    """K4/K5 as the gradient: saves x and the weight (no padded copies); a
+    frozen weight or input skips its half of the backward."""
+    x, weight = ctx.saved_tensors
+    g = g.to(x.dtype).contiguous(memory_format=torch.channels_last)
+    dx, dweight = _launch_backward(
+        x, weight, g, ctx.stride, ctx.dilation, *ctx.needs_input_grad[:2]
+    )
+    return dx, dweight, None, None, None
+
+
+torch.library.register_autograd("dlv3_port::depthwise_fwd", _depthwise_fwd_backward,
+                                setup_context=_depthwise_fwd_setup)
 
 
 _LAYOUTS = ("nhwc", "bhcw")
@@ -709,7 +740,7 @@ def _check_cf(x: torch.Tensor, weight: torch.Tensor) -> None:
     if x.device.type != "cuda" or weight.device != x.device:
         raise ValueError(f"depthwise_cf: x on {x.device}, weight on {weight.device}")
     if x.dtype not in _DTYPE_CODE:
-        raise TypeError(f"depthwise_cf: CUDA kernel takes float32/bfloat16, got {x.dtype}")
+        raise TypeError(f"depthwise_cf: CUDA kernel takes float32/bfloat16/float16, got {x.dtype}")
     if not x.is_contiguous():
         raise ValueError("depthwise_cf: x must be NCHW-contiguous")
     if x.numel() >= 2**31 or max(x.shape[:2]) > 65535:
@@ -732,7 +763,7 @@ def depthwise_cf(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
                 B, C, H, W, _stream(x))
     if rc != 0:
         raise RuntimeError(f"depthwise_cf launch failed: CUDA error {rc}")
-    launches["depthwise_fwd_cf"] += 1
+    _count("depthwise_fwd_cf", x.dtype)
     return y
 
 
@@ -940,32 +971,41 @@ def depthwise_cf_backward(x: torch.Tensor, weight: torch.Tensor, g: torch.Tensor
                 plan.tiles, plan.walk, plan.groups, plan.smem, _stream(x))
     if rc != 0:
         raise RuntimeError(f"depthwise_cf_backward launch failed: CUDA error {rc}")
-    launches["depthwise_bwd_cf"] += 1
+    _count("depthwise_bwd_cf", x.dtype)
     return dx, (None if dk is None else dk.to(weight.dtype))
 
 
-class _DepthwiseConvCF(torch.autograd.Function):
-    """The channels-first route: x made NCHW-contiguous, K6, the result back
-    in ``channels_last``; K7 as its gradient.  Saves x and the weight (no
-    padded or transposed copies); the backward makes x and g NCHW-contiguous,
-    as the JAX ``_vjp_bwd`` re-transposes them, and returns dx in
-    ``channels_last``."""
+@torch.library.custom_op("dlv3_port::depthwise_cf_fwd", mutates_args=())
+def _depthwise_cf_op(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    """The channels-first route: x made NCHW-contiguous, K6, the result
+    back in ``channels_last``."""
+    return depthwise_cf(x.contiguous(), weight).contiguous(memory_format=torch.channels_last)
 
-    @staticmethod
-    def forward(ctx, x, weight):
-        ctx.save_for_backward(x, weight)
-        return depthwise_cf(x.contiguous(), weight).contiguous(memory_format=torch.channels_last)
 
-    @staticmethod
-    @once_differentiable
-    def backward(ctx, g):
-        x, weight = ctx.saved_tensors
-        dx, dweight = depthwise_cf_backward(
-            x.contiguous(), weight, g.to(x.dtype).contiguous(), *ctx.needs_input_grad[:2]
-        )
-        if dx is not None:
-            dx = dx.contiguous(memory_format=torch.channels_last)
-        return dx, dweight
+@_depthwise_cf_op.register_fake
+def _(x, weight):
+    return torch.empty_like(x, memory_format=torch.channels_last)
+
+
+def _depthwise_cf_setup(ctx, inputs, output):
+    ctx.save_for_backward(*inputs)
+
+
+def _depthwise_cf_backward(ctx, g):
+    """K7 as the gradient: saves x and the weight (no padded or transposed
+    copies); x and g made NCHW-contiguous, as the JAX ``_vjp_bwd``
+    re-transposes them, dx returned in ``channels_last``."""
+    x, weight = ctx.saved_tensors
+    dx, dweight = depthwise_cf_backward(
+        x.contiguous(), weight, g.to(x.dtype).contiguous(), *ctx.needs_input_grad[:2]
+    )
+    if dx is not None:
+        dx = dx.contiguous(memory_format=torch.channels_last)
+    return dx, dweight
+
+
+torch.library.register_autograd("dlv3_port::depthwise_cf_fwd", _depthwise_cf_backward,
+                                setup_context=_depthwise_cf_setup)
 
 
 def _on_card(x: torch.Tensor, weight: torch.Tensor, stride: int, dilation) -> bool:
@@ -988,10 +1028,15 @@ def _on_card(x: torch.Tensor, weight: torch.Tensor, stride: int, dilation) -> bo
     if x.device.type != "cuda" or weight.device != x.device:
         raise ValueError(f"depthwise_conv: x on {x.device}, weight on {weight.device}")
     if x.dtype not in _DTYPE_CODE:
-        raise TypeError(f"depthwise_conv: CUDA kernel takes float32/bfloat16, got {x.dtype}")
+        raise TypeError(f"depthwise_conv: CUDA kernel takes float32/bfloat16/float16, got {x.dtype}")
+    return True
+
+
+def _check_channels_last(x: torch.Tensor) -> None:
+    """At the launch, not in :func:`_on_card`: ``torch.export`` traces the
+    operators with a symbolic batch, whose strides cannot prove it."""
     if not x.is_contiguous(memory_format=torch.channels_last):
         raise ValueError("depthwise_conv: x must be contiguous in channels_last memory")
-    return True
 
 
 def depthwise_conv(
@@ -1008,10 +1053,10 @@ def depthwise_conv(
     if depthwise_route(weight, stride, dilation) == "cf":
         if not card:
             return depthwise_cf(x.contiguous(), weight).contiguous(memory_format=torch.channels_last)
-        return _DepthwiseConvCF.apply(x, weight)
+        return _depthwise_cf_op(x, weight)
     if not card:
         return depthwise_conv_plain(x, weight, stride, dilation)
-    return _DepthwiseConv.apply(x, weight, stride, (int(dilation[0]), int(dilation[1])))
+    return _depthwise_fwd_op(x, weight, stride, int(dilation[0]), int(dilation[1]))
 
 
 def depthwise_conv_backward(

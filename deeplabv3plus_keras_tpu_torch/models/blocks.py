@@ -19,15 +19,27 @@ Numerics mirrored from the Keras reference:
   ``torch.Generator``.  Fans are computed as flax computes them on the
   HWIO kernel, so the bounds match the JAX package's.
 - Only the float path of ``QuantConv``: int8 serving is a later slice.
+
+Compute dtype, with flax's semantics (``hps.dtype``; the model casts its
+input to it once, ``models/deeplab.py``): parameters and BN statistics
+stay float32; every conv casts its weight to the dtype of its input
+(flax ``promote_dtype(x, kernel, dtype=...)``) and returns that dtype;
+``BatchNorm`` on a bfloat16 or float16 input follows
+``flax.linen.normalization`` (statistics and normalisation in float32,
+the result cast back).  ReLU, adds, concatenations and pooling run in
+the input's dtype.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
+import threading
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.autograd.function import once_differentiable
 
 from ..kernels import depthwise_conv, same_pads
 
@@ -97,12 +109,12 @@ class Conv(_Init, nn.Module):
         self.weight = nn.Parameter(torch.empty(features, cin, kernel, kernel))
 
     def forward(self, x):
+        w = self.weight.to(x.dtype)
         if self.padding == "VALID":
-            return F.conv2d(x, self.weight, stride=self.strides)
+            return F.conv2d(x, w, stride=self.strides)
         if self.strides == 1:  # odd k: SAME is symmetric
-            return F.conv2d(x, self.weight, padding=self.kernel // 2)
-        return F.conv2d(tf_same_pad(x, self.kernel, self.strides), self.weight,
-                        stride=self.strides)
+            return F.conv2d(x, w, padding=self.kernel // 2)
+        return F.conv2d(tf_same_pad(x, self.kernel, self.strides), w, stride=self.strides)
 
 
 class DepthwiseConv(_Init, nn.Module):
@@ -119,7 +131,31 @@ class DepthwiseConv(_Init, nn.Module):
 
     def forward(self, x):
         x = x.contiguous(memory_format=torch.channels_last)  # no-op in the model
-        return depthwise_conv(x, self.weight, self.strides, self.dilation)
+        return depthwise_conv(x, self.weight.to(x.dtype), self.strides, self.dilation)
+
+
+_LOW_PRECISION = (torch.bfloat16, torch.float16)
+_recompute = threading.local()
+
+
+@contextlib.contextmanager
+def running_stats_frozen():
+    """Inside the block, ``BatchNorm`` in training mode normalises with the
+    batch statistics as usual but leaves its running statistics alone.
+    The activation-checkpointed backbone (``models/deeplab.py``, extra key
+    ``remat``) runs its recompute in it, so the statistics move once a
+    step, from the first forward, as under flax's ``nn.remat``.  Per
+    thread: the recompute runs on the thread of the backward."""
+    depth = getattr(_recompute, "depth", 0)
+    _recompute.depth = depth + 1
+    try:
+        yield
+    finally:
+        _recompute.depth = depth
+
+
+def _frozen() -> bool:
+    return getattr(_recompute, "depth", 0) > 0
 
 
 class BatchNorm(nn.Module):
@@ -128,7 +164,13 @@ class BatchNorm(nn.Module):
 
     Training normalises with the biased batch statistics (autograd flows
     through them) and sets running ← m·running + (1 − m)·batch, with the
-    biased batch variance, as flax ``nn.BatchNorm`` does."""
+    biased batch variance, as flax ``nn.BatchNorm`` does.
+
+    A bfloat16 or float16 input is handled as ``flax.linen.normalization``
+    handles it: the mean and the fast variance E[x²] − E[x]² (clipped at 0)
+    in float32 from the input, the normalisation (x − mean)·(rsqrt(var +
+    eps)·scale) + bias in float32, the result cast to the input's dtype.
+    Parameters and running statistics stay float32."""
 
     def __init__(self, channels: int, momentum: float = 0.99, epsilon: float = 1e-3,
                  scale: bool = True):
@@ -143,11 +185,18 @@ class BatchNorm(nn.Module):
 
     def forward(self, x):
         if not self.training:
+            # mixed types: a low-precision x is normalised in float32 and
+            # the result rounded once, as flax's eval path
             return F.batch_norm(
                 x, self.running_mean, self.running_var, self.weight, self.bias,
                 False, 0.0, self.epsilon,
             )
+        if x.dtype in _LOW_PRECISION:
+            return self._train_low_precision(x)
         m = self.momentum
+        if _frozen():
+            return F.batch_norm(x, self.running_mean.clone(), self.running_var.clone(),
+                                self.weight, self.bias, True, 1.0 - m, self.epsilon)
         # torch moves its running_var argument to m·old + (1 − m)·var·n/(n − 1);
         # hand it a copy (autograd keeps that one) and scale the batch term
         # by (n − 1)/n to leave the biased variance's
@@ -161,6 +210,54 @@ class BatchNorm(nn.Module):
             kept = self.running_var * m
             self.running_var.copy_((moved - kept) * ((n - 1) / n) + kept)
         return y
+
+    def _train_low_precision(self, x):
+        # on the (N·H·W, C) rows of the channels_last memory (a view): the
+        # per-channel vectors broadcast along the contiguous dimension
+        B, C, H, W = x.shape
+        y, mean, var = _LowPrecisionBatchNorm.apply(
+            x.permute(0, 2, 3, 1).reshape(-1, C), self.weight, self.bias, self.epsilon)
+        if not _frozen():
+            m = self.momentum
+            with torch.no_grad():
+                self.running_mean.mul_(m).add_(mean, alpha=1.0 - m)
+                self.running_var.mul_(m).add_(var, alpha=1.0 - m)
+        return y.reshape(B, H, W, C).permute(0, 3, 1, 2)
+
+
+class _LowPrecisionBatchNorm(torch.autograd.Function):
+    """flax's training BatchNorm of bfloat16/float16 rows x (n, C): the mean
+    and the fast variance E[x²] − E[x]² (clipped at 0) in float32, y =
+    (x − mean)·(rsqrt(var + eps)·scale) + bias in float32, cast to x's
+    dtype.  Returns (y, mean, var).  Saves x in its own dtype and the
+    per-channel statistics, not the float32 intermediates autograd would
+    keep; the gradient is that of the same function (d var/dx = 2(x −
+    mean)/n for either variance formula), in float32, cast to x's dtype."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps):
+        xf = x.float()
+        mean = xf.mean(0)
+        var = torch.clamp(xf.square().mean(0) - mean.square(), min=0.0)
+        invstd = torch.rsqrt(var + eps)
+        mul = invstd * weight if weight is not None else invstd
+        y = ((xf - mean) * mul + bias).to(x.dtype)
+        ctx.save_for_backward(x, weight, mean, invstd)
+        ctx.mark_non_differentiable(mean, var)
+        return y, mean, var
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, gy, _gmean, _gvar):
+        x, weight, mean, invstd = ctx.saved_tensors
+        g = gy.float()
+        xhat = (x.float() - mean) * invstd
+        n = x.shape[0]
+        dbias = g.sum(0)
+        dscale = (g * xhat).sum(0)
+        mul = invstd * weight if weight is not None else invstd
+        dx = (g - dbias / n - xhat * (dscale / n)) * mul
+        return (dx.to(x.dtype), dscale if weight is not None else None, dbias, None)
 
 
 class ConvBNReLU(nn.Module):

@@ -36,7 +36,7 @@ class _RefinedClassifier(_Init, nn.Module):
         self.weight = nn.Parameter(torch.empty(features, c_low + c_enc, 3, 3))
 
     def forward(self, low, enc):
-        w = self.weight
+        w = self.weight.to(low.dtype)  # flax promote_dtype: the compute dtype
         if self.fused:
             x = torch.cat([low, enc], dim=1)
             return upsample_conv3(x, w, self.half)
@@ -76,9 +76,21 @@ class Decoder(nn.Module):
             up = up // 8 if up == 16 else up // 4  # → ×2 either way (reference :899-902)
         if return_presample:
             return x, up
-        # the JAX package's per-dtype choice of the final upsample form
+        # the JAX package's per-dtype choice of the final upsample form: the
+        # matmul form in float32/float64, ``tf_resize_images`` in
+        # bfloat16/float16 (whose roundings are the matmul form's there)
         if x.dtype in (torch.float32, torch.float64):
             x = tf_resize_images_matmul(x, up, up)
         else:
             x = tf_resize_images(x, up, up)
-        return torch.softmax(x, dim=1)
+        return softmax(x, dim=1)
+
+
+def softmax(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """``jax.nn.softmax``: in bfloat16/float16, exp(x − max) in the dtype,
+    its sum accumulated in float32 and cast back (``jnp.sum`` upcasts half
+    types), the division in the dtype; ``torch.softmax`` otherwise."""
+    if x.dtype not in (torch.bfloat16, torch.float16):
+        return torch.softmax(x, dim=dim)
+    e = torch.exp(x - x.amax(dim, keepdim=True))
+    return e / e.sum(dim, keepdim=True, dtype=torch.float32).to(x.dtype)

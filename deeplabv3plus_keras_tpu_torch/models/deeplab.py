@@ -7,18 +7,50 @@ pre-upsample logits and the upsample factor).  Inside, tensors are NCHW
 in ``channels_last`` memory, which is physically NHWC: the permutes at
 the two ends are views, not copies.  The backbone runs once and feeds
 both the encoder and the boundary refinement, as in the JAX package.
+
+``hps.dtype`` is the compute dtype (``_DTYPES``, JAX ``models/deeplab.py:
+27-41``): the images are cast to it once, every layer computes in it
+(``models/blocks.py``), and the outputs are at least float32.  The
+parameters and BN statistics keep their own dtype (float32).  The extra
+key ``remat`` recomputes the backbone's activations in the backward pass
+(``torch.utils.checkpoint``, JAX ``nn.remat``): training only, the BN
+running statistics moved once, by the first forward.
 """
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..config import Config
 from .backbones import get_backbone
-from .blocks import init_weights
+from .blocks import init_weights, running_stats_frozen
 from .decoder import Decoder
 from .encoder import EncoderMiddle
+
+_DTYPES = {
+    "float32": torch.float32,
+    "bfloat16": torch.bfloat16,
+    "float16": torch.float16,
+    # the float64 parity tests' dtype; never a production dtype
+    "float64": torch.float64,
+}
+
+
+def compute_dtype(name: str) -> torch.dtype:
+    """The torch dtype of an ``hps.dtype`` name."""
+    if name not in _DTYPES:
+        raise ValueError(f"hps.dtype {name!r}: expected one of {sorted(_DTYPES)}")
+    return _DTYPES[name]
+
+
+def _remat_contexts():
+    """``checkpoint``'s ``context_fn``: nothing around the first forward,
+    frozen BN running statistics around the recompute."""
+    return contextlib.nullcontext(), running_stats_frozen()
 
 
 def _at_least_f32(x: torch.Tensor) -> torch.Tensor:
@@ -32,6 +64,8 @@ class DeepLabV3Plus(nn.Module):
     def __init__(self, conf: Config):
         super().__init__()
         arch, hps = conf.nn_arch, conf.hps
+        self.compute_dtype = compute_dtype(hps.dtype)
+        self.remat = bool(conf.extra.get("remat", False))
         self.base = get_backbone(conf.base_model, arch.output_stride)
         self.encoder = EncoderMiddle(
             self.base.out_channels,
@@ -62,10 +96,14 @@ class DeepLabV3Plus(nn.Module):
                 generator: torch.Generator | None = None):
         """``generator`` draws the dropout mask in training (required there
         when the dropout rate is above 0)."""
-        dtype = next(self.parameters()).dtype
-        x = images.to(dtype).permute(0, 3, 1, 2)  # NHWC → NCHW view
+        x = images.to(self.compute_dtype).permute(0, 3, 1, 2)  # NHWC → NCHW view
         x = x.contiguous(memory_format=torch.channels_last)
-        base_features = self.base(x)
+        if self.remat and self.training and torch.is_grad_enabled():
+            # the backbone draws no random numbers: no RNG state to replay
+            base_features = checkpoint(self.base, x, use_reentrant=False,
+                                       context_fn=_remat_contexts, preserve_rng_state=False)
+        else:
+            base_features = self.base(x)
         encoder_features = self.encoder(base_features, generator)
         if return_presample:
             logits, up = self.decoder(base_features, encoder_features, return_presample=True)

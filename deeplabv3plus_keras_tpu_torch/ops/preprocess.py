@@ -1,5 +1,5 @@
 """Image and label preprocessing (port of
-``deeplabv3plus_keras_tpu/ops/preprocess.py:31-163, 213-289``).
+``deeplabv3plus_keras_tpu/ops/preprocess.py:31-289``).
 
 The host decodes JPEG/PNG into fixed-size uint8 canvases and records each
 sample's true (h, w); :func:`prepare_batch` then does all the arithmetic
@@ -118,6 +118,28 @@ def prepare_batch(image_canvas: torch.Tensor, image_sizes: torch.Tensor,
         lab = clamp_label(torch.round(lab).to(torch.int32), num_classes)
         labels = one_hot(lab, num_classes) if one_hot_labels else lab
     return images, labels
+
+
+def prepare_batch_from_cache(data_img: torch.Tensor, data_lab: torch.Tensor | None,
+                             data_sizes: torch.Tensor, idx: torch.Tensor, valid: torch.Tensor, *,
+                             size: int, num_classes: int = 21, with_labels: bool = True,
+                             one_hot_labels: bool = True):
+    """A batch of the device-resident dataset (``data/pipeline.py``
+    ``DeviceDataset``): the rows ``idx`` (B,) of data_img (N, CH, CW, 3)
+    uint8, data_lab (N, CH, CW) uint8 or None and data_sizes (N, 2) int32,
+    gathered on their device, then :func:`prepare_batch`.
+
+    Rows whose ``valid`` is 0 (the padded tail of an epoch) are zeroed with
+    sizes (1, 1), exactly the streaming path's pre-zeroed canvases, so the
+    tail's BN statistics and the histories equal the streaming path's."""
+    v = valid.to(torch.uint8)
+    img = data_img.index_select(0, idx).mul_(v[:, None, None, None])
+    sizes = torch.where(v[:, None].bool(), data_sizes.index_select(0, idx), 1)
+    lab = None
+    if with_labels and data_lab is not None:
+        lab = data_lab.index_select(0, idx).mul_(v[:, None, None])
+    return prepare_batch(img, sizes, lab, size=size, num_classes=num_classes,
+                         with_labels=with_labels, one_hot_labels=one_hot_labels)
 
 
 # ---------------------------------------------------------------------------

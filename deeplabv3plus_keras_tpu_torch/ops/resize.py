@@ -119,11 +119,26 @@ def resize_symmetric(image: torch.Tensor, size: int):
 
 
 def tf_resize_images(x: torch.Tensor, height_factor: int, width_factor: int) -> torch.Tensor:
-    """``K.resize_images(..., 'bilinear')`` for integer factors."""
-    return F.interpolate(
-        x, scale_factor=(int(height_factor), int(width_factor)),
-        mode="bilinear", align_corners=False, antialias=False,
-    )
+    """``K.resize_images(..., 'bilinear')`` for integer factors.
+
+    In bfloat16 and float16 the JAX package's ``jax.image.resize`` is an
+    einsum of x with the two interpolation matrices, held in the dtype:
+    two contractions, each rounded to the dtype, in the order opt_einsum's
+    greedy path takes (the one whose result is smaller for the matrix it
+    removes; the rows first on a square map).  The port contracts in that
+    order, so it rounds where JAX does."""
+    if x.dtype not in (torch.bfloat16, torch.float16):
+        return F.interpolate(
+            x, scale_factor=(int(height_factor), int(width_factor)),
+            mode="bilinear", align_corners=False, antialias=False,
+        )
+    n, h, w = x.shape[0] * x.shape[1], x.shape[-2], x.shape[-1]
+    H, W = h * int(height_factor), w * int(width_factor)
+    if n * H * w - H * h <= n * h * W - W * w:  # rows first: the matmul form
+        return tf_resize_images_matmul(x, height_factor, width_factor)
+    ah = interpolation_matrix(h, height_factor, x.dtype, x.device)
+    aw = interpolation_matrix(w, width_factor, x.dtype, x.device)
+    return torch.einsum("Hh,bchW->bcHW", ah, torch.einsum("Ww,bchw->bchW", aw, x))
 
 
 def interpolation_matrix(n: int, factor: int, dtype, device) -> torch.Tensor:

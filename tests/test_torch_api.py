@@ -13,7 +13,13 @@ import jax.numpy as jnp
 
 from deeplabv3plus_keras_tpu.kernels.upsample_argmax import upsample_argmax_reference
 from deeplabv3plus_keras_tpu_torch import SemanticSegmentation, api, cli
-from deeplabv3plus_keras_tpu_torch.data import HostLoader, device_batches
+from deeplabv3plus_keras_tpu_torch.data import (
+    MODE_TRAIN,
+    DeviceDataset,
+    HostLoader,
+    device_batches,
+    make_synthetic_voc,
+)
 from deeplabv3plus_keras_tpu_torch.parallel import build_predict_step
 from deeplabv3plus_keras_tpu_torch.utils.jax_weights import load_jax_variables
 
@@ -87,16 +93,31 @@ def test_segment_rejects_bad_images_and_unported_options():
     ({"cache_device": True}, "item 19"),
     ({"hps": {"dtype": "bfloat16"}}, "item 18"),
 ])
-def test_config_keys_that_change_the_result_raise(keys, item):
+def test_config_keys_that_change_the_result_raise(keys, item, tmp_path):
     """The JAX facade builds a num_gpus mesh under ``multi_gpu``
     (api.py:90-108), loads ``backbone_weights`` into the backbone
-    (api.py:131-133), shards space under ``mesh_space`` > 1
-    (api.py:109-113), keeps the dataset in device memory under
-    ``cache_device`` (api.py:221-236) and computes in the ``hps.dtype``;
-    the port does none of these yet, so it must refuse rather than train
-    from random weights on one device."""
-    with pytest.raises(NotImplementedError, match=item):
-        SemanticSegmentation({**conf_dict(32), **keys}, device="cpu")
+    (api.py:131-133) and shards space under ``mesh_space`` > 1
+    (api.py:109-113); the port does none of these yet, so it must refuse
+    rather than train from random weights on one device.  It keeps the
+    dataset in device memory under ``cache_device`` (api.py:221-236,
+    ROADMAP item 19) and computes in the ``hps.dtype`` (item 18) as the JAX
+    facade does, so those keys are accepted and take effect."""
+    conf = {**conf_dict(32), **keys}
+    if item == "item 18":  # computes in bfloat16; parameters stay float32
+        seg = SemanticSegmentation(conf, device="cpu")
+        assert seg.model.compute_dtype == torch.bfloat16
+        assert {p.dtype for p in seg.model.parameters()} == {torch.float32}
+        assert seg.segment(np.zeros((1, 32, 32, 3), np.float32)).shape == (1, 32, 32)
+    elif item == "item 19":  # the train loader is a device-resident dataset
+        root = make_synthetic_voc(str(tmp_path / "voc"), n_train=2, n_val=1, n_test=0,
+                                  min_size=20, max_size=30)
+        seg = SemanticSegmentation({**conf, "resource_type": "pascal_voc_2012",
+                                    "resource_path": root, "workers": 1}, device="cpu")
+        loader = seg._loader(MODE_TRAIN, shuffle=True)
+        assert isinstance(loader, DeviceDataset) and loader.n == 2
+    else:
+        with pytest.raises(NotImplementedError, match=item):
+            SemanticSegmentation(conf, device="cpu")
     # one GPU asked for, no backbone weights and no spatial split are what
     # the port does
     SemanticSegmentation({**conf_dict(32), "multi_gpu": True, "num_gpus": 1,

@@ -180,7 +180,8 @@ def test_sigterm_mid_training_saves_and_returns(tree, tmp_path):
 
 def test_cli_trains_evaluates_and_tests(tree, tmp_path):
     """python -m deeplabv3plus_keras_tpu_torch.cli conf.json --device cpu,
-    for modes train, evaluate and test, with the loop's extra keys."""
+    for modes train, evaluate, test and convert_to_tf_lite, with the loop's
+    extra keys."""
     conf = _conf(tree, metrics_log=str(tmp_path / "metrics.jsonl"), sparse_labels=True,
                  lr_schedule={"type": "poly"}, cache_decoded=True, loader_backend="pil",
                  eval_per_class_iou=True, prepro_device=-1)
@@ -201,9 +202,8 @@ def test_cli_trains_evaluates_and_tests(tree, tmp_path):
     assert "per-class IoU" in out and "aeroplane" in out and "mean iou" in out
     run("test", model_loading=True)
     assert sorted(os.listdir(tmp_path / "test_results")) == [f"te_{i:04d}.png" for i in range(3)]
-    path = tmp_path / "export.json"
-    path.write_text(json.dumps({**conf, "mode": "convert_to_tf_lite"}))
-    from deeplabv3plus_keras_tpu_torch import cli
-
-    with pytest.raises(NotImplementedError, match="item 12b"):
-        cli.main([str(path), "--device", "cpu"])
+    # convert_to_tf_lite writes the torch.export program into the working
+    # directory, which a process that imports the port loads
+    out = run("convert_to_tf_lite")
+    assert "no .tflite written" in out
+    assert (tmp_path / "semantic_segmentation_deeplabv3plus.pt2").is_file()

@@ -66,13 +66,22 @@ def test_depthwise_kernel_matches_plain(card, shape, k, stride, dil):
     torch.testing.assert_close(y, depthwise_conv_plain(x, w, stride, dil), atol=1e-5, rtol=1e-5)
 
 
+# Bounds against float64 by dtype: float32 sums; bfloat16 and float16 add
+# the output's rounding, 2^-8 and 2^-11 relative.
+_REL = {torch.float32: 1e-5, torch.bfloat16: 1e-2, torch.float16: 1e-3}
+
 # (B, H, W, C), k, stride, dilation, dtype, storage offset in elements:
-# bfloat16 with C = 12 (not a multiple of 8: narrow), bfloat16 vectors at
-# both strides, and an x whose data_ptr is not 16-byte aligned.
+# bfloat16 and float16 with C = 12 (not a multiple of 8: narrow), 16-bit
+# vectors at both strides and dilated, and an x whose data_ptr is not
+# 16-byte aligned.
 FWD_EDGE_CASES = [
     ((2, 13, 17, 12), 3, 1, (1, 1), torch.bfloat16, 0),
     ((2, 21, 19, 64), 3, 2, (1, 1), torch.bfloat16, 0),
     ((1, 16, 16, 64), 3, 1, (4, 2), torch.bfloat16, 0),
+    ((2, 13, 17, 12), 3, 1, (1, 1), torch.float16, 0),
+    ((2, 21, 19, 64), 3, 2, (1, 1), torch.float16, 0),
+    ((1, 16, 16, 64), 3, 1, (4, 2), torch.float16, 0),
+    ((1, 18, 20, 48), 5, 2, (1, 1), torch.float16, 1),
     ((2, 19, 23, 40), 3, 1, (1, 1), torch.float32, 1),
     ((1, 18, 20, 40), 5, 2, (1, 1), torch.float32, 1),
 ]
@@ -82,8 +91,8 @@ FWD_EDGE_CASES = [
 @pytest.mark.parametrize("shape,k,stride,dil,dtype,offset", FWD_EDGE_CASES)
 def test_depthwise_kernel_edges_match_plain(card, shape, k, stride, dil, dtype, offset):
     """Against the plain version in float64 on the same (rounded) inputs
-    and taps: 1e-5 of its max for float32, 1e-2 for bfloat16 (the output's
-    rounding).  ``offset`` shifts x's storage by that many elements, so the
+    and taps: 1e-5 of its max for float32, 1e-2 for bfloat16 and 1e-3 for
+    float16 (the output's rounding).  ``offset`` shifts x's storage by that many elements, so the
     plan must take the narrow instantiation."""
     B, H, W, C = shape
     base = torch.randn(B * H * W * C + offset, device="cuda", generator=card).to(dtype)
@@ -97,7 +106,7 @@ def test_depthwise_kernel_edges_match_plain(card, shape, k, stride, dil, dtype, 
     assert kernels.launch_counts()[name] == before + 1
     assert y.dtype == dtype and y.is_contiguous(memory_format=torch.channels_last)
     ref = depthwise_conv_plain(x.double(), w.to(dtype).double(), stride, dil)
-    rel = 1e-5 if dtype == torch.float32 else 1e-2
+    rel = _REL[dtype]
     assert (y.double() - ref).abs().max() <= rel * ref.abs().max()
 
 
@@ -114,11 +123,12 @@ def _dw_inputs(card, shape, k, stride, dtype):
 
 # Against the plain backward in float64 on the same (rounded) inputs and
 # taps.  dx: float32 sums of <= k*k products, 1e-5 of its max; bfloat16
-# adds the output's rounding, 2^-8 relative, so 1e-2.  dk: a float32 sum
+# adds the output's rounding, 2^-8 relative, so 1e-2 (float16: 2^-11, 1e-3).  dk: a float32 sum
 # of up to B*H*W products in either dtype, 1e-4 of sum |x*g| per tap and
 # channel.
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,rel", [(torch.float32, 1e-5), (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("dtype,rel", [(torch.float32, 1e-5), (torch.bfloat16, 1e-2),
+                                       (torch.float16, 1e-3)])
 @pytest.mark.parametrize("shape,k,stride,dil", DEPTHWISE_CASES)
 def test_depthwise_backward_kernel_matches_plain(card, shape, k, stride, dil, dtype, rel):
     x, w, g = _dw_inputs(card, shape, k, stride, dtype)
@@ -156,6 +166,12 @@ BWD_EDGE_CASES = [
     ((1, 13, 15, 24), 7, 2, (1, 1), torch.bfloat16, 0),
     ((1, 12, 20, 40), 7, 1, (1, 1), torch.float32, 0),
     ((5, 8, 8, 32), 3, 1, (1, 1), torch.float32, 0),
+    ((2, 13, 17, 12), 3, 1, (1, 1), torch.float16, 0),
+    ((2, 21, 19, 64), 3, 2, (1, 1), torch.float16, 0),
+    ((2, 24, 24, 64), 3, 1, (1, 1), torch.float16, 0),
+    ((1, 16, 16, 64), 3, 1, (4, 2), torch.float16, 0),
+    ((1, 13, 15, 24), 7, 2, (1, 1), torch.float16, 0),
+    ((2, 19, 23, 48), 5, 1, (1, 1), torch.float16, 1),
 ]
 
 
@@ -188,7 +204,7 @@ def test_depthwise_backward_kernel_edges_match_plain(card, shape, k, stride, dil
     assert kernels.launch_counts()[name] == before + 1
     wr = w.to(dtype).double()
     rdx, rdw = depthwise_conv_backward_plain(x.double(), wr, g.double(), stride, dil)
-    rel = 1e-5 if dtype == torch.float32 else 1e-2
+    rel = _REL[dtype]
     assert dx.dtype == dtype and dx.is_contiguous(memory_format=torch.channels_last)
     assert (dx.double() - rdx).abs().max() <= rel * rdx.abs().max()
     _, dw_abs = depthwise_conv_backward_plain(x.double().abs(), wr, g.double().abs(), stride, dil)
@@ -238,7 +254,8 @@ CF_CASES = [(2, 64, 37, 45), (2, 32, 64, 64)]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,rel", [(torch.float32, 1e-5), (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("dtype,rel", [(torch.float32, 1e-5), (torch.bfloat16, 1e-2),
+                                       (torch.float16, 1e-3)])
 @pytest.mark.parametrize("shape", CF_CASES)
 def test_cf_kernels_match_plain(card, shape, dtype, rel):
     """K6 and K7 against the plain forward and backward in float64 on the
@@ -321,6 +338,9 @@ CF_BWD_CASES = [
     ((2, 48, 37, 45), torch.bfloat16, 1, "flat"),
     ((2, 64, 31, 31), torch.float32, 3, "flat"),
     ((2, 600, 8, 8), torch.float32, 0, "vec"),
+    ((4, 256, 64, 64), torch.float16, 0, "vec"),
+    ((4, 128, 127, 127), torch.float16, 0, "flat"),
+    ((2, 48, 37, 45), torch.float16, 1, "flat"),
 ]
 
 
@@ -345,7 +365,7 @@ def test_cf_backward_plan_variants_match_plain(card, shape, dtype, offset, mode)
     assert kernels.launch_counts()["depthwise_bwd_cf"] == before + 1
     wr = w.to(dtype).double()
     rdx, rdw = depthwise_conv_backward_plain(x.double(), wr, g.double())
-    rel = 1e-5 if dtype == torch.float32 else 1e-2
+    rel = _REL[dtype]
     assert dx.dtype == dtype and dx.is_contiguous()
     assert (dx.double() - rdx).abs().max() <= rel * rdx.abs().max()
     _, dw_abs = depthwise_conv_backward_plain(x.double().abs(), wr, g.double().abs())

@@ -121,3 +121,35 @@ def calibrate_bn(module, *args, **kwargs):
     module.eval()
     for m, mom in zip(bns, saved):
         m.momentum = mom
+
+
+def jax_model_and_traced_variables(conf: dict, seed: int = 0):
+    """As :func:`jax_model_and_variables`, with the tree's shapes from
+    ``jax.eval_shape`` of the init instead of running it op by op (seconds
+    instead of tens of seconds at 64²).  The leaves are drawn in the sorted
+    key order of a traced tree, so the weights differ from that function's
+    for the same seed."""
+    import jax
+    import jax.numpy as jnp
+
+    from deeplabv3plus_keras_tpu.config import Config
+    from deeplabv3plus_keras_tpu.models.deeplab import create_model
+
+    config = Config.from_dict(conf)
+    model = create_model(config)
+    size = config.nn_arch.image_size
+    variables = jax.eval_shape(model.init, jax.random.PRNGKey(0),
+                               jnp.zeros((1, size, size, 3), jnp.float32))
+    rng = np.random.default_rng(seed)
+    return model, {c: _redraw(variables[c], rng) for c in ("params", "batch_stats")}
+
+
+def strict_jit(fn, *args):
+    """``fn`` compiled by XLA without its excess-precision liberty
+    (``xla_allow_excess_precision`` off), so that a bfloat16/float16
+    computation rounds after every operation, as its jaxpr says; by default
+    XLA keeps float32 intermediates inside a fusion."""
+    import jax
+
+    return jax.jit(fn).lower(*args).compile(
+        compiler_options={"xla_allow_excess_precision": False})
