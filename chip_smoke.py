@@ -36,7 +36,9 @@ For each model it
    0.5), checks the loss, every parameter's gradient and the launch counts
    per step, and reports the step time, images/s and peak device memory;
    then one step at 2 × 128² on the card and on the CPU from the same
-   weights, whose losses and gradients must agree.
+   weights, whose losses must agree with float64's, and whose gradients
+   and module outputs with a float64 step taken at the card's own ReLU
+   masks and max-pool choices (:func:`check_training_against_cpu`).
 
 After the flagship's phases, under ``nhwc``, the ``data_path`` phase drives
 the JSON-config entry points on a VOC-layout tree it writes (64 train, 32
@@ -67,16 +69,32 @@ BN statistics of its float32 phases:
   ``.pt2``, and ``torch.export.load`` of it at B=1 and B=16 against the
   model.
 
+Then the backbones' pools and their gradients in ``channels_last`` on
+the card against float64 (:func:`check_pools`), and the other backbones,
+under ``nhwc``, each with the flagship's head (the five-branch ASPP,
+boundary refinement, 21 classes):
+
+- EfficientNet-B0, NASNet-Mobile and DenseNet-121 at 512², B=16, float32,
+  through the same four phases as the flagship (K2–K5 at every distinct
+  k = 3/5/7 site, also in bfloat16 for the first two; ``segment()``; 6
+  ``train_step()``s with EfficientNet's stochastic depth on; the 2 × 128²
+  step against the CPU with the drop rates 0);
+  every depthwise input must already be ``channels_last``;
+- a sweep of the nine other variants (EfficientNet B1–B7, NASNet-Large,
+  DenseNet-169/201) at 128², B=2: K2–K5 at each one's distinct sites,
+  ``segment()`` against the CPU and one ``train_step()``.
+
 Then it prints the forward and backward depthwise summaries against cuDNN
 and the byte bound (K7's beside the one-tile-a-block design it replaced),
-one JSON line of kernel results (K1-K7; K2-K5 also in bfloat16 and
+K2–K5 by kernel size at the new backbones' sites (``depthwise_by_k``),
+one JSON line of kernel results (K1-K7; K2-K7 also in bfloat16, K2-K5 in
 float16; launches by path, the new phases' paths included), the card's
 name and power limit, and as its last line ``{"ok": true, "device": {...}}``.
 
 Any failed check exits non-zero.  Long outputs (the per-site table
 ``kernel_sites.json``, the profiles ``[xception_]segment_profile.txt`` and
-``[xception_]train_profile.txt``, the gradient tables) go to
-``chiprun_out/``.  It imports nothing of JAX.
+``[xception_]train_profile.txt`` and the other models' ``<model>_*``, the
+gradient tables) go to ``chiprun_out/``.  It imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -159,6 +177,42 @@ def xception_conf(image_size: int = SIZE, batch: int = BATCH) -> dict:
     return conf
 
 
+def backbone_conf(base_model: str):
+    """The flagship's JSON config (ASPP, boundary refinement, 21 classes)
+    with ``base_model`` swapped: a conf factory ``(image_size, batch)``."""
+
+    def conf(image_size: int = SIZE, batch: int = BATCH) -> dict:
+        c = flagship_conf(image_size, batch)
+        c["base_model"] = base_model
+        return c
+
+    return conf
+
+
+# The three backbones driven at full size (512², B=16), with their depthwise
+# launches a forward (backbone and ASPP), and the nine variants swept at
+# 128², B=2.
+NEW_MODELS = {
+    "efficientnetb0": {"depthwise_fwd_s1": 13, "depthwise_fwd_s2": 3},
+    "nasnetmobile": {"depthwise_fwd_s1": 93, "depthwise_fwd_s2": 12},
+    "densenet121": {"depthwise_fwd_s1": 5},
+}
+SWEEP = tuple(f"efficientnetb{i}" for i in range(1, 8)) + ("nasnetlarge", "densenet169",
+                                                           "densenet201")
+SWEEP_BATCH, SWEEP_SIZE = 2, 128
+
+
+def no_stochastic_depth(model) -> None:
+    """Set EfficientNet's stochastic-depth rates to 0 (the JAX module's
+    ``drop_connect_rate`` 0), for steps compared across devices whose
+    generators differ."""
+    from deeplabv3plus_keras_tpu_torch.models.blocks import Dropout
+
+    for m in model.modules():
+        if isinstance(m, Dropout) and m.per_sample:
+            m.rate = 0.0
+
+
 @contextlib.contextmanager
 def dw_layout(value: str):
     """Set ``DLV3_DW_LAYOUT`` for the block and restore it after."""
@@ -236,24 +290,31 @@ def calibrate_bn(model, images) -> None:
 
 def depthwise_sites(model, images):
     """(shape, stride, dilation, module) of every depthwise call in one
-    forward of ``model`` on ``images``, in call order."""
+    forward of ``model`` on ``images``, in call order.  Every input must
+    already be ``channels_last`` (``DepthwiseConv.forward``'s
+    ``.contiguous`` a no-op, no copy a site)."""
     import torch
 
     from deeplabv3plus_keras_tpu_torch.models.blocks import DepthwiseConv
 
-    sites = []
-    hooks = [
-        m.register_forward_pre_hook(
-            lambda mod, args: sites.append((tuple(args[0].shape), mod.strides, mod.dilation, mod))
-        )
-        for m in model.modules() if isinstance(m, DepthwiseConv)
-    ]
+    sites, copied = [], []
+
+    def hook(mod, args):
+        sites.append((tuple(args[0].shape), mod.strides, mod.dilation, mod))
+        if not args[0].is_contiguous(memory_format=torch.channels_last):
+            copied.append(sites[-1][:3])
+
+    hooks = [m.register_forward_pre_hook(hook) for m in model.modules()
+             if isinstance(m, DepthwiseConv)]
     try:
         with torch.inference_mode():
             model(images, return_presample=True)
     finally:
         for h in hooks:
             h.remove()
+    if copied:
+        raise SystemExit(f"depthwise inputs not channels_last (a copy each): {copied[:4]} "
+                         f"({len(copied)} of {len(sites)})")
     return sites
 
 
@@ -522,21 +583,50 @@ def check_cf(sites, g, rows):
             if not row["ok"] or not row.get("nhwc_kernel_ok", True):
                 raise SystemExit(f"channels-first kernel (or K4 beside it) disagrees with plain at {row}")
             _add_site(agg, row, mult)
-    # bfloat16 (not on the float32 paths): one site, against float64
-    x = torch.randn(16, 128, 127, 127, device="cuda", generator=g).bfloat16()
-    gout = torch.randn(x.shape, device="cuda", generator=g).bfloat16()
-    w = torch.randn(128, 1, 3, 3, device="cuda", generator=g)
-    wr = w.bfloat16().double()
-    y = depthwise_cf(x, w)
-    dx, dk = depthwise_cf_backward(x, w, gout)
-    ref = depthwise_conv_plain(x.double(), wr)
-    rdx, rdk = depthwise_conv_backward_plain(x.double(), wr, gout.double())
-    _, dk_abs = depthwise_conv_backward_plain(x.double().abs(), wr, gout.double().abs())
-    if not ((y.double() - ref).abs().max() <= 1e-2 * ref.abs().max()
-            and (dx.double() - rdx).abs().max() <= 1e-2 * rdx.abs().max()
-            and ((dk.double() - rdk).abs() <= 1e-4 * dk_abs).all()):
-        raise SystemExit("bfloat16 channels-first depthwise disagrees with plain")
-    print(json.dumps({"bf16_depthwise_cf_check": "ok"}))
+    # bfloat16 (not on the float32 paths) at the same sites, against the
+    # plain version in float64 on the same values; times beside cuDNN's in
+    # bfloat16 and the 16-bit byte bound
+    low = {}
+    for shape, (mod, mult) in distinct.items():
+        B, C, H, W = shape
+        x = torch.randn(shape, device="cuda", generator=g).bfloat16()
+        gout = torch.randn(shape, device="cuda", generator=g).bfloat16()
+        w = mod.weight.detach().bfloat16().float()
+        wr, wt = w.double(), w.bfloat16()
+        y = depthwise_cf(x, w)
+        dx, dk = depthwise_cf_backward(x, w, gout)
+        ref = depthwise_conv_plain(x.double(), wr)
+        rdx, rdk = depthwise_conv_backward_plain(x.double(), wr, gout.double())
+        _, dk_abs = depthwise_conv_backward_plain(x.double().abs(), wr, gout.double().abs())
+        y_err = (y.double() - ref).abs().max().item()
+        dx_err = (dx.double() - rdx).abs().max().item()
+        ok = (y_err <= 1e-2 * ref.abs().max().item() and dx_err <= 1e-2 * rdx.abs().max().item()
+              and bool(((dk.double() - rdk).abs() <= 1e-4 * dk_abs).all()))
+        del y, dx, dk, ref, rdx, rdk, dk_abs
+        common = {"shape_nchw": list(shape), "k": 3, "stride": 1, "dilation": [1, 1],
+                  "model": "xception_bfloat16", "dtype": "bfloat16", "ok": ok}
+        lib_b = lambda: torch.ops.aten.convolution_backward(  # noqa: E731
+            gout, x, wt, None, [1, 1], [1, 1], [1, 1], False, [0, 0], C, [True, True, False])
+        fwd = dict(common, kernel="depthwise_fwd_cf", per_forward=mult, max_abs_err=y_err,
+                   ms=cuda_ms(lambda: depthwise_cf(x, w)),
+                   plain_ms=cuda_ms(lambda: depthwise_conv_plain(x, w)),
+                   library_ms=cuda_ms(lambda: F.conv2d(x, wt, padding=1, groups=C)))
+        fwd.update(zip(("bound_ms", "bound_by"), bound(x.numel() * 2 * 2 + w.numel() * 4,
+                                                       2 * 9 * x.numel())))
+        bwd = dict(common, kernel="depthwise_bwd_cf", per_step=mult, max_abs_err=dx_err,
+                   ms=cuda_ms(lambda: depthwise_cf_backward(x, w, gout)),
+                   plain_ms=cuda_ms(lambda: depthwise_conv_backward_plain(x, wt, gout)),
+                   library_ms=cuda_ms(lib_b))
+        bwd.update(zip(("bound_ms", "bound_by"), bound(x.numel() * 3 * 2 + 2 * w.numel() * 4,
+                                                       4 * 9 * x.numel())))
+        for row in (fwd, bwd):
+            rows.append(row)
+            print(json.dumps({"site": row}))
+            if not ok:
+                raise SystemExit(f"bfloat16 channels-first depthwise disagrees with plain at {row}")
+            _add_site(low, row, mult)
+    for name, sums in low.items():
+        agg[name]["bfloat16"] = sums
     return agg
 
 
@@ -630,6 +720,8 @@ def run_serving(seg, kernels, card: str, batches, expect: dict, name: str) -> di
     import torch
 
     kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     times, first_labels = [], None
     for i, images in enumerate(batches):
         before = kernels.launch_counts()
@@ -648,6 +740,7 @@ def run_serving(seg, kernels, card: str, batches, expect: dict, name: str) -> di
         if i == 0:
             first_labels = labels
     launches = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
     img_s = BATCH / statistics.median(times[1:])
 
     # TF32 on (torch's default for cuDNN convs): throughput only
@@ -680,16 +773,19 @@ def run_serving(seg, kernels, card: str, batches, expect: dict, name: str) -> di
         "img_per_s_tf32_off": img_s, "img_per_s_tf32_on": BATCH / statistics.median(tf32_times),
         "call_s_tf32_off": times, "call_s_tf32_on": tf32_times,
         "cpu_agreement": agree, "classes_in_image0": classes_seen, "launches": launches,
-        "card": card}}))
+        "max_memory_allocated_gib": peak / 2**30, "card": card}}))
     if agree < 0.999:
         raise SystemExit(f"{name}: card vs CPU labels agree on {agree:.5f} < 0.999 of pixels")
     return launches
 
 
-def run_training(seg, kernels, card: str, expect: dict, name: str) -> tuple[dict, float]:
+def run_training(seg, kernels, card: str, expect: dict, name: str,
+                 unreached=frozenset()) -> tuple[dict, float]:
     """The training path: ``TRAIN_STEPS`` steps of ``seg.train_step``
-    with TF32 off; checks the loss, the gradients and the launches of every
-    step.  Returns the launch counts of those steps and the images/s."""
+    with TF32 off; checks the loss, the gradients (finite and nonzero, or
+    exactly zero for the ``unreached`` parameters, as ``jax.grad`` gives
+    them) and the launches of every step.  Returns the launch counts of
+    those steps and the images/s."""
     import torch
 
     batches = train_batches(TRAIN_STEPS, BATCH, SIZE, "cuda", seed=1)
@@ -714,7 +810,8 @@ def run_training(seg, kernels, card: str, expect: dict, name: str) -> tuple[dict
     launches = kernels.launch_counts()
     peak = torch.cuda.max_memory_allocated()
     bad = [n for n, p in seg.model.named_parameters()
-           if p.grad is None or not bool(torch.isfinite(p.grad).all()) or not bool(p.grad.any())]
+           if p.grad is None or not bool(torch.isfinite(p.grad).all())
+           or bool(p.grad.any()) == (n in unreached)]
     if bad:
         raise SystemExit(f"{name}: parameters without a finite nonzero gradient: {bad[:8]} ({len(bad)})")
     step_s = statistics.median(times[1:])
@@ -744,62 +841,124 @@ def run_training(seg, kernels, card: str, expect: dict, name: str) -> tuple[dict
     return launches, BATCH / step_s
 
 
-def check_training_against_cpu(conf: dict, name: str) -> None:
-    """One train step of ``conf`` (at 2 × 128²) on the card (float32, TF32
-    off) and on the CPU in float32 and float64, from the same weights and
-    batch (dropout 0: the two devices' generators differ).  The float64 step is
-    the reference; the card's loss agrees with it to 1e-4 relative.
+def _record_outputs(model, outs: list) -> list:
+    """Forward hooks appending, in call order, (name, output on the CPU) of
+    every module that holds parameters of its own (convs, depthwise convs,
+    BN, the classifier); returns the hooks."""
+    return [m.register_forward_hook(lambda m, a, o, n=n: outs.append((n, o.detach().cpu())))
+            for n, m in model.named_modules() if list(m.parameters(recurse=False))]
 
-    Gradients: float32 gradients of this net in training mode are sums of
-    nearly cancelling terms (BN removes each channel's mean), so no
-    float32 run meets a tight per-parameter bound: against float64, the
-    CPU's own float32 gradients miss max(3e-3·scale, 5e-7), the JAX
-    package's bound for its Pallas-vs-lax gradients
-    (tests/test_kernels.py:543), on about half of the flagship's 159
-    parameters (this function prints the count).  So the card is held to
-    - all gradients together: a relative 2-norm error against float64 of
-      at most the larger of 3e-3 and 3× the CPU float32's;
-    - each parameter: that bound on its largest error, or a relative
-      2-norm error of at most 0.25 (a kernel that computes the wrong
-      thing gives errors of order 1; float32 noise stays below that);
-    and the counts within the tight bound are printed for the card and
-    the CPU float32."""
-    import numpy as np
+
+def _float64_step(conf, state: dict, batch: dict, outs: list | None = None):
+    """The float64 train step on the CPU of ``conf`` from ``state``.  With
+    ``outs`` (a float32 step's, :func:`_record_outputs`), every
+    parametrised module's output *value* is taken from it and its gradient
+    path kept in float64 (``o + (v − o).detach()``): the exact gradient at
+    the float32 step's own ReLU masks and max-pool choices.  Returns (the
+    model, its gradients in ``.grad``; the loss; the largest relative
+    difference between a recorded output and the float64 module's output on
+    the same inputs)."""
     import torch
 
-    from deeplabv3plus_keras_tpu_torch import SemanticSegmentation
     from deeplabv3plus_keras_tpu_torch.config import Config
     from deeplabv3plus_keras_tpu_torch.models import DeepLabV3Plus
     from deeplabv3plus_keras_tpu_torch.parallel.step import build_train_step, create_train_state
 
+    ref_conf = Config.from_dict({**conf, "hps": {**conf["hps"], "dtype": "float64"}})
+    ref = DeepLabV3Plus(ref_conf)
+    ref.load_state_dict(state)
+    ref = ref.double().to(memory_format=torch.channels_last)
+    no_stochastic_depth(ref)
+    worst = [0.0]
+    if outs is not None:
+        recorded = iter(outs)
+
+        def take(m, a, o, n):
+            n_rec, v = next(recorded)
+            if n_rec != n:
+                raise SystemExit(f"aligned float64 step: module {n} where the float32 step ran {n_rec}")
+            v = v.to(o.dtype)
+            worst[0] = max(worst[0], ((v - o).norm() / o.norm().clamp_min(1e-300)).item())
+            return o + (v - o).detach()
+
+        for n, m in ref.named_modules():
+            if list(m.parameters(recurse=False)):
+                m.register_forward_hook(lambda m, a, o, n=n: take(m, a, o, n))
+    loss = build_train_step(ref, create_train_state(ref_conf, ref), ref_conf)(
+        {"image": torch.from_numpy(batch["image"]).double(),
+         "label": torch.from_numpy(batch["label"]), "valid": torch.ones(2)})["loss"].item()
+    return ref, loss, worst[0]
+
+
+ALIGNED_FWD_REL = 1e-5
+
+
+def check_training_against_cpu(conf: dict, name: str) -> None:
+    """One train step of ``conf`` (at 2 × 128²) on the card (float32, TF32
+    off, the default cuDNN path) and on the CPU in float32 and float64,
+    from the same weights and batch (dropout and stochastic depth 0: the
+    two devices' generators differ).  The float64 step is the reference for
+    the loss: the card's agrees with it to 1e-4 relative.
+
+    Gradients: the train-mode gradient of these nets is discontinuous at
+    every ReLU mask and max-pool choice, and float32 rounding moves some
+    inputs of those across, so float32 steps on the same weights and batch
+    (the CPU's, the card's) lie at unrelated distances from plain float64
+    (this function prints both; PERF.md §6).  So the gradients are
+    held against float64 at the float32 step's own masks and choices
+    (:func:`_float64_step`, one for the card and one for the CPU
+    float32 step), where float32 rounding alone is left and a wrong kernel
+    or op still gives errors of order 1:
+    - every parametrised module's forward on the card within
+      ``ALIGNED_FWD_REL`` of float64's on the same inputs;
+    - all gradients together: a relative 2-norm error of at most the
+      larger of 3e-3 and 3× the CPU float32's;
+    - each parameter: max(3e-3·scale, 5e-7) on its largest error, the JAX
+      package's bound for its Pallas-vs-lax gradients
+      (tests/test_kernels.py:543), or a relative 2-norm error of at most
+      0.25;
+    and the distances to the plain float64 gradients are printed beside."""
+    import numpy as np
+
+    from deeplabv3plus_keras_tpu_torch import SemanticSegmentation
+
     conf["nn_arch"]["dropout_rate"] = 0.0
     gpu = SemanticSegmentation(conf, device="cuda")
     cpu = SemanticSegmentation(conf, device="cpu")
-    cpu.model.load_state_dict(gpu.model.state_dict())
-    ref_conf = Config.from_dict({**conf, "hps": {**conf["hps"], "dtype": "float64"}})
-    ref = DeepLabV3Plus(ref_conf)
-    ref.load_state_dict(gpu.model.state_dict())
-    ref = ref.double().to(memory_format=torch.channels_last)
-    ref_step = build_train_step(ref, create_train_state(ref_conf, ref), ref_conf)
+    state = {k: v.detach().cpu().clone() for k, v in gpu.model.state_dict().items()}
+    cpu.model.load_state_dict(state)
+    for model in (gpu.model, cpu.model):
+        no_stochastic_depth(model)
     rng = np.random.default_rng(5)
     batch = {"image": rng.uniform(-1, 1, (2, 128, 128, 3)).astype(np.float32),
              "label": rng.integers(0, CLASSES, (2, 128, 128))}
+    outs_card, outs_cpu = [], []
+    hooks = _record_outputs(gpu.model, outs_card) + _record_outputs(cpu.model, outs_cpu)
     lg = gpu.train_step(batch)["loss"].item()
     lc = cpu.train_step(batch)["loss"].item()
-    l64 = ref_step({"image": torch.from_numpy(batch["image"]).double(),
-                    "label": torch.from_numpy(batch["label"]),
-                    "valid": torch.ones(2)})["loss"].item()
+    for h in hooks:
+        h.remove()
+    ref, l64, _ = _float64_step(conf, state, batch)
+    al_card, _, fwd_card = _float64_step(conf, state, batch, outs_card)
+    del outs_card
+    al_cpu, _, fwd_cpu = _float64_step(conf, state, batch, outs_cpu)
+    del outs_cpu
     rows, failed = [], []
-    sq = {"card": 0.0, "cpu": 0.0, "ref": 0.0}
-    for (pname, pg), pc, pr in zip(gpu.model.named_parameters(), cpu.model.parameters(),
-                                   ref.parameters()):
-        d_card, d_cpu = pg.grad.cpu().double() - pr.grad, pc.grad.double() - pr.grad
+    sq = dict.fromkeys(("card", "cpu", "ref", "card_plain", "cpu_plain", "ref_plain"), 0.0)
+    for (pname, pg), pc, pa, pac, pr in zip(gpu.model.named_parameters(), cpu.model.parameters(),
+                                            al_card.parameters(), al_cpu.parameters(),
+                                            ref.parameters()):
+        g_card, g_cpu = pg.grad.cpu().double(), pc.grad.double()
+        d_card, d_cpu = g_card - pa.grad, g_cpu - pac.grad
         e_card, e_cpu = d_card.abs().max().item(), d_cpu.abs().max().item()
-        scale = pr.grad.abs().max().item()
+        scale = pa.grad.abs().max().item()
         sq["card"] += d_card.square().sum().item()
         sq["cpu"] += d_cpu.square().sum().item()
-        sq["ref"] += pr.grad.square().sum().item()
-        rel2 = d_card.norm().item() / max(pr.grad.norm().item(), 1e-30)
+        sq["ref"] += pa.grad.square().sum().item()
+        sq["card_plain"] += (g_card - pr.grad).square().sum().item()
+        sq["cpu_plain"] += (g_cpu - pr.grad).square().sum().item()
+        sq["ref_plain"] += pr.grad.square().sum().item()
+        rel2 = d_card.norm().item() / max(pa.grad.norm().item(), 1e-30)
         tight = e_card <= max(3e-3 * scale, 5e-7)
         rows.append({"param": pname, "card_err": e_card, "cpu_f32_err": e_cpu,
                      "scale": scale, "card_rel_2norm": rel2, "within_3e-3_scale": tight})
@@ -809,6 +968,7 @@ def check_training_against_cpu(conf: dict, name: str) -> None:
     (OUT / f"{prefix}train_grads.json").write_text(json.dumps(rows, indent=1))
     rel = abs(lg - l64) / abs(l64)
     norm_card, norm_cpu = (math.sqrt(sq[k] / sq["ref"]) for k in ("card", "cpu"))
+    plain_card, plain_cpu = (math.sqrt(sq[k] / sq["ref_plain"]) for k in ("card_plain", "cpu_plain"))
     print(json.dumps({"train_step_cpu_agreement": {
         "model": name, "batch": 2, "image": 128, "loss_card": lg, "loss_cpu_f32": lc, "loss_cpu_f64": l64,
         "loss_rel": rel, "params": len(rows),
@@ -817,7 +977,11 @@ def check_training_against_cpu(conf: dict, name: str) -> None:
                                          for r in rows),
         "worst_rel_2norm_outside_3e-3_scale": max(
             [r["card_rel_2norm"] for r in rows if not r["within_3e-3_scale"]], default=0.0),
-        "grad_rel_2norm_card": norm_card, "grad_rel_2norm_cpu_f32": norm_cpu}}))
+        "grad_rel_2norm_card": norm_card, "grad_rel_2norm_cpu_f32": norm_cpu,
+        "module_fwd_rel_card": fwd_card, "module_fwd_rel_cpu_f32": fwd_cpu,
+        "plain_f64_grad_rel_2norm_card": plain_card, "plain_f64_grad_rel_2norm_cpu_f32": plain_cpu}}))
+    if not fwd_card <= ALIGNED_FWD_REL:
+        raise SystemExit(f"{name}: a module's forward on the card is {fwd_card} from float64's")
     if failed:
         raise SystemExit(f"{name}: card gradients off the float64 ones: {failed[:4]} ({len(failed)})")
     if not norm_card <= max(3e-3, 3 * norm_cpu):
@@ -871,7 +1035,7 @@ def backward_summary(rows) -> dict:
     out = {}
     for name in ("depthwise_bwd_s1", "depthwise_bwd_s2"):
         out.update(kernel_summary(rows, name, "per_step"))
-    cf = [r for r in rows if r["kernel"] == "depthwise_bwd_cf"]
+    cf = [r for r in rows if r["kernel"] == "depthwise_bwd_cf" and "dtype" not in r]
     if cf:
         out["depthwise_bwd_s1/xception_undilated_nhwc"] = {
             f: sum(r["per_step"] * r[k] for r in cf)
@@ -895,7 +1059,7 @@ def cf_backward_summary(rows) -> dict:
     """K7 summed over one Xception train step against the byte bound,
     cuDNN's ``convolution_backward`` and the one-tile-a-block design, with
     each site's plan mode and ratios."""
-    cf = [r for r in rows if r["kernel"] == "depthwise_bwd_cf"]
+    cf = [r for r in rows if r["kernel"] == "depthwise_bwd_cf" and "dtype" not in r]
     ms, lib, bnd = (sum(r["per_step"] * r[f] for r in cf) for f in ("ms", "library_ms", "bound_ms"))
     sites = []
     for r in cf:
@@ -909,20 +1073,43 @@ def cf_backward_summary(rows) -> dict:
             "one_tile_ms": K7_ONE_TILE_STEP_MS, "x_one_tile": ms / K7_ONE_TILE_STEP_MS, "sites": sites}
 
 
-def depthwise_expect(sites, train: bool) -> dict:
+def stats_only_cell(model):
+    """NASNet's last normal cell runs in training for its BN statistics
+    only: the cut reads that cell's input, so the loss reaches none of its
+    parameters (``jax.grad`` gives them zeros) and its depthwise sites get
+    no backward launch.  Returns (that cell's parameter-name prefix, the
+    cell) for a NASNet backbone, else ("", None)."""
+    from deeplabv3plus_keras_tpu_torch.models.backbones.nasnet import NASNetBackbone
+
+    if not isinstance(model.base, NASNetBackbone):
+        return "", None
+    name = model.base.cells[-1][0]
+    return f"base.{name}.", getattr(model.base, name)
+
+
+def depthwise_expect(sites, train: bool = False, stats_only=None) -> dict:
     """Launches per ``segment()`` call (K1 once) or per train step (no K1,
     a backward launch beside each forward one) of a model whose forward
-    gives the depthwise kernels ``sites``, under the current layout."""
+    gives the depthwise kernels ``sites``, under the current layout; in a
+    train step also a forward launch, and no backward one, at each
+    depthwise module of ``stats_only`` (:func:`stats_only_cell`)."""
     from deeplabv3plus_keras_tpu_torch.kernels import depthwise_route, launch_counts
+    from deeplabv3plus_keras_tpu_torch.models.blocks import DepthwiseConv
+
+    def kind(mod, stride, dil):
+        return "cf" if depthwise_route(mod.weight, stride, dil) == "cf" else f"s{stride}"
 
     expect = dict.fromkeys(launch_counts(), 0)
     expect["upsample_argmax"] = 0 if train else 1
     for _, stride, dil, mod in sites:
-        route = depthwise_route(mod.weight, stride, dil)
-        kind = "cf" if route == "cf" else f"s{stride}"
-        expect[f"depthwise_fwd_{kind}"] += 1
+        k = kind(mod, stride, dil)
+        expect[f"depthwise_fwd_{k}"] += 1
         if train:
-            expect[f"depthwise_bwd_{kind}"] += 1
+            expect[f"depthwise_bwd_{k}"] += 1
+    if train and stats_only is not None:
+        for mod in stats_only.modules():
+            if isinstance(mod, DepthwiseConv):
+                expect[f"depthwise_fwd_{kind(mod, mod.strides, mod.dilation)}"] += 1
     return expect
 
 
@@ -935,18 +1122,22 @@ def serving_batches() -> list:
     ]
 
 
-def drive_model(name: str, conf: dict, kernels, card: str, g, rows, n_sites: dict) -> dict:
+def drive_model(name: str, conf_fn, kernels, card: str, g, rows, n_sites: dict,
+                site_dtypes=()) -> dict:
     """Every phase of one model under the current ``DLV3_DW_LAYOUT``: the
     kernels at its sites, ``segment()``, ``train_step()`` and the 2 × 128²
-    step against the CPU.  ``n_sites`` is the expected count of forward
-    launches per kernel.  Returns (per-kernel site sums, launches by path,
-    train_step() images/s with TF32 off)."""
+    step against the CPU.  ``conf_fn(image_size, batch)`` gives the model's
+    conf; ``n_sites`` is the expected count of forward launches per kernel;
+    ``site_dtypes`` are further dtypes (bfloat16, float16) in which K2–K5
+    are held against their plain versions at the model's sites.  Returns
+    (per-kernel site sums, launches by path, train_step() images/s with
+    TF32 off)."""
     import torch
 
     from deeplabv3plus_keras_tpu_torch import SemanticSegmentation
 
     t0 = time.perf_counter()
-    seg = SemanticSegmentation(conf, device="cuda")
+    seg = SemanticSegmentation(conf_fn(), device="cuda")
     batches = serving_batches()
     first = torch.from_numpy(batches[0]).cuda()
     calibrate_bn(seg.model, first)
@@ -954,8 +1145,11 @@ def drive_model(name: str, conf: dict, kernels, card: str, g, rows, n_sites: dic
     with torch.inference_mode():
         logits, up = seg.model(first, return_presample=True)
     presample = tuple(logits.shape)
+    prefix, stats_only = stats_only_cell(seg.model)
+    train_expect = depthwise_expect(sites, True, stats_only)
+    unreached = {n for n, _ in seg.model.named_parameters() if prefix and n.startswith(prefix)}
     del logits, first
-    expect = depthwise_expect(sites, train=False)
+    expect = depthwise_expect(sites)
     got = {k: v for k, v in expect.items() if k.startswith("depthwise_fwd") and v}
     print(json.dumps({"model": name, "layout": os.environ.get("DLV3_DW_LAYOUT"),
                       "depthwise_launches_per_forward": got,
@@ -966,7 +1160,7 @@ def drive_model(name: str, conf: dict, kernels, card: str, g, rows, n_sites: dic
     # ---- each kernel against its plain version, at this model's shapes ----
     n0 = len(rows)
     agg = {}
-    if name == "mobilenetv2":
+    if name != "xception":
         agg.update(check_depthwise(sites, g, rows))
         agg["upsample_argmax"] = check_upsample_argmax(presample, up, g, rows)
         agg.update(check_depthwise_backward(sites, g, rows))
@@ -978,6 +1172,12 @@ def drive_model(name: str, conf: dict, kernels, card: str, g, rows, n_sites: dic
             check_depthwise_backward(nhwc, g, rows)
     for row in rows[n0:]:
         row.setdefault("model", name)
+    for dtype in site_dtypes:
+        n1 = len(rows)
+        check_depthwise(sites, g, rows, dtype)
+        check_depthwise_backward(sites, g, rows, dtype)
+        for row in rows[n1:]:
+            row["model"] = f"{name}_{dtype}"
     torch.cuda.empty_cache()
     print(json.dumps({"model": name, "phase": "kernel_sites", "s": time.perf_counter() - t0}))
 
@@ -986,15 +1186,145 @@ def drive_model(name: str, conf: dict, kernels, card: str, g, rows, n_sites: dic
     key = "" if name == "mobilenetv2" else f"{name}_"
     by_path[f"{key}segment"] = run_serving(seg, kernels, card, batches, expect, name)
     print(json.dumps({"model": name, "phase": "segment", "s": time.perf_counter() - t0}))
-    by_path[f"{key}train_step"], train_img_s = run_training(
-        seg, kernels, card, depthwise_expect(sites, train=True), name)
+    by_path[f"{key}train_step"], train_img_s = run_training(seg, kernels, card, train_expect, name,
+                                                            unreached)
     print(json.dumps({"model": name, "phase": "train_step", "s": time.perf_counter() - t0}))
     del seg
     torch.cuda.empty_cache()
-    small = (flagship_conf if name == "mobilenetv2" else xception_conf)(128, batch=2)
-    check_training_against_cpu(small, name)
+    check_training_against_cpu(conf_fn(128, batch=2), name)
     print(json.dumps({"model": name, "phase": "cpu_step", "s": time.perf_counter() - t0}))
     return agg, by_path, train_img_s
+
+
+def check_pools(card: str) -> None:
+    """The backbones' pools (``models/blocks.py``) and their gradients on
+    ``channels_last`` float32 inputs on the card at NASNet's cell sizes,
+    against float64 on the CPU, within 1e-5 of the largest value; beside
+    them torch's padded ``F.avg_pool2d``, whose backward of such an input
+    ``avg_pool_same_s1`` avoids (printed, not held)."""
+    import torch
+    import torch.nn.functional as F
+
+    from deeplabv3plus_keras_tpu_torch.models import blocks
+
+    pools = {
+        "avg_pool_same_s1": blocks.avg_pool_same_s1,
+        "pool_s2_keras_avg": lambda x: blocks.pool_s2_keras(x, 3, "avg"),
+        "pool_s2_keras_max": lambda x: blocks.pool_s2_keras(x, 3, "max"),
+        "max_pool_same": lambda x: blocks.max_pool_same(x, 3, 2),
+        "avg_pool_valid": lambda x: blocks.avg_pool_valid(x, 2),
+        "torch_avg_pool2d_padded": lambda x: F.avg_pool2d(x, 3, 1, 1, count_include_pad=False),
+    }
+    out = {}
+    for shape in ((2, 88, 8, 8), (2, 11, 32, 32), (16, 44, 128, 128), (2, 22, 17, 15)):
+        g = torch.Generator().manual_seed(1)
+        x64 = torch.randn(shape, generator=g, dtype=torch.float64)
+        for name, fn in pools.items():
+            x = x64.clone().requires_grad_()
+            y64 = fn(x)
+            g64 = torch.randn(y64.shape, generator=g, dtype=torch.float64)
+            y64.backward(g64)
+            xc = x64.float().cuda().contiguous(memory_format=torch.channels_last).requires_grad_()
+            y = fn(xc)
+            y.backward(g64.float().cuda().contiguous(memory_format=torch.channels_last))
+            errs = [((y.detach().double().cpu() - y64.detach()).abs().max() / y64.abs().max()).item(),
+                    ((xc.grad.double().cpu() - x.grad).abs().max() / x.grad.abs().max()).item()]
+            key = f"{name}/{'x'.join(map(str, shape))}"
+            out[key] = {"y_rel": errs[0], "dx_rel": errs[1]}
+    print(json.dumps({"pools_channels_last": out, "card": card}))
+    bad = {k: v for k, v in out.items()
+           if not k.startswith("torch_") and not max(v.values()) <= 1e-5}
+    if bad:
+        raise SystemExit(f"pools on the card off float64: {bad}")
+
+
+def run_sweep(kernels, card: str, g, rows) -> dict:
+    """The nine other variants (EfficientNet B1–B7, NASNet-Large, DenseNet
+    169/201) with the flagship's head at ``SWEEP_SIZE``², B=``SWEEP_BATCH``:
+    K2–K5 against their plain versions at each variant's distinct sites,
+    ``segment()`` (launches, labels against the same weights on the CPU)
+    and one ``train_step()`` (launches, finite loss and gradients).
+    Returns the launches of the paths ``<variant>_segment`` and
+    ``<variant>_train_step``."""
+    import torch
+
+    from deeplabv3plus_keras_tpu_torch import SemanticSegmentation
+
+    by_path, out = {}, {}
+    for variant in SWEEP:
+        t0 = time.perf_counter()
+        conf = backbone_conf(variant)(SWEEP_SIZE, SWEEP_BATCH)
+        seg = SemanticSegmentation(conf, device="cuda")
+        images = torch.empty(SWEEP_BATCH, SWEEP_SIZE, SWEEP_SIZE, 3).uniform_(
+            -1, 1, generator=torch.Generator().manual_seed(7))
+        calibrate_bn(seg.model, images.cuda())
+        sites = depthwise_sites(seg.model, images.cuda())
+        n0 = len(rows)
+        check_depthwise(sites, g, rows)
+        check_depthwise_backward(sites, g, rows)
+        for row in rows[n0:]:
+            row["model"] = f"{variant}_{SWEEP_SIZE}"
+
+        kernels.reset_launch_counts()
+        labels = seg.segment(images.numpy())
+        by_path[f"{variant}_segment"] = kernels.launch_counts()
+        if by_path[f"{variant}_segment"] != depthwise_expect(sites):
+            raise SystemExit(f"{variant} segment(): launches {by_path[f'{variant}_segment']}")
+        cpu = SemanticSegmentation(conf, device="cpu")
+        cpu.model.load_state_dict(seg.model.state_dict())
+        agree = float((cpu.segment(images.numpy()) == labels).mean())
+
+        batch = train_batches(1, SWEEP_BATCH, SWEEP_SIZE, "cuda", seed=2)[0]
+        kernels.reset_launch_counts()
+        loss = seg.train_step(batch)["loss"].item()
+        by_path[f"{variant}_train_step"] = kernels.launch_counts()
+        bad = [n for n, p in seg.model.named_parameters()
+               if p.grad is None or not bool(torch.isfinite(p.grad).all())]
+        out[variant] = {"sites": len(sites), "distinct_sites": len({s[:3] + (s[3].weight.shape,)
+                                                                     for s in sites}),
+                        "cpu_agreement": agree, "loss": loss, "s": time.perf_counter() - t0}
+        print(json.dumps({"sweep": {variant: out[variant]}}))
+        if agree < 0.999:
+            raise SystemExit(f"{variant}: card vs CPU labels agree on {agree:.5f} < 0.999 of pixels")
+        if by_path[f"{variant}_train_step"] != depthwise_expect(sites, True,
+                                                                stats_only_cell(seg.model)[1]):
+            raise SystemExit(f"{variant} train_step(): launches {by_path[f'{variant}_train_step']}")
+        if not math.isfinite(loss) or bad:
+            raise SystemExit(f"{variant} train_step(): loss {loss}, bad gradients {bad[:4]}")
+        del seg, cpu
+        torch.cuda.empty_cache()
+    print(json.dumps({"sweep_summary": {"batch": SWEEP_BATCH, "image": SWEEP_SIZE,
+                                        "variants": out, "card": card}}))
+    return by_path
+
+
+def depthwise_by_k(rows, models) -> dict:
+    """K2–K5 over one pass of each of ``models`` (a forward for K2/K3, a
+    train step for K4/K5), split by kernel size: summed time, cuDNN's
+    and the bound, and the sites that lose to cuDNN or run above twice
+    their bound."""
+    out = {}
+    per = {"depthwise_fwd_s1": "per_forward", "depthwise_fwd_s2": "per_forward",
+           "depthwise_bwd_s1": "per_step", "depthwise_bwd_s2": "per_step"}
+    for model in models:
+        for name, field in per.items():
+            for k in (3, 5, 7):
+                sites = [r for r in rows if r.get("model") == model and r["kernel"] == name
+                         and r["k"] == k]
+                if not sites:
+                    continue
+                ms, lib, bnd = (sum(r[field] * r[f] for r in sites)
+                                for f in ("ms", "library_ms", "bound_ms"))
+                out[f"{model}/{name}/k{k}"] = {
+                    "sites": len(sites), "launches": sum(r[field] for r in sites), "ms": ms,
+                    "library_ms": lib, "bound_ms": bnd, "x_library": ms / lib, "x_bound": ms / bnd,
+                    "lose_to_library": [[r["shape_nchw"], r["stride"], r["dilation"], r["ms"],
+                                         r["library_ms"]] for r in sites
+                                        if r["ms"] > r["library_ms"]],
+                    "above_2x_bound": [[r["shape_nchw"], r["stride"], r["dilation"], r["ms"],
+                                        r["bound_ms"]] for r in sites
+                                       if r["ms"] > 2 * r["bound_ms"]]}
+    return out
 
 
 def device_idle_share(prof, wall_s: float) -> dict:
@@ -1272,6 +1602,7 @@ def run_low_precision(kernels, card: str, dtype: str, state: dict, labels32, g, 
         logits, _ = seg.model(first, return_presample=True)
     if logits.dtype != torch.float32:  # K1 takes float32 logits in every dtype
         raise SystemExit(f"{dtype}: pre-upsample logits are {logits.dtype}")
+    train_expect = depthwise_expect(sites, train=True)
     del logits, first
     n0 = len(rows)
     agg = check_depthwise(sites, g, rows, dtype)
@@ -1281,7 +1612,7 @@ def run_low_precision(kernels, card: str, dtype: str, state: dict, labels32, g, 
     by_path = {}
 
     # ---- segment() ----
-    expect = depthwise_expect(sites, train=False)
+    expect = depthwise_expect(sites)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
@@ -1311,7 +1642,7 @@ def run_low_precision(kernels, card: str, dtype: str, state: dict, labels32, g, 
 
     # ---- train_step() ----
     train = train_batches(TRAIN_STEPS, BATCH, SIZE, "cuda", seed=1)
-    expect = depthwise_expect(sites, train=True)
+    expect = train_expect
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
@@ -1648,7 +1979,7 @@ def main() -> int:
 
     # the flagship under the default layout: K1-K5
     with dw_layout("nhwc"):
-        a, p, train_img_s = drive_model("mobilenetv2", flagship_conf(), kernels, card, g, rows,
+        a, p, train_img_s = drive_model("mobilenetv2", flagship_conf, kernels, card, g, rows,
                                         {"depthwise_fwd_s1": 15, "depthwise_fwd_s2": 3})
         agg.update(a)
         by_path.update(p)
@@ -1666,7 +1997,7 @@ def main() -> int:
     # Xception under bhcw: K6/K7 at its 33 undilated sites, K2/K4 at the
     # three dilated ASPP sites, K1 in segment()
     with dw_layout("bhcw"):
-        a, p, _ = drive_model("xception", xception_conf(), kernels, card, g, rows,
+        a, p, _ = drive_model("xception", xception_conf, kernels, card, g, rows,
                               {"depthwise_fwd_cf": 33, "depthwise_fwd_s1": 3})
     agg.update(a)
     by_path.update(p)
@@ -1688,10 +2019,24 @@ def main() -> int:
                           "s": time.perf_counter() - t1}))
         by_path.update(run_export(kernels, card, state))
         print(json.dumps({"model": "mobilenetv2", "phase": "export", "s": time.perf_counter() - t1}))
+        # EfficientNet-B0, NASNet-Mobile and DenseNet-121 at full size (K2–K5
+        # at k = 3, 5, 7 and C = 11, 22; also in bfloat16 for the first two),
+        # then the nine other variants at 128²
+        check_pools(card)
+        for name, n_sites in NEW_MODELS.items():
+            a, p, _ = drive_model(name, backbone_conf(name), kernels, card, g, rows, n_sites,
+                                  site_dtypes=("bfloat16",) if name != "densenet121" else ())
+            by_path.update(p)
+        t1 = time.perf_counter()
+        by_path.update(run_sweep(kernels, card, g, rows))
+        print(json.dumps({"phase": "sweep", "s": time.perf_counter() - t1}))
     (OUT / "kernel_sites.json").write_text(json.dumps({"card": card, "sites": rows}, indent=1))
     print(json.dumps({"depthwise_forward_summary": forward_summary(rows), "card": card}))
     print(json.dumps({"depthwise_backward_summary": backward_summary(rows), "card": card}))
     print(json.dumps({"depthwise_cf_backward_summary": cf_backward_summary(rows), "card": card}))
+    print(json.dumps({"depthwise_by_k": depthwise_by_k(rows, [
+        *NEW_MODELS, *(f"{m}_bfloat16" for m in NEW_MODELS),
+        *(f"{m}_{SWEEP_SIZE}" for m in SWEEP)]), "card": card}))
 
     out = []
     for name in ("upsample_argmax", "depthwise_fwd_s1", "depthwise_fwd_s2",
@@ -1711,6 +2056,9 @@ def main() -> int:
             if name in low[dtype]:
                 entry[dtype] = {f: low[dtype][name][f] for f in
                                 ("ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err")}
+        if "bfloat16" in a:  # K6/K7 at Xception's sites in bfloat16
+            entry["bfloat16"] = {f: a["bfloat16"][f] for f in
+                                 ("ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err")}
         if entry["launches"] < 1:
             raise SystemExit(f"{name} was not launched on its path {MAIN_PATH[name]}")
         out.append(entry)

@@ -114,7 +114,8 @@ class SemanticSegmentation:
         if extra.get("backbone_weights"):
             raise NotImplementedError(
                 f"backbone_weights={extra['backbone_weights']!r}: pretrained "
-                "backbones are not ported yet (ROADMAP.md Queue A item 14, the converter)"
+                "backbones are not ported yet (ROADMAP.md Queue A item 14b, the Keras .h5 "
+                "weight converter)"
             )
         if int(extra.get("mesh_space", 1)) > 1:
             raise NotImplementedError(

@@ -15,6 +15,7 @@ Submodule names follow the Keras layer names, as in the JAX package.
 
 from __future__ import annotations
 
+import torch
 from torch import nn
 
 from ..blocks import BatchNorm, Conv, DepthwiseConv, relu6
@@ -79,7 +80,7 @@ class MobileNetV2Backbone(nn.Module):
             cin = feat
         self.out_channels = cin
 
-    def forward(self, x):
+    def forward(self, x, generator: torch.Generator | None = None):
         x = relu6(self.bn_Conv1(self.Conv1(x)))
         x = self.expanded_conv(x)
         for name in self.blocks:

@@ -20,6 +20,7 @@ Submodule names follow the flax tree (Keras layer names, ``conv2d_*`` and
 
 from __future__ import annotations
 
+import torch
 import torch.nn.functional as F
 from torch import nn
 
@@ -64,7 +65,7 @@ class XceptionBackbone(nn.Module):
         name = f"block{block}_sepconv{i}"
         return getattr(self, f"{name}_bn")(getattr(self, name)(x))
 
-    def forward(self, x):
+    def forward(self, x, generator: torch.Generator | None = None):
         x = F.relu(self.block1_conv1_bn(self.block1_conv1(x)))
         x = F.relu(self.block1_conv2_bn(self.block1_conv2(x)))
 

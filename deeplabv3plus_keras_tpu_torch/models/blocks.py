@@ -15,19 +15,29 @@ Numerics mirrored from the Keras reference:
   variance moves toward the *biased* batch variance, as flax's does
   (torch's own update takes the unbiased one).
 - Conv init glorot_uniform; the ASPP split-separable blocks use
-  TruncatedNormal(σ=0.05) cut at ±2σ.  Both draw from an explicit
-  ``torch.Generator``.  Fans are computed as flax computes them on the
-  HWIO kernel, so the bounds match the JAX package's.
+  TruncatedNormal(σ=0.05) cut at ±2σ; EfficientNet and NASNet use
+  variance scaling (2.0, fan out / fan in, truncated normal).  All draw
+  from an explicit ``torch.Generator``.  Fans are computed as flax
+  computes them on the HWIO kernel, so the bounds match the JAX
+  package's.
+- Keras NASNet's stride-2 pools pad with literal zeros (``correct_pad``)
+  and pool ``VALID``; its stride-1 ``SAME`` average pool leaves the
+  padding out of the divisor.  EfficientNet's stochastic depth is flax
+  ``nn.Dropout(broadcast_dims=(1, 2, 3))``: one draw per sample.
 - Only the float path of ``QuantConv``: int8 serving is a later slice.
 
-Compute dtype, with flax's semantics (``hps.dtype``; the model casts its
-input to it once, ``models/deeplab.py``): parameters and BN statistics
-stay float32; every conv casts its weight to the dtype of its input
-(flax ``promote_dtype(x, kernel, dtype=...)``) and returns that dtype;
+Compute dtype, with flax's semantics (``hps.dtype``; the backbone casts
+the images to it where the JAX backbone's first conv does,
+``models/backbones/``): parameters and BN statistics stay float32; every
+conv casts its weight to the dtype of its input (flax
+``promote_dtype(x, kernel, dtype=...)``) and returns that dtype;
 ``BatchNorm`` on a bfloat16 or float16 input follows
 ``flax.linen.normalization`` (statistics and normalisation in float32,
 the result cast back).  ReLU, adds, concatenations and pooling run in
-the input's dtype.
+the input's dtype, rounding where the JAX package's XLA program rounds:
+``sigmoid`` after its exp, sum and quotient, average pools after every
+add of the window sum, and the ``SAME`` average pool's quotient in
+float32 (flax divides by float32 counts).
 """
 
 from __future__ import annotations
@@ -42,6 +52,8 @@ from torch import nn
 from torch.autograd.function import once_differentiable
 
 from ..kernels import depthwise_conv, same_pads
+
+_LOW_PRECISION = (torch.bfloat16, torch.float16)
 
 
 def glorot_uniform_(w: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
@@ -60,14 +72,111 @@ def truncated_normal_05_(w: torch.Tensor, generator: torch.Generator) -> torch.T
         return nn.init.trunc_normal_(w, 0.0, 0.05, -0.1, 0.1, generator=generator)
 
 
+def variance_scaling_(scale: float, mode: str):
+    """flax ``variance_scaling(scale, mode, "truncated_normal")`` on an OIHW
+    weight: a normal cut at ±2σ with σ = √(scale / fan) / 0.8796 (the cut
+    normal's standard deviation restored), fans of the HWIO kernel."""
+
+    def init(w: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+        rf = w.shape[2] * w.shape[3]
+        fan = rf * (w.shape[0] if mode == "fan_out" else w.shape[1])
+        std = math.sqrt(scale / fan) / 0.87962566103423978
+        with torch.no_grad():
+            return nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std, generator=generator)
+
+    return init
+
+
+# Keras EfficientNet's conv init, and he_normal (NASNet)
+efficientnet_conv_init_ = variance_scaling_(2.0, "fan_out")
+he_normal_ = variance_scaling_(2.0, "fan_in")
+
+
 def relu6(x: torch.Tensor) -> torch.Tensor:
     return torch.clamp(x, 0.0, 6.0)
+
+
+def sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """flax ``nn.sigmoid``: JAX lowers ``logistic`` to 1/(1 + exp(−x)), so in
+    bfloat16/float16 the exp, the sum and the quotient each round to the
+    dtype."""
+    if x.dtype in _LOW_PRECISION:
+        return 1.0 / (1.0 + torch.exp(-x))
+    return torch.sigmoid(x)
+
+
+def swish(x: torch.Tensor) -> torch.Tensor:
+    """flax ``nn.swish``: x·sigmoid(x), the product rounded in a 16-bit
+    dtype as the sigmoid's steps are."""
+    if x.dtype in _LOW_PRECISION:
+        return x * sigmoid(x)
+    return F.silu(x)
+
+
+def _window_sum(xp: torch.Tensor, kernel: int, stride: int) -> torch.Tensor:
+    """Sum over each k×k window of the (already padded) ``xp`` at
+    ``stride``, added one tap at a time in row-major order in ``xp``'s
+    dtype: XLA's ``reduce_window`` add, which rounds each partial sum in
+    bfloat16/float16."""
+    H = (xp.shape[-2] - kernel) // stride + 1
+    W = (xp.shape[-1] - kernel) // stride + 1
+    acc = None
+    for i in range(kernel):
+        for j in range(kernel):
+            tap = xp[:, :, i:i + (H - 1) * stride + 1:stride, j:j + (W - 1) * stride + 1:stride]
+            acc = tap if acc is None else acc + tap
+    return acc.contiguous(memory_format=torch.channels_last)
+
+
+def _avg_pool(xp: torch.Tensor, kernel: int, stride: int) -> torch.Tensor:
+    """flax ``avg_pool(padding="VALID")`` of the (already padded) ``xp``:
+    the whole window's mean; in bfloat16/float16 the window sum rounds at
+    every add, as XLA's does."""
+    if xp.dtype in _LOW_PRECISION:
+        return _window_sum(xp, kernel, stride) / (kernel * kernel)
+    return F.avg_pool2d(xp, kernel, stride)
+
+
+def _correct_pads(n: int, kernel: int) -> tuple[int, int]:
+    """Keras ``imagenet_utils.correct_pad`` along one axis: (before, after)."""
+    c = kernel // 2
+    return c - (1 - n % 2), c
+
+
+def pool_s2_keras(x: torch.Tensor, kernel: int, op: str) -> torch.Tensor:
+    """Keras NASNet's stride-2 pool: ``ZeroPadding2D(correct_pad)`` and a
+    ``VALID`` pool (JAX ``nasnet.py`` ``_pool_s2_keras``).  Not TF ``SAME``
+    pooling: the max pool compares against literal zeros at the border, and
+    the average divides by the whole window, zeros included."""
+    pt, pb = _correct_pads(x.shape[-2], kernel)
+    pl, pr = _correct_pads(x.shape[-1], kernel)
+    xp = F.pad(x, (pl, pr, pt, pb))
+    return F.max_pool2d(xp, kernel, 2) if op == "max" else _avg_pool(xp, kernel, 2)
+
+
+def avg_pool_same_s1(x: torch.Tensor, kernel: int = 3) -> torch.Tensor:
+    """TF ``AveragePooling2D(padding='same')`` at stride 1: the padding left
+    out of the divisor (flax ``avg_pool(count_include_pad=False)``), the
+    window sum over the explicitly zero-padded x divided by the count of
+    real taps.  In bfloat16/float16 flax divides the window sum (rounded at
+    every add) by float32 counts, so the result is float32.
+
+    Not ``F.avg_pool2d(..., padding=kernel // 2)``: on CUDA its backward of
+    a ``channels_last`` input with padding is wrong (PyTorch 2.11, every
+    shape tried, PERF.md §6); the unpadded pool of the padded x is right."""
+    p = kernel // 2
+    ones = F.pad(torch.ones_like(x[:1, :1], dtype=torch.float32), (p, p, p, p))
+    if x.dtype not in _LOW_PRECISION:
+        count = F.avg_pool2d(ones, kernel, 1, divisor_override=1).to(x.dtype)
+        return F.avg_pool2d(F.pad(x, (p, p, p, p)), kernel, 1, divisor_override=1) / count
+    count = _window_sum(ones, kernel, 1)
+    return _window_sum(F.pad(x, (p, p, p, p)), kernel, 1).float() / count
 
 
 def avg_pool_valid(x: torch.Tensor, pool_size: int) -> torch.Tensor:
     """Keras ``AveragePooling2D(pool_size, padding='valid')``: stride equal to
     the pool size, ragged edge dropped (sizes floor)."""
-    return F.avg_pool2d(x, pool_size, stride=pool_size, padding=0, ceil_mode=False)
+    return _avg_pool(x, pool_size, pool_size)
 
 
 def tf_same_pad(x: torch.Tensor, k: int, stride: int, value: float = 0.0) -> torch.Tensor:
@@ -95,26 +204,40 @@ class _Init:
 
 
 class Conv(_Init, nn.Module):
-    """Bias-free k×k conv with TF ``SAME`` or ``VALID`` padding: flax
-    ``nn.Conv(use_bias=False)`` and the float path of the JAX package's
-    ``QuantConv``."""
+    """k×k conv with TF ``SAME``, ``VALID`` or explicit ``((top, bottom),
+    (left, right))`` padding: flax ``nn.Conv`` and the float path of the JAX
+    package's ``QuantConv``.  ``bias=True`` adds a zero-initialised bias
+    after the conv, in the conv's dtype, as flax adds it."""
 
     def __init__(self, cin: int, features: int, kernel: int = 1, strides: int = 1,
-                 init_fn=glorot_uniform_, padding: str = "SAME"):
+                 init_fn=glorot_uniform_, padding="SAME", bias: bool = False):
         super().__init__()
-        if padding not in ("SAME", "VALID"):
-            raise ValueError(f"Conv padding {padding!r}: expected 'SAME' or 'VALID'")
-        self.kernel, self.strides, self.padding = kernel, strides, padding
+        if padding not in ("SAME", "VALID") and not (
+                isinstance(padding, (tuple, list)) and len(padding) == 2
+                and all(isinstance(p, (tuple, list)) and len(p) == 2 for p in padding)):
+            raise ValueError(f"Conv padding {padding!r}: expected 'SAME', 'VALID' or "
+                             "((top, bottom), (left, right))")
+        self.kernel, self.strides = kernel, strides
+        self.padding = padding if isinstance(padding, str) else tuple(map(tuple, padding))
         self.init_fn = init_fn
         self.weight = nn.Parameter(torch.empty(features, cin, kernel, kernel))
+        self.register_parameter("bias", nn.Parameter(torch.zeros(features)) if bias else None)
 
     def forward(self, x):
-        w = self.weight.to(x.dtype)
+        y = self._conv(x, self.weight.to(x.dtype))
+        return y if self.bias is None else y + self.bias.to(y.dtype)[:, None, None]
+
+    def _conv(self, x, w):
         if self.padding == "VALID":
             return F.conv2d(x, w, stride=self.strides)
-        if self.strides == 1:  # odd k: SAME is symmetric
-            return F.conv2d(x, w, padding=self.kernel // 2)
-        return F.conv2d(tf_same_pad(x, self.kernel, self.strides), w, stride=self.strides)
+        if self.padding == "SAME":
+            if self.strides == 1:  # odd k: SAME is symmetric
+                return F.conv2d(x, w, padding=self.kernel // 2)
+            return F.conv2d(tf_same_pad(x, self.kernel, self.strides), w, stride=self.strides)
+        (pt, pb), (pl, pr) = self.padding
+        if (pt, pl) == (pb, pr):
+            return F.conv2d(x, w, stride=self.strides, padding=(pt, pl))
+        return F.conv2d(F.pad(x, (pl, pr, pt, pb)), w, stride=self.strides)
 
 
 class DepthwiseConv(_Init, nn.Module):
@@ -134,7 +257,6 @@ class DepthwiseConv(_Init, nn.Module):
         return depthwise_conv(x, self.weight.to(x.dtype), self.strides, self.dilation)
 
 
-_LOW_PRECISION = (torch.bfloat16, torch.float16)
 _recompute = threading.local()
 
 
@@ -304,6 +426,31 @@ class SplitSepConvBlock(nn.Module):
     def forward(self, x):
         x = F.relu(self.bn1(self.sepconv(x)))
         return F.relu(self.bn2(self.conv_l2(x)))
+
+
+class Dropout(nn.Module):
+    """flax ``nn.Dropout``: keep each element with probability 1 − rate and
+    scale it by 1/(1 − rate); the identity in eval mode or at rate 0.  The
+    mask comes from an explicit generator on the input's device.
+    ``per_sample`` draws one keep for each sample, the whole (C, H, W) of it
+    (flax ``broadcast_dims=(1, 2, 3)``: EfficientNet's stochastic depth)."""
+
+    def __init__(self, rate: float, per_sample: bool = False):
+        super().__init__()
+        self.rate = float(rate)
+        self.per_sample = per_sample
+
+    def forward(self, x, generator: torch.Generator | None = None):
+        if not self.training or self.rate == 0.0:
+            return x
+        if self.rate >= 1.0:
+            return torch.zeros_like(x)
+        if generator is None:
+            raise ValueError("dropout in training needs an explicit torch.Generator")
+        keep = 1.0 - self.rate
+        shape = (x.shape[0], 1, 1, 1) if self.per_sample else x.shape
+        mask = torch.rand(shape, generator=generator, device=x.device) < keep
+        return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 def init_weights(module: nn.Module, generator: torch.Generator) -> None:

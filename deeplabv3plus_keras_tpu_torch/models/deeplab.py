@@ -9,12 +9,16 @@ the two ends are views, not copies.  The backbone runs once and feeds
 both the encoder and the boundary refinement, as in the JAX package.
 
 ``hps.dtype`` is the compute dtype (``_DTYPES``, JAX ``models/deeplab.py:
-27-41``): the images are cast to it once, every layer computes in it
+27-41``): the images are cast to it once, before the backbone (EfficientNet
+casts them itself, after its float32 normalisation prologue, where the
+JAX backbone's first conv casts them), every layer computes in it
 (``models/blocks.py``), and the outputs are at least float32.  The
 parameters and BN statistics keep their own dtype (float32).  The extra
 key ``remat`` recomputes the backbone's activations in the backward pass
 (``torch.utils.checkpoint``, JAX ``nn.remat``): training only, the BN
-running statistics moved once, by the first forward.
+running statistics moved once, by the first forward, and the recompute
+drawing EfficientNet's stochastic-depth masks again from the generator's
+state before the first forward, as ``nn.remat`` replays its key.
 """
 
 from __future__ import annotations
@@ -47,10 +51,29 @@ def compute_dtype(name: str) -> torch.dtype:
     return _DTYPES[name]
 
 
-def _remat_contexts():
-    """``checkpoint``'s ``context_fn``: nothing around the first forward,
-    frozen BN running statistics around the recompute."""
-    return contextlib.nullcontext(), running_stats_frozen()
+@contextlib.contextmanager
+def _recompute(generator: torch.Generator | None, state: torch.Tensor | None):
+    """Around the backbone's recompute: BN's running statistics frozen, and
+    ``generator`` wound back to ``state`` (its state before the first
+    forward) so that the recompute draws the same masks; afterwards the
+    generator is where the step had left it."""
+    with running_stats_frozen():
+        if generator is None:
+            yield
+            return
+        after = generator.get_state()
+        generator.set_state(state)
+        try:
+            yield
+        finally:
+            generator.set_state(after)
+
+
+def _remat_contexts(generator: torch.Generator | None):
+    """``checkpoint``'s ``context_fn`` for one forward: nothing around the
+    first forward, :func:`_recompute` around the recompute."""
+    state = None if generator is None else generator.get_state()
+    return lambda: (contextlib.nullcontext(), _recompute(generator, state))
 
 
 def _at_least_f32(x: torch.Tensor) -> torch.Tensor:
@@ -66,7 +89,7 @@ class DeepLabV3Plus(nn.Module):
         arch, hps = conf.nn_arch, conf.hps
         self.compute_dtype = compute_dtype(hps.dtype)
         self.remat = bool(conf.extra.get("remat", False))
-        self.base = get_backbone(conf.base_model, arch.output_stride)
+        self.base = get_backbone(conf.base_model, arch.output_stride, self.compute_dtype)
         self.encoder = EncoderMiddle(
             self.base.out_channels,
             arch.encoder_middle_conf,
@@ -94,16 +117,20 @@ class DeepLabV3Plus(nn.Module):
 
     def forward(self, images: torch.Tensor, return_presample: bool = False,
                 generator: torch.Generator | None = None):
-        """``generator`` draws the dropout mask in training (required there
-        when the dropout rate is above 0)."""
-        x = images.to(self.compute_dtype).permute(0, 3, 1, 2)  # NHWC → NCHW view
+        """``generator`` draws the dropout and stochastic-depth masks in
+        training (required there when a rate is above 0)."""
+        x = images.permute(0, 3, 1, 2)  # NHWC → NCHW view
+        if not getattr(self.base, "casts_images", False):
+            x = x.to(self.compute_dtype)
         x = x.contiguous(memory_format=torch.channels_last)
         if self.remat and self.training and torch.is_grad_enabled():
-            # the backbone draws no random numbers: no RNG state to replay
-            base_features = checkpoint(self.base, x, use_reentrant=False,
-                                       context_fn=_remat_contexts, preserve_rng_state=False)
+            # torch's global RNG is not drawn from; the generator is
+            # replayed by the recompute's context
+            base_features = checkpoint(self.base, x, generator, use_reentrant=False,
+                                       context_fn=_remat_contexts(generator),
+                                       preserve_rng_state=False)
         else:
-            base_features = self.base(x)
+            base_features = self.base(x, generator)
         encoder_features = self.encoder(base_features, generator)
         if return_presample:
             logits, up = self.decoder(base_features, encoder_features, return_presample=True)

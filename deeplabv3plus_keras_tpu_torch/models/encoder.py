@@ -25,28 +25,7 @@ from torch import nn
 
 from ..config import MiddleOp
 from ..ops.resize import tf_resize_images_matmul
-from .blocks import ConvBNReLU, SplitSepConvBlock, avg_pool_valid
-
-
-class Dropout(nn.Module):
-    """flax ``nn.Dropout``: keep each element with probability 1 − rate and
-    scale it by 1/(1 − rate); the identity in eval mode or at rate 0.  The
-    mask comes from an explicit generator on the input's device."""
-
-    def __init__(self, rate: float):
-        super().__init__()
-        self.rate = float(rate)
-
-    def forward(self, x, generator: torch.Generator | None = None):
-        if not self.training or self.rate == 0.0:
-            return x
-        if self.rate >= 1.0:
-            return torch.zeros_like(x)
-        if generator is None:
-            raise ValueError("dropout in training needs an explicit torch.Generator")
-        keep = 1.0 - self.rate
-        mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
-        return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
+from .blocks import ConvBNReLU, Dropout, SplitSepConvBlock, avg_pool_valid
 
 
 class EncoderMiddle(nn.Module):

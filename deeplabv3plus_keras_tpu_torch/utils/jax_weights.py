@@ -11,7 +11,11 @@ the flax names, so the mapping is mechanical:
 - the JAX ``BatchNorm`` wrapper nests a flax ``nn.BatchNorm`` named
   ``bn``: ``.../X/bn/{scale, bias}`` → ``X.{weight, bias}`` and
   ``batch_stats .../X/bn/{mean, var}`` → ``X.{running_mean, running_var}``;
-  with ``bn_scale=False`` there is no scale, and the port has no weight.
+  with ``bn_scale=False`` there is no scale, and the port has no weight;
+- a conv's ``bias`` (EfficientNet's squeeze-excite convs) →
+  ``X.bias``;
+- EfficientNet's input statistics ``batch_stats .../normalization_{mean,
+  var}`` → the buffers of the same names.
 
 Every leaf must land on one port tensor of the same shape, and every port
 tensor must be filled: anything left over on either side raises.
@@ -25,6 +29,9 @@ import numpy as np
 import torch
 
 from ..models.blocks import BatchNorm
+
+# non-BN batch_stats leaves: buffers of the same name
+_STAT_BUFFERS = ("normalization_mean", "normalization_var")
 
 _BN_LEAVES = {
     ("params", "scale"): "weight",
@@ -50,6 +57,9 @@ def _port_name(collection: str, path: tuple[str, ...]) -> tuple[str, bool]:
     bn = _BN_LEAVES.get((collection, leaf))
     if bn is not None and mods and mods[-1] == "bn":
         return ".".join(mods[:-1] + [bn]), False
+    if (collection, leaf) == ("params", "bias") or (
+            collection == "batch_stats" and leaf in _STAT_BUFFERS):
+        return ".".join(path), False
     raise KeyError(f"no port counterpart for {collection}/{'/'.join(path)}")
 
 
@@ -98,6 +108,10 @@ def export_jax_variables(model: torch.nn.Module) -> dict[str, dict]:
         elif leaf == "weight" and arr.ndim == 4:
             collection, path = "params", mods + ["kernel"]
             arr = arr.transpose(2, 3, 1, 0)
+        elif leaf == "bias":
+            collection, path = "params", mods + [leaf]
+        elif leaf in _STAT_BUFFERS:
+            collection, path = "batch_stats", mods + [leaf]
         else:
             raise KeyError(f"no JAX leaf for port tensor {name}")
         node = out[collection]

@@ -78,8 +78,11 @@ def test_segment_rejects_bad_images_and_unported_options():
     seg = SemanticSegmentation(conf_dict(64), device="cpu")
     with pytest.raises(ValueError, match=r"\(B, S, S, 3\)"):
         seg.segment(np.zeros((1, 3, 64, 64), np.float32))
-    with pytest.raises(NotImplementedError, match="Queue A item 14"):
-        SemanticSegmentation({**conf_dict(64), "base_model": "efficientnetb0"}, device="cpu")
+    # every backbone of the reference serves (the port once refused
+    # EfficientNet, naming Queue A item 14)
+    labels = SemanticSegmentation({**conf_dict(32), "base_model": "efficientnetb0"},
+                                  device="cpu").segment(np.zeros((2, 32, 32, 3), np.float32))
+    assert labels.shape == (2, 32, 32) and labels.min() >= 0 and labels.max() < 21
     with pytest.raises(NotImplementedError, match="int8_infer"):
         SemanticSegmentation(conf_dict(64, int8_infer=True), device="cpu")
 
@@ -87,8 +90,8 @@ def test_segment_rejects_bad_images_and_unported_options():
 @pytest.mark.parametrize("keys,item", [
     ({"multi_gpu": True, "num_gpus": 2}, "item 13"),
     ({"multi_gpu": True, "num_gpus": 4, "allow_fewer_devices": True}, "item 13"),
-    ({"backbone_weights": "/nonexistent/backbone.h5"}, "item 14"),
-    ({"backbone_weights": "imagenet"}, "item 14"),
+    ({"backbone_weights": "/nonexistent/backbone.h5"}, "item 14b"),
+    ({"backbone_weights": "imagenet"}, "item 14b"),
     ({"mesh_space": 2}, "item 13"),
     ({"cache_device": True}, "item 19"),
     ({"hps": {"dtype": "bfloat16"}}, "item 18"),
@@ -155,3 +158,21 @@ print("MODULES", " ".join(m for m in sys.modules if m.startswith("deeplabv3plus_
               "ops.resize", "parallel.step", "train.callbacks", "train.checkpoint",
               "train.loss", "utils.preemption", "utils.profiling"):
         assert f"deeplabv3plus_keras_tpu_torch.{m}" in loaded, m
+
+
+def test_facade_trains_nasnet_mobile_on_a_voc_tree(tmp_path):
+    """``train()`` from the JSON config with ``base_model: nasnetmobile``:
+    one epoch of 2 steps (4 images, B=2) on a synthetic VOC tree, on the
+    CPU; the history is finite and the weights moved."""
+    root = make_synthetic_voc(str(tmp_path / "voc"), n_train=4, n_val=2, n_test=0,
+                              min_size=30, max_size=50)
+    conf = {**conf_dict(32), "base_model": "nasnetmobile", "resource_type": "pascal_voc_2012",
+            "resource_path": root, "workers": 1}
+    conf["hps"].update(epochs=1, batch_size=2)
+    seg = SemanticSegmentation(conf, work_dir=str(tmp_path / "work"), device="cpu")
+    w0 = seg.model.base.stem_conv1.weight.detach().clone()
+    history = seg.train()
+    assert len(history["loss"]) == 1
+    assert all(np.isfinite(v) for k in history for v in history[k])
+    assert int(seg.optimizer.iterations) == 2
+    assert not torch.equal(seg.model.base.stem_conv1.weight, w0)

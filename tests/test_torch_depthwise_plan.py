@@ -39,6 +39,9 @@ PLAN_CASES = [
     ((1, 8, 6, 6), 7, 2, (1, 1)),
     ((1, 40, 20, 21), 7, 1, (1, 1)),
     ((1, 24, 17, 16), 3, 2, (1, 1)),
+    # NASNet-Mobile's narrow sites: C = 11, k = 7, odd and even maps
+    ((1, 11, 17, 17), 7, 2, (1, 1)),
+    ((1, 11, 16, 16), 7, 1, (1, 1)),
 ]
 # (dtype the plan is made for, pointer alignment): the vector instantiation
 # (4 float32 or 8 bfloat16 channels per 16 bytes) and the narrow one.
@@ -220,6 +223,8 @@ def test_plan_variants_and_vector_widths():
 @pytest.mark.parametrize("shape,k,stride", [
     ((16, 32, 256, 256), 3, 1), ((16, 96, 256, 256), 3, 2), ((16, 384, 32, 32), 3, 1),
     ((16, 1024, 32, 32), 3, 1), ((2, 40, 20, 21), 7, 1), ((2, 64, 20, 21), 7, 2),
+    # EfficientNet-B7's widest k = 5 site, NASNet's k = 7 stride-2 sites
+    ((16, 1344, 32, 32), 5, 1), ((16, 32, 255, 255), 7, 2), ((16, 11, 255, 255), 7, 2),
 ])
 def test_plan_fits_the_card(shape, k, stride):
     """Blocks of at most 256 threads, at most 227 KB of shared memory (the

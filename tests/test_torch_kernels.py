@@ -71,7 +71,7 @@ def _rand(rng, *shape):
     return rng.normal(size=shape).astype(np.float32)
 
 
-@pytest.mark.parametrize("k", [3, 5])
+@pytest.mark.parametrize("k", [3, 5, 7])
 @pytest.mark.parametrize("dil", [(1, 1), (2, 3)])
 def test_depthwise_s1_matches_pallas_stencil(k, dil):
     rng = np.random.default_rng(k * 10 + dil[1])
@@ -80,7 +80,7 @@ def test_depthwise_s1_matches_pallas_stencil(k, dil):
     np.testing.assert_allclose(_dw_port(x, kern, 1, dil), ref, atol=1e-5)
 
 
-@pytest.mark.parametrize("k", [3, 5])
+@pytest.mark.parametrize("k", [3, 5, 7])
 def test_depthwise_s2_matches_pallas_stencil(k):
     rng = np.random.default_rng(k)
     x, kern = _rand(rng, 1, 8, 16, 8), _rand(rng, k, k, 1, 8)
@@ -126,7 +126,7 @@ def _assert_bwd_close(port, ref):
     np.testing.assert_allclose(dk / scale, rdk / scale, atol=2e-6, rtol=0)
 
 
-@pytest.mark.parametrize("k", [3, 5])
+@pytest.mark.parametrize("k", [3, 5, 7])
 @pytest.mark.parametrize("dil", [(1, 1), (2, 3)])
 def test_depthwise_backward_s1_matches_pallas_vjp(k, dil):
     """Against ``jax.vjp`` of the Pallas stencil: its backward is K4
@@ -138,7 +138,7 @@ def test_depthwise_backward_s1_matches_pallas_vjp(k, dil):
     _assert_bwd_close(_dw_bwd_port(x, kern, g, 1, dil), (np.asarray(rdx), np.asarray(rdk)))
 
 
-@pytest.mark.parametrize("k", [3, 5])
+@pytest.mark.parametrize("k", [3, 5, 7])
 def test_depthwise_backward_s2_matches_pallas_vjp(k):
     """Against ``jax.vjp`` of the stride-2 Pallas stencil: its backward is
     K5 (``_dw_bwd_s2``, parity planes merged), run in interpret mode."""
@@ -147,6 +147,24 @@ def test_depthwise_backward_s2_matches_pallas_vjp(k):
     _, vjp = jax.vjp(depthwise_stencil_s2, jnp.asarray(x), jnp.asarray(kern))
     rdx, rdk = vjp(jnp.asarray(g))
     _assert_bwd_close(_dw_bwd_port(x, kern, g, 2), (np.asarray(rdx), np.asarray(rdk)))
+
+
+@pytest.mark.parametrize("stride,dil", [(1, (1, 1)), (1, (2, 3)), (2, (1, 1))])
+def test_narrow_channels_match_pallas(stride, dil):
+    """C = 11, not a multiple of the 16-byte vector (the narrow
+    instantiation on the card), as NASNet-Mobile's 11- and 22-channel
+    sites: forward and VJP against the Pallas stencils, k = 5."""
+    rng = np.random.default_rng(11 + stride + dil[1])
+    x, kern = _rand(rng, 1, 8, 16, 11), _rand(rng, 5, 5, 1, 11)
+    if stride == 1:
+        fn = lambda a, b: depthwise_stencil(a, b, dil)  # noqa: E731
+    else:
+        fn = depthwise_stencil_s2
+    y, vjp = jax.vjp(fn, jnp.asarray(x), jnp.asarray(kern))
+    np.testing.assert_allclose(_dw_port(x, kern, stride, dil), np.asarray(y), atol=1e-5)
+    g = _rand(rng, *y.shape)
+    rdx, rdk = vjp(jnp.asarray(g))
+    _assert_bwd_close(_dw_bwd_port(x, kern, g, stride, dil), (np.asarray(rdx), np.asarray(rdk)))
 
 
 @pytest.mark.parametrize("shape,k,stride,dil", LAX_CASES)

@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from deeplabv3plus_keras_tpu_torch import kernels
+from deeplabv3plus_keras_tpu_torch.models import blocks
 from deeplabv3plus_keras_tpu_torch.kernels import (
     depthwise_cf,
     depthwise_cf_backward,
@@ -145,6 +146,45 @@ def test_depthwise_backward_kernel_matches_plain(card, shape, k, stride, dil, dt
     assert ((dw.double() - rdw).abs() <= 1e-4 * dw_abs).all()
     # deterministic: no atomics, the same bits every run
     assert torch.equal(depthwise_conv_backward(x, w, g, stride, dil)[1], dw)
+
+
+# Sites of the EfficientNet and NASNet backbones at 512² (B = 1): k = 5
+# and 7 at both strides, C up to EfficientNet-B7's 1344, NASNet's odd 255²
+# maps, and C = 11, 22 (not a multiple of 4) and 44, 88 (in 16 bits, not a
+# multiple of 8), which take the narrow instantiation.
+BACKBONE_SITES = [
+    ((1, 64, 64, 144), 5, 2),
+    ((1, 255, 255, 11), 7, 2),
+    ((1, 255, 255, 32), 7, 2),
+    ((1, 128, 128, 22), 7, 2),
+    ((1, 32, 32, 1344), 5, 1),
+    ((1, 32, 32, 88), 7, 1),
+    ((1, 64, 64, 44), 5, 1),
+    ((1, 128, 128, 11), 7, 1),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,k,stride", BACKBONE_SITES)
+def test_depthwise_kernels_match_plain_at_backbone_sites(card, shape, k, stride, dtype):
+    """K2/K3 and K4/K5 at one site against the plain versions in float64 on
+    the same (rounded) inputs and taps, by the bounds above."""
+    x, w, g = _dw_inputs(card, shape, k, stride, dtype)
+    rel = _REL[dtype]
+    wr = w.to(dtype).double()
+    counts = kernels.launch_counts()
+    y = depthwise_conv(x, w, stride)
+    dx, dw = depthwise_conv_backward(x, w, g, stride)
+    after = kernels.launch_counts()
+    assert after[f"depthwise_fwd_s{stride}"] == counts[f"depthwise_fwd_s{stride}"] + 1
+    assert after[f"depthwise_bwd_s{stride}"] == counts[f"depthwise_bwd_s{stride}"] + 1
+    ref = depthwise_conv_plain(x.double(), wr, stride)
+    assert y.dtype == dtype and (y.double() - ref).abs().max() <= rel * ref.abs().max()
+    rdx, rdw = depthwise_conv_backward_plain(x.double(), wr, g.double(), stride)
+    assert dx.dtype == dtype and (dx.double() - rdx).abs().max() <= rel * rdx.abs().max()
+    _, dw_abs = depthwise_conv_backward_plain(x.double().abs(), wr, g.double().abs(), stride)
+    assert ((dw.double() - rdw).abs() <= 1e-4 * dw_abs).all()
 
 
 # (B, H, W, C), k, stride, dilation, dtype, storage offset of x and g in
@@ -430,6 +470,37 @@ def test_upsample_argmax_ties_keep_the_first_class(card, scale):
     logits[..., 9] = top
     logits[..., 20] = top
     assert (upsample_argmax(logits, scale) == 4).all()
+
+
+# The backbones' pools (models/blocks.py) at NASNet's cell sizes.  On CUDA,
+# torch's avg_pool2d backward of a channels_last input with padding > 0 is
+# wrong; avg_pool_same_s1 pads explicitly and pools without padding.
+POOLS = {
+    "avg_pool_same_s1": lambda x: blocks.avg_pool_same_s1(x),
+    "pool_s2_keras_avg": lambda x: blocks.pool_s2_keras(x, 3, "avg"),
+    "pool_s2_keras_max": lambda x: blocks.pool_s2_keras(x, 3, "max"),
+    "max_pool_same": lambda x: blocks.max_pool_same(x, 3, 2),
+    "avg_pool_valid": lambda x: blocks.avg_pool_valid(x, 2),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 88, 8, 8), (2, 11, 32, 32), (2, 22, 17, 15)])
+@pytest.mark.parametrize("pool", sorted(POOLS))
+def test_pools_match_float64_in_channels_last(card, pool, shape):
+    """Each pool and its gradient on a channels_last float32 input on the
+    card within 1e-5 (of the largest value) of float64 on the CPU."""
+    fn = POOLS[pool]
+    x64 = torch.randn(shape, generator=torch.Generator().manual_seed(1), dtype=torch.float64)
+    x = x64.clone().requires_grad_()
+    y64 = fn(x)
+    g64 = torch.randn(y64.shape, generator=torch.Generator().manual_seed(2), dtype=torch.float64)
+    y64.backward(g64)
+    xc = x64.float().cuda().contiguous(memory_format=torch.channels_last).requires_grad_()
+    y = fn(xc)
+    y.backward(g64.float().cuda().contiguous(memory_format=torch.channels_last))
+    assert (y.detach().double().cpu() - y64.detach()).abs().max() <= 1e-5 * y64.abs().max()
+    assert (xc.grad.double().cpu() - x.grad).abs().max() <= 1e-5 * x.grad.abs().max()
 
 
 @pytest.mark.cuda

@@ -85,9 +85,9 @@ def test_remat_moves_running_statistics_once_a_step():
     calls = []
     forward = model.base.forward
 
-    def counted(x):  # the recompute calls the module's forward again
+    def counted(x, generator):  # the recompute calls the module's forward again
         calls.append(1)
-        return forward(x)
+        return forward(x, generator)
 
     model.base.forward = counted
     bn = model.base.bn_Conv1

@@ -69,7 +69,7 @@ def _redraw(tree, rng, path=()):
             # He scale; a 5x smaller classifier keeps logits at a few units
             gain = 0.2 if "classifier_l2" in path else 1.0
             val = rng.normal(0.0, gain * np.sqrt(2.0 / fan_in), shape)
-        elif k in ("scale", "var"):
+        elif k in ("scale", "var", "normalization_var"):
             val = rng.uniform(0.6, 1.4, shape)
         else:  # bias, mean
             val = rng.normal(0.0, 0.2, shape)
