@@ -67,7 +67,15 @@ BN statistics of its float32 phases:
   (40 of 64 samples);
 - export: ``convert_to_tf_lite()``, the depthwise operator nodes of the
   ``.pt2``, and ``torch.export.load`` of it at B=1 and B=16 against the
-  model.
+  model;
+- ``ddp``: two ranks of a process group (a card each over NCCL where two
+  cards exist, else both on the one card over gloo: a correctness check,
+  not a speed), spawned with a deadline, against one process: 3 float32
+  steps of 16 × 512² (8 rows a rank) and one bfloat16 step (losses,
+  first-step gradients, confusion matrices, parameters; ranks bit for
+  bit; K2–K5 launches per rank and step), then on a VOC tree ``train()``
+  streamed and with a sharded ``cache_device``, ``evaluate()`` and
+  ``test()``, images/s and a profiled epoch's idle share.
 
 Then the backbones' pools and their gradients in ``channels_last`` on
 the card against float64 (:func:`check_pools`), and the other backbones,
@@ -88,7 +96,8 @@ Then it prints the forward and backward depthwise summaries against cuDNN
 and the byte bound (K7's beside the one-tile-a-block design it replaced),
 K2–K5 by kernel size at the new backbones' sites (``depthwise_by_k``),
 one JSON line of kernel results (K1-K7; K2-K7 also in bfloat16, K2-K5 in
-float16; launches by path, the new phases' paths included), the card's
+float16; launches by path, the new phases' paths and the ddp phase's rank
+0 included), the card's
 name and power limit, and as its last line ``{"ok": true, "device": {...}}``.
 
 Any failed check exits non-zero.  Long outputs (the per-site table
@@ -1842,7 +1851,7 @@ def run_cache_device(kernels, card: str) -> dict:
 
         # the cached facade reads the loaders built above: its epochs
         # decode nothing on the host
-        cached._loader = lambda mode, shuffle=False, with_labels=True: (
+        cached._loader = lambda mode, shuffle=False, with_labels=True, accum=1: (
             ds_train if mode == MODE_TRAIN else ds_val)
         for name, seg in (("stream", streamed), ("cache", cached)):
             seg.hps.epochs = 1
@@ -1936,6 +1945,400 @@ def run_export(kernels, card: str, state: dict) -> dict:
     return by_path
 
 
+# ---- the ddp phase: two ranks of a process group against one process ----
+
+DDP_STEPS = 3
+# the step at 16 × 512², float32, TF32 off, cuDNN deterministic, against
+# one process.  The first step: the bounds of the JAX package's
+# N-against-1-device check (__graft_entry__.py:182-200, one step): the loss
+# to 1e-5 relative, the confusion matrix to max(8, pixels/4096); parameters
+# after 3 steps to 3e-3.  Float32 rounding alone moves the gradient: a
+# pre-activation that rounds across a ReLU6 kink changes every gradient
+# upstream of it (PERF.md §6: 2.6e-3 in relative 2-norm between the
+# flagship's float32 and float64 steps), and Keras Adam at β₁ = 0.5 turns a
+# gradient that rounds across zero into a whole ±lr update.  The yardstick
+# of that is one process taking the same batches with their rows in
+# reverse order (the same sums, in another order): the first step's
+# gradients and every later step's loss and confusion matrix are held to
+# the larger of those bounds (1e-5 for gradients) and 10× that run's
+# distance (for the loss, its largest after an update), as the remat
+# phase holds its gradients to its own spread
+DDP_LOSS_REL, DDP_PARAM_ATOL, DDP_SPREAD = 1e-5, 3e-3, 10
+# train() for 2 epochs (8 steps) against one process: float32 steps drift
+# apart chaotically (Keras Adam at β₁ = 0.5 turns a gradient that rounds
+# across zero into a whole ±lr update), so per epoch: losses to 2e-2
+# relative, mIoUs to 2e-2; the sharded cache draws other global batches
+# than one process's single stream (every sample once an epoch all the
+# same), so 5e-2 for both
+DDP_HISTORY = {"streamed": (2e-2, 2e-2), "cache_device": (5e-2, 5e-2)}
+DDP_MIOU_ABS = 1e-4  # evaluate() of one checkpoint, 2 ranks against one process
+
+
+def ddp_conf(conf: dict) -> dict:
+    """``conf`` with the encoder's dropout at 0: element-wise dropout draws
+    from each rank's own stream (ROADMAP.md, known divergences), so N ranks
+    equal one process only without it, as the JAX package's own sharding
+    test sets it (tests/test_sharding.py:33)."""
+    conf["nn_arch"]["dropout_rate"] = 0.0
+    return conf
+
+
+def ddp_layout() -> dict:
+    """Two ranks: a card each over NCCL where two cards exist, else both on
+    the one card over gloo (NCCL refuses two ranks on one device); a
+    correctness check then, not a speed."""
+    import torch
+
+    cards = torch.cuda.device_count()
+    if cards >= 2:
+        return {"backend": "nccl", "cards": cards, "world": 2, "devices": ["cuda:0", "cuda:1"]}
+    return {"backend": "gloo", "cards": cards, "world": 2, "devices": ["cuda:0", "cuda:0"]}
+
+
+def ddp_numerics() -> None:
+    import torch
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+
+
+def ddp_batches(n: int, seed: int = 7) -> list[dict]:
+    """Global batches of 16 × 512² made on the CPU from a seed, the same in
+    every process: images in (−1, 1), integer labels."""
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    return [{"image": torch.rand(BATCH, SIZE, SIZE, 3, generator=gen) * 2 - 1,
+             "label": torch.randint(0, CLASSES, (BATCH, SIZE, SIZE), generator=gen)}
+            for _ in range(n)]
+
+
+def ddp_steps(state: dict, device, rows=None, dtype: str = "float32",
+              steps: int = DDP_STEPS) -> dict:
+    """``train_step()`` of the flagship from ``state`` on ``steps`` global
+    batches (this rank's ``rows`` of each under a group, all of them
+    otherwise): per step the loss, the confusion matrix, the kernels'
+    launches and the wall time; then the weights and statistics."""
+    import torch
+
+    from deeplabv3plus_keras_tpu_torch import SemanticSegmentation, kernels
+    from deeplabv3plus_keras_tpu_torch.parallel import mesh
+
+    conf = ddp_conf(flagship_conf())
+    conf["hps"]["dtype"] = dtype
+    if mesh.is_active():
+        conf.update(multi_gpu=True, num_gpus=mesh.world_size())
+    seg = SemanticSegmentation(conf, device=device)
+    seg.model.load_state_dict(state)
+    out = {"losses": [], "cms": [], "launches": [], "step_s": []}
+    for b in ddp_batches(steps):
+        local = {k: (v if rows is None else v[rows]).to(device) for k, v in b.items()}
+        kernels.reset_launch_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        m = seg.train_step(local)
+        out["losses"].append(m["loss"].item())
+        out["step_s"].append(time.perf_counter() - t)
+        out["launches"].append(kernels.launch_counts())
+        out["cms"].append(m["cm"].cpu())
+        if len(out["cms"]) == 1:
+            out["grads"] = {n: p.grad.detach().cpu() for n, p in seg.model.named_parameters()}
+    out["state"] = {k: v.detach().cpu() for k, v in seg.model.state_dict().items()}
+    return out
+
+
+def _ddp_step_rank(state_path: str, out_dir: str) -> None:
+    """A rank of the ddp phase's step check: 3 float32 steps and one
+    bfloat16 step on its 8 rows of each global batch."""
+    import torch
+
+    from deeplabv3plus_keras_tpu_torch.parallel import mesh
+
+    ddp_numerics()
+    device = torch.device("cuda", torch.cuda.current_device())
+    state = torch.load(state_path, map_location=device)
+    rows = torch.as_tensor(mesh.row_indices(BATCH))
+    out = {"float32": ddp_steps(state, device, rows),
+           "bfloat16": ddp_steps(state, device, rows, "bfloat16", steps=1)}
+    # what one collective of the step costs: a BN layer's (2 rank slots of
+    # 2 × 320 channels) and the gradients' flat all-reduce, waited for
+    n_params = sum(v.numel() for k, v in state.items()
+                   if not k.endswith(("running_mean", "running_var")))
+    out["collective_ms"] = {}
+    for name, numel in (("bn_slots", 2 * 2 * 320), ("gradients", n_params)):
+        t = torch.zeros(numel, device=device)
+        for _ in range(3):
+            mesh.all_reduce_(t)
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        for _ in range(20):
+            mesh.all_reduce_(t)
+        torch.cuda.synchronize()
+        out["collective_ms"][name] = (time.perf_counter() - start) * 1e3 / 20
+    torch.save(out, os.path.join(out_dir, f"step_r{mesh.rank()}.pt"))
+
+
+def _ddp_data_rank(root: str, work: str, out_dir: str) -> None:
+    """A rank of the ddp phase's data path: ``train()`` streamed and with a
+    sharded ``cache_device``, ``evaluate()`` and ``test()`` of the
+    streamed run's checkpoint (the rank's PNGs against its ``segment()``),
+    and one epoch profiled on rank 0 (the card's idle share)."""
+    import numpy as np
+    import torch
+    from PIL import Image
+    from torch.profiler import ProfilerActivity, profile
+
+    from deeplabv3plus_keras_tpu_torch import SemanticSegmentation, kernels
+    from deeplabv3plus_keras_tpu_torch.data import MODE_TEST
+    from deeplabv3plus_keras_tpu_torch.parallel import mesh
+
+    ddp_numerics()
+    device = torch.device("cuda", torch.cuda.current_device())
+    conf = {**ddp_conf(data_path_conf(root)), "multi_gpu": True, "num_gpus": mesh.world_size()}
+    out, by_path = {}, {}
+    for name, extra in (("streamed", {}), ("cache_device", {"cache_device": True})):
+        seg = SemanticSegmentation({**conf, **extra}, work_dir=os.path.join(work, name),
+                                   device=device)
+        if name == "streamed":
+            # this process's first step (cuDNN's and gloo's set-up) outside
+            # the timed call; its update is overwritten from rank 0 below
+            seg.train_step({"image": torch.zeros(BATCH // 2, SIZE, SIZE, 3, device=device),
+                            "label": torch.zeros(BATCH // 2, SIZE, SIZE, dtype=torch.long,
+                                                 device=device)})
+            seg = SemanticSegmentation({**conf, **extra}, work_dir=os.path.join(work, name),
+                                       device=device)
+        kernels.reset_launch_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        history = seg.train()
+        out[name] = {"history": history, "train_s": time.perf_counter() - t}
+        if name == "streamed":
+            by_path["train_loop_ddp"] = kernels.launch_counts()
+        del seg
+    seg = SemanticSegmentation({**conf, "model_loading": True},
+                               work_dir=os.path.join(work, "streamed"), device=device)
+    kernels.reset_launch_counts()
+    out["evaluate_miou"] = seg.evaluate().result()
+    by_path["evaluate_ddp"] = kernels.launch_counts()
+    seg.test()
+    mismatched, mine = 0, []
+    png_dir = os.path.join(work, "streamed", "test_results")
+    for batch in seg._batches(seg._loader(MODE_TEST, with_labels=False), with_labels=False):
+        labels = seg.segment(batch["image"])
+        for name, lab in zip(batch["names"], labels):
+            png = np.asarray(Image.open(os.path.join(png_dir, f"{name}.png")))
+            mismatched += int((png != lab.astype(np.uint8)).sum())
+            mine.append(name)
+    out["test"] = {"names": mine, "mismatched_pixels": mismatched}
+    del seg
+    seg = SemanticSegmentation(conf, work_dir=os.path.join(work, "profiled"), device=device)
+    seg.hps.epochs = 1
+    profiler = (profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+                if mesh.rank() == 0 else contextlib.nullcontext())
+    with profiler as prof:
+        t = time.perf_counter()
+        seg.train()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    if mesh.rank() == 0:
+        out["profiled_epoch"] = device_idle_share(prof, wall)
+    out["launches"] = by_path
+    with open(os.path.join(out_dir, f"data_r{mesh.rank()}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def run_ddp(kernels, card: str, state: dict) -> dict:
+    """Two ranks of a process group (:func:`ddp_layout`) against one
+    process, from the flagship's weights ``state``.  The step: 3 float32
+    steps of 16 × 512² (8 rows a rank) and one bfloat16 step (the
+    synchronised 16-bit BN backward on the card); losses, parameters and
+    confusion matrices against one process, parameters and statistics bit
+    for bit across ranks, K2–K5 launches per rank and step.  The data path
+    on the data path phase's tree: ``train()`` 2 epochs streamed and with a
+    sharded ``cache_device`` against one process's, ``evaluate()`` of one
+    checkpoint against one process's, ``test()``'s PNGs against the
+    ranks' ``segment()``; images/s and a profiled epoch's idle share.  The
+    ranks are spawned processes with a deadline; the one process runs
+    here, after them.  Returns the launches of the paths
+    ``train_step_ddp``, ``train_loop_ddp`` and ``evaluate_ddp`` (rank 0's)."""
+    import tempfile
+
+    import torch
+
+    from deeplabv3plus_keras_tpu_torch import SemanticSegmentation
+    from deeplabv3plus_keras_tpu_torch.data import make_synthetic_voc
+    from deeplabv3plus_keras_tpu_torch.parallel import launch
+
+    t0 = time.perf_counter()
+    layout = ddp_layout()
+    print(json.dumps({"ddp_layout": {k: layout[k] for k in ("backend", "cards", "world")},
+                      "card": card}))
+    deterministic = torch.backends.cudnn.deterministic
+    ddp_numerics()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        state_path = os.path.join(tmp, "state.pt")
+        torch.save(state, state_path)
+        # the ranks alone on the card, then the one process
+        launch.spawn(_ddp_step_rank, 2, (state_path, tmp), devices=layout["devices"],
+                     backend=layout["backend"], timeout_s=240, group_timeout_s=180)
+        one = ddp_steps(state, torch.device("cuda"))
+        reordered = ddp_steps(state, torch.device("cuda"), torch.arange(BATCH - 1, -1, -1))
+        one16 = ddp_steps(state, torch.device("cuda"), dtype="bfloat16", steps=1)
+        r0, r1 = (torch.load(os.path.join(tmp, f"step_r{r}.pt")) for r in (0, 1))
+        t_step = time.perf_counter() - t0
+
+        root, work = os.path.join(tmp, "resource"), os.path.join(tmp, "work")
+        make_synthetic_voc(root, n_train=64, n_val=32, n_test=16, min_size=300, max_size=501)
+        launch.spawn(_ddp_data_rank, 2, (root, work, tmp), devices=layout["devices"],
+                     backend=layout["backend"], timeout_s=420, group_timeout_s=180)
+        one_hist = {}
+        for name, extra in (("streamed", {}), ("cache_device", {"cache_device": True})):
+            seg = SemanticSegmentation({**ddp_conf(data_path_conf(root)), **extra},
+                                       work_dir=os.path.join(tmp, f"one_{name}"), device="cuda")
+            one_hist[name] = seg.train()
+            del seg
+        data = [json.loads(Path(tmp, f"data_r{r}.json").read_text()) for r in (0, 1)]
+        # one process evaluating the two ranks' checkpoint
+        seg = SemanticSegmentation({**ddp_conf(data_path_conf(root)), "model_loading": True},
+                                   work_dir=os.path.join(work, "streamed"), device="cuda")
+        one_miou = seg.evaluate().result()
+        pngs = sorted(os.listdir(os.path.join(work, "streamed", "test_results")))
+        del seg
+    torch.cuda.empty_cache()
+    torch.backends.cudnn.deterministic = deterministic
+
+    # ---- checks ----
+    names = ("depthwise_fwd_s1", "depthwise_fwd_s2", "depthwise_bwd_s1", "depthwise_bwd_s2")
+    pixels = BATCH * SIZE * SIZE
+
+    def loss_rel(run):
+        return [abs(a - b) / abs(b) for a, b in zip(run["losses"], one["losses"])]
+
+    def cm_diff(run):
+        return [int((a - b).abs().sum()) for a, b in zip(run["cms"], one["cms"])]
+
+    def param_err(run):
+        return max((run["state"][k] - v).abs().max().item()
+                   for k, v in one["state"].items() if v.is_floating_point())
+
+    def grad_rel(run):
+        diff = sum((run["grads"][n] - g).double().square().sum() for n, g in one["grads"].items())
+        return math.sqrt(diff / sum(g.double().square().sum() for g in one["grads"].values()))
+
+    def grad_worst(run, k=8):
+        """The tensors that hold most of the gradients' squared distance:
+        (name, share of it, the tensor's own relative distance)."""
+        sq = {n: (run["grads"][n] - g).double().square().sum().item()
+              for n, g in one["grads"].items()}
+        total = sum(sq.values()) or 1.0
+        top = sorted(sq, key=lambda n: -sq[n])[:k]
+        return [(n, sq[n] / total, math.sqrt(sq[n]) / max(one["grads"][n].norm().item(), 1e-30))
+                for n in top]
+
+    spread = {"loss_rel": loss_rel(reordered), "cm_abs_diff": cm_diff(reordered),
+              "param_max_abs_err": param_err(reordered), "grad_rel_2norm": grad_rel(reordered)}
+    grad_bound = max(1e-5, DDP_SPREAD * spread["grad_rel_2norm"])
+    # after an update the loss distance is chaotic from step to step: the
+    # reordered run's largest one
+    loss_bound = [DDP_LOSS_REL] + [max(DDP_LOSS_REL, DDP_SPREAD * max(spread["loss_rel"][1:]))
+                                   ] * (DDP_STEPS - 1)
+    cm_bound = [max(8, pixels // 4096)] + [max(8, pixels // 4096, DDP_SPREAD * d)
+                                           for d in spread["cm_abs_diff"][1:]]
+    identical = {dtype: all(torch.equal(r0[dtype]["state"][k], r1[dtype]["state"][k])
+                            for k in r0[dtype]["state"]) for dtype in ("float32", "bfloat16")}
+    per_rank = [[[c[k] for k in names] for c in r["float32"]["launches"]] for r in (r0, r1)]
+    one_launches = [[c[k] for k in names] for c in one["launches"]]
+    # bfloat16: the bounds tests/test_torch_dtype.py states against JAX
+    lr = flagship_conf()["hps"].get("lr", 1e-4)
+    b_loss = abs(r0["bfloat16"]["losses"][0] - one16["losses"][0]) / one16["losses"][0]
+    stats = [k for k in one16["state"] if k.endswith(("running_mean", "running_var"))]
+    s2 = torch.cat([r0["bfloat16"]["state"][k].flatten() for k in stats])
+    s1 = torch.cat([one16["state"][k].flatten() for k in stats])
+    b_stats = ((s2 - s1).norm() / s1.norm()).item()
+    params = [k for k in one16["state"] if k not in stats and one16["state"][k].is_floating_point()
+              and not k.endswith("num_batches_tracked")]
+    p0 = torch.cat([state[k].cpu().flatten() for k in params])
+    d2 = torch.cat([r0["bfloat16"]["state"][k].flatten() for k in params]) - p0
+    d1 = torch.cat([one16["state"][k].flatten() for k in params]) - p0
+    b_update = (d2 - d1).abs().max().item()
+    b_sign = (torch.sign(d2) == torch.sign(d1)).double().mean().item()
+
+    hist_err = {}
+    for name in ("streamed", "cache_device"):
+        h2, h1 = data[0][name]["history"], one_hist[name]
+        hist_err[name] = {
+            "loss_rel": max(abs(a - b) / abs(b) for k in ("loss", "val_loss")
+                            for a, b in zip(h2[k], h1[k])),
+            "miou_abs": max(abs(a - b) for k in ("miou", "val_miou") for a, b in zip(h2[k], h1[k]))}
+    n_img = 64 * 2
+    result = {
+        **{k: layout[k] for k in ("backend", "cards", "world")},
+        "note": ("two ranks on one card: a correctness check, not a speed" if layout["cards"] < 2
+                 else "a card a rank"),
+        "step": {"batch": BATCH, "image": SIZE, "rows_per_rank": BATCH // 2,
+                 "loss_rel": loss_rel(r0["float32"]), "loss_bound": loss_bound,
+                 "grad_rel_2norm": grad_rel(r0["float32"]), "grad_bound": grad_bound,
+                 "grad_worst_tensors": grad_worst(r0["float32"]),
+                 "param_max_abs_err": param_err(r0["float32"]),
+                 "cm_abs_diff": cm_diff(r0["float32"]), "cm_bound": cm_bound,
+                 "one_process_rows_reversed": spread,
+                 "ranks_bit_identical": identical, "launches_per_rank_step": per_rank,
+                 "one_process_launches_per_step": one_launches,
+                 "step_s_rank0": r0["float32"]["step_s"], "step_s_one_process": one["step_s"],
+                 "collective_ms": r0["collective_ms"],
+                 "bfloat16": {"loss_rel": b_loss, "bn_stats_rel_norm": b_stats,
+                              "update_max_abs_err": b_update, "update_sign_agreement": b_sign},
+                 "s": t_step},
+        "data_path": {"histories": {n: data[0][n]["history"] for n in ("streamed", "cache_device")},
+                      "one_process": one_hist, "history_err": hist_err,
+                      "ranks_equal_histories": all(data[0][n]["history"] == data[1][n]["history"]
+                                                   for n in ("streamed", "cache_device")),
+                      "evaluate_miou": data[0]["evaluate_miou"], "one_process_miou": one_miou,
+                      "test_pngs": len(pngs),
+                      "test_mismatched_pixels": [d["test"]["mismatched_pixels"] for d in data],
+                      "train_img_per_s": {n: n_img / data[0][n]["train_s"]
+                                          for n in ("streamed", "cache_device")},
+                      "profiled_epoch": data[0]["profiled_epoch"]},
+        "s": time.perf_counter() - t0, "card": card}
+    print(json.dumps({"ddp": result}))
+
+    failures = []
+    step = result["step"]
+    if not all(d <= b for d, b in zip(step["loss_rel"], loss_bound)):
+        failures.append(f"step losses {step['loss_rel']} > {loss_bound}")
+    if not step["grad_rel_2norm"] <= grad_bound:
+        failures.append(f"first step's gradients {step['grad_rel_2norm']} > {grad_bound}")
+    if not step["param_max_abs_err"] <= DDP_PARAM_ATOL:
+        failures.append(f"parameters after {DDP_STEPS} steps {step['param_max_abs_err']} > "
+                        f"{DDP_PARAM_ATOL}")
+    if not all(d <= b for d, b in zip(step["cm_abs_diff"], cm_bound)):
+        failures.append(f"confusion matrices differ by {step['cm_abs_diff']} > {cm_bound}")
+    if not all(identical.values()):
+        failures.append(f"ranks hold different parameters or statistics: {identical}")
+    expect = [15, 3, 15, 3]
+    if any(step != expect for rank in per_rank for step in rank) or any(
+            step != expect for step in one_launches):
+        failures.append(f"K2-K5 launches a step {per_rank} (one process {one_launches})")
+    if not (b_loss <= 1e-3 and b_stats <= 3e-2 and b_update <= 2 * lr * 1.01 and b_sign >= 0.6):
+        failures.append(f"bfloat16 step: {result['step']['bfloat16']}")
+    for name, (loss_b, miou_b) in DDP_HISTORY.items():
+        e = hist_err[name]
+        if not (e["loss_rel"] <= loss_b and e["miou_abs"] <= miou_b):
+            failures.append(f"{name} train() history against one process: {e}")
+    if not result["data_path"]["ranks_equal_histories"]:
+        failures.append("the ranks' train() histories differ")
+    if not abs(data[0]["evaluate_miou"] - one_miou) <= DDP_MIOU_ABS:
+        failures.append(f"evaluate() mIoU {data[0]['evaluate_miou']} vs one process {one_miou}")
+    if len(pngs) != 16 or any(d["test"]["mismatched_pixels"] for d in data) or sorted(
+            data[0]["test"]["names"] + data[1]["test"]["names"]) != [p[:-4] for p in pngs]:
+        failures.append(f"test(): {len(pngs)} PNGs, {result['data_path']['test_mismatched_pixels']}")
+    if failures:
+        raise SystemExit("ddp: " + "; ".join(failures))
+    return {"train_step_ddp": r0["float32"]["launches"][0], **data[0]["launches"]}
+
+
 def main() -> int:
     import torch
 
@@ -2019,6 +2422,9 @@ def main() -> int:
                           "s": time.perf_counter() - t1}))
         by_path.update(run_export(kernels, card, state))
         print(json.dumps({"model": "mobilenetv2", "phase": "export", "s": time.perf_counter() - t1}))
+        # two ranks of a process group against one process
+        by_path.update(run_ddp(kernels, card, state))
+        print(json.dumps({"model": "mobilenetv2", "phase": "ddp", "s": time.perf_counter() - t1}))
         # EfficientNet-B0, NASNet-Mobile and DenseNet-121 at full size (K2–K5
         # at k = 3, 5, 7 and C = 11, 22; also in bfloat16 for the first two),
         # then the nine other variants at 128²

@@ -24,10 +24,20 @@ memory, ``data/pipeline.py`` ``DeviceDataset``) are taken as the JAX
 facade takes them.  ``convert_to_tf_lite()`` writes a ``torch.export``
 program (``EXPORT_MODEL_PATH``).
 
+``multi_gpu`` with ``num_gpus`` N > 1 trains, evaluates and tests over the
+N ranks of a ``torch.distributed`` process group, one device each
+(``parallel/mesh.py``): the group the caller has initialised, else the one
+torchrun's environment describes (the CLI starts the ranks itself).
+``hps.batch_size`` is the global batch; each rank decodes and computes its
+own rows, BN statistics, the loss and the gradients are the global batch's,
+as on the JAX package's N-device mesh.  Rank 0 alone prints, logs and
+writes checkpoints; ``evaluate``'s result panels and ``test``'s PNGs are
+written by the rank that owns each sample.  The extra key
+``allow_fewer_devices`` shrinks N to the ranks there are, as in JAX.
+
 Config keys that would change the result and are not ported yet
-(``multi_gpu`` with ``num_gpus`` > 1, ``int8_infer``,
-``backbone_weights``, ``mesh_space`` > 1) raise ``NotImplementedError``
-naming their ROADMAP.md item.
+(``int8_infer``, ``backbone_weights``, ``mesh_space`` > 1) raise
+``NotImplementedError`` naming their ROADMAP.md item.
 
 The environment variable ``DLV3_DW_LAYOUT=bhcw`` routes the 3×3 stride-1
 undilated depthwise sites through the channels-first kernels
@@ -53,6 +63,7 @@ from .config import (
 from .data import pipeline as pipe
 from .data import voc
 from .models.deeplab import DeepLabV3Plus
+from .parallel import mesh
 from .parallel.step import (
     build_eval_step,
     build_label_step,
@@ -90,6 +101,40 @@ def resolve_device(device=None) -> torch.device:
     return torch.device("cuda")
 
 
+def join_ranks(conf: Config, device=None) -> int:
+    """The number of ranks the facade runs over (the JAX facade's mesh size,
+    ``api.py:86-108``): ``num_gpus`` under ``multi_gpu``, else 1.  Asked for
+    N > 1 with no group initialised, joins the group of torchrun's
+    environment where it is set.  A config that asks for more ranks than
+    the group has raises, unless the extra key ``allow_fewer_devices``
+    shrinks it to the group with a warning; one that asks for fewer than an
+    active group has raises."""
+    requested = conf.num_gpus if conf.multi_gpu else 1
+    if requested > 1 and mesh.world_size() == 1 and mesh.launched_by_torchrun():
+        mesh.init_from_env(device)
+    available = mesh.world_size()
+    if requested > available:
+        if conf.extra.get("allow_fewer_devices", False):
+            print(f"warning: num_gpus {requested} > available ranks {available}; "
+                  "shrinking the group (allow_fewer_devices)")
+            return available
+        if available == 1:
+            raise RuntimeError(
+                f"config requests num_gpus={requested} but no process group is initialised: "
+                f"start the ranks with `python -m deeplabv3plus_keras_tpu_torch.cli conf.json` "
+                f"(it starts {requested}) or `torchrun --nproc_per_node {requested}`, or set the "
+                "extra config key 'allow_fewer_devices': true to train on one device")
+        raise RuntimeError(
+            f"config requests num_gpus={requested} but only {available} rank(s) are in the "
+            "process group; set the extra config key 'allow_fewer_devices': true to train on "
+            "the smaller group")
+    if requested < available:
+        raise ValueError(
+            f"a process group of {available} ranks is active but the config asks for "
+            f"{requested} (set 'multi_gpu': true, 'num_gpus': {available})")
+    return available
+
+
 class SemanticSegmentation:
     """JSON-config-driven DeepLabV3+ semantic segmentation model."""
 
@@ -100,15 +145,9 @@ class SemanticSegmentation:
         self.hps = self.conf.hps
         self.nn_arch = self.conf.nn_arch
         self.work_dir = work_dir
-        self.device = resolve_device(device)
         extra = self.conf.extra
         if extra.get("int8_infer", False):
             raise NotImplementedError("int8_infer is not ported yet (ROADMAP.md Queue A item 15)")
-        if self.conf.multi_gpu and self.conf.num_gpus > 1:
-            raise NotImplementedError(
-                f"multi_gpu with num_gpus={self.conf.num_gpus}: the port trains on one "
-                "device so far (ROADMAP.md Queue A item 13, multi-GPU data parallelism)"
-            )
         # the JAX facade loads these weights or raises (api.py:131-133); it
         # skips only an unset or empty key (utils/pretrained.py:79-81)
         if extra.get("backbone_weights"):
@@ -120,8 +159,13 @@ class SemanticSegmentation:
         if int(extra.get("mesh_space", 1)) > 1:
             raise NotImplementedError(
                 f"mesh_space={extra['mesh_space']}: spatial sharding is not "
-                "ported yet (ROADMAP.md Queue A item 13, multi-GPU data parallelism)"
+                "ported yet (ROADMAP.md Queue A item 13b, halo exchange in every conv)"
             )
+        # ranks: the process group (multi_gpu), else this process alone
+        self.world = join_ranks(self.conf, device)
+        self.device = mesh.rank_device(device) if self.world > 1 else resolve_device(device)
+        self._main = mesh.rank() == 0
+        self._accum = max(1, int(extra.get("grad_accum", 1)))
 
         self.model = DeepLabV3Plus(self.conf)
         self.model.init_weights(torch.Generator().manual_seed(_SEED))
@@ -129,6 +173,9 @@ class SemanticSegmentation:
         self.optimizer = create_train_state(self.conf, self.model)
         if self.conf.model_loading and checkpoint_exists(work_dir):
             restore_checkpoint(self.model, self.optimizer, work_dir)
+        # every rank starts from rank 0's weights and statistics
+        mesh.broadcast_tensors_([t for t in self.model.state_dict().values()
+                                 if t.is_floating_point()])
         # extra key 'class_weights_npz': the loss's class-balance weights
         self._cw = resolve_class_weights(self.conf)
         self._train_step = build_train_step(self.model, self.optimizer, self.conf,
@@ -149,7 +196,9 @@ class SemanticSegmentation:
         """One Keras-Adam step on ``batch`` (``image`` (B,S,S,3), ``label``
         one-hot (B,S,S,C) or int (B,S,S), optional ``valid`` (B,)), BN in
         training mode.  Returns ``{"loss", "cm"}`` as device tensors, so a
-        loop of steps does not wait on each one."""
+        loop of steps does not wait on each one.  Over N ranks, ``batch`` is
+        this rank's rows (``mesh.row_indices``) and the results are the
+        global batch's."""
         return self._train_step(self._batch(batch))
 
     def eval_step(self, batch: dict) -> dict:
@@ -196,8 +245,9 @@ class SemanticSegmentation:
             return openimages.google_open_images_v5(rp, mode)
         raise ValueError(f"unknown resource_type {rt!r}")
 
-    def _loader(self, mode: int, shuffle: bool = False, with_labels: bool = True):
-        loader = self._host_loader(mode, shuffle, with_labels)
+    def _loader(self, mode: int, shuffle: bool = False, with_labels: bool = True,
+                accum: int = 1):
+        loader = self._host_loader(mode, shuffle, with_labels, accum)
         # extra key 'cache_device': the decoded dataset resident in device
         # memory (~1 MiB a sample at a 512² canvas); epochs gather their
         # batches there.  Not with the host SciPy path (prepro_device -1),
@@ -213,7 +263,8 @@ class SemanticSegmentation:
                 residual_cache=bool(self.conf.extra.get("cache_decoded", False)))
         return loader
 
-    def _host_loader(self, mode: int, shuffle: bool, with_labels: bool) -> pipe.HostLoader:
+    def _host_loader(self, mode: int, shuffle: bool, with_labels: bool,
+                     accum: int = 1) -> pipe.HostLoader:
         return pipe.HostLoader(
             self._specs(mode),
             batch_size=self.hps.batch_size,
@@ -231,6 +282,8 @@ class SemanticSegmentation:
             cache=bool(self.conf.extra.get("cache_decoded", False)),
             # extra key 'loader_backend': auto | native | pil
             backend=str(self.conf.extra.get("loader_backend", "auto")),
+            # this rank's rows of each global batch (all rows on one rank)
+            rank=mesh.rank(), world=self.world, accum=accum,
         )
 
     def _batches(self, loader, with_labels: bool = True):
@@ -263,7 +316,13 @@ class SemanticSegmentation:
         flight, saves the resume slot and returns).
 
         The step loop never waits on the device: losses and confusion
-        matrices stay device tensors until the epoch's end."""
+        matrices stay device tensors until the epoch's end (over N ranks it
+        waits one step late, for the ranks' agreement on a SIGTERM).
+
+        Over N ranks every rank computes the same history (the losses and
+        confusion matrices are the global batch's), so ``nan_guard`` and
+        ``ReduceLROnPlateau`` decide alike everywhere; rank 0 prints, logs
+        and writes the checkpoints, and every rank waits for each write."""
         plateau = ReduceLROnPlateau(self.hps.reduce_lr_factor, patience=5, min_lr=1e-8)
         sched_spec = self.conf.extra.get("lr_schedule")
         schedule = (
@@ -271,21 +330,27 @@ class SemanticSegmentation:
                        self.hps.epochs, default_factor=self.hps.reduce_lr_factor)
             if sched_spec else None
         )
-        logger = MetricsLogger(self.conf.extra.get("metrics_log"))
-        profile_logdir = self.conf.extra.get("profile_logdir")
+        main = self._main
+        logger = MetricsLogger(self.conf.extra.get("metrics_log") if main else None)
+        profile_logdir = self.conf.extra.get("profile_logdir") if main else None
         history = {"loss": [], "miou": [], "val_loss": [], "val_miou": []}
         opt = self.optimizer
 
         def preemption_save(epoch):
-            save_checkpoint(self.model, opt, self.work_dir, best_only=False)
-            logger.log({"preempted": True, "epoch": epoch + 1, "step": opt.iterations})
-            print("SIGTERM received: checkpoint saved, training stopped")
+            if main:
+                save_checkpoint(self.model, opt, self.work_dir, best_only=False)
+                logger.log({"preempted": True, "epoch": epoch + 1, "step": opt.iterations})
+                print("SIGTERM received: checkpoint saved, training stopped")
+            mesh.barrier(self.device)
 
         with PreemptionGuard(self.conf.extra.get("preemption_save", True)) as guard:
             try:
-                tr_loader = self._loader(voc.MODE_TRAIN, shuffle=True)
+                tr_loader = self._loader(voc.MODE_TRAIN, shuffle=True, accum=self._accum)
                 val_loader = self._loader(voc.MODE_VAL)
+                preempted = False
             except Preempted:
+                preempted = True
+            if mesh.any_rank(preempted, self.device):
                 preemption_save(0)
                 return history
             self.hps.tr_step = tr_loader.steps()
@@ -298,8 +363,9 @@ class SemanticSegmentation:
                 start_epoch = min(opt.iterations // max(self.hps.tr_step, 1), self.hps.epochs)
                 if start_epoch:
                     tr_loader.set_epoch(start_epoch)
-                    print(f"resume: continuing at epoch {start_epoch + 1}/{self.hps.epochs} "
-                          f"(step {opt.iterations})")
+                    if main:
+                        print(f"resume: continuing at epoch {start_epoch + 1}/{self.hps.epochs} "
+                              f"(step {opt.iterations})")
             for epoch in range(start_epoch, self.hps.epochs):
                 t0 = time.time()
                 if schedule is not None:
@@ -307,6 +373,7 @@ class SemanticSegmentation:
                 losses = []
                 miou = MeanIoU(self.nn_arch.num_classes)
                 timer = StepTimer(warmup=1, device=self.device)
+                stop = mesh.StopAgreement(self.device)
                 with profiler_trace(profile_logdir if epoch == 0 else None):
                     for batch in self._batches(tr_loader):
                         batch.pop("names")
@@ -314,9 +381,9 @@ class SemanticSegmentation:
                             metrics = self._train_step(batch)
                         losses.append(metrics["loss"])
                         miou.update_from_cm(metrics["cm"])
-                        if guard.triggered:
+                        if stop.poll(guard.triggered):
                             break
-                if guard.triggered:
+                if mesh.any_rank(guard.triggered, self.device):
                     preemption_save(epoch)
                     break
                 train_loss = _mean(losses)
@@ -331,14 +398,15 @@ class SemanticSegmentation:
 
                 val_losses = []
                 val_miou = MeanIoU(self.nn_arch.num_classes)
+                stop = mesh.StopAgreement(self.device)
                 for batch in self._batches(val_loader):
                     batch.pop("names")
                     metrics = self._eval_step(batch)
                     val_losses.append(metrics["loss"])
                     val_miou.update_from_cm(metrics["cm"])
-                    if guard.triggered:
+                    if stop.poll(guard.triggered):
                         break
-                if guard.triggered:
+                if mesh.any_rank(guard.triggered, self.device):
                     # mid-validation: save and stop without recording the
                     # partial epoch
                     preemption_save(epoch)
@@ -353,42 +421,64 @@ class SemanticSegmentation:
                 lr = opt.lr
                 if schedule is None:
                     opt.lr = plateau.update(train_loss, lr)
-                saved = save_checkpoint(self.model, opt, self.work_dir, val_loss=val_loss)
+                saved = main and save_checkpoint(self.model, opt, self.work_dir,
+                                                 val_loss=val_loss)
+                mesh.barrier(self.device)
                 logger.log({
                     "epoch": epoch + 1, "loss": train_loss, "miou": history["miou"][-1],
                     "val_loss": val_loss, "val_miou": history["val_miou"][-1], "lr": opt.lr,
                     "checkpoint_saved": saved, "step_time": timer.stats(),
                 })
-                print(f"epoch {epoch + 1}/{self.hps.epochs} "
-                      f"loss {train_loss:.4f} miou {history['miou'][-1]:.4f} "
-                      f"val_loss {val_loss:.4f} val_miou {history['val_miou'][-1]:.4f} "
-                      f"lr {opt.lr:.2e} {'[ckpt]' if saved else ''} "
-                      f"({time.time() - t0:.1f}s)")
+                if main:
+                    print(f"epoch {epoch + 1}/{self.hps.epochs} "
+                          f"loss {train_loss:.4f} miou {history['miou'][-1]:.4f} "
+                          f"val_loss {val_loss:.4f} val_miou {history['val_miou'][-1]:.4f} "
+                          f"lr {opt.lr:.2e} {'[ckpt]' if saved else ''} "
+                          f"({time.time() - t0:.1f}s)")
             else:
                 # every epoch ran: the best-val slot is the run's artifact
-                clear_resume_checkpoint(self.work_dir)
+                if main:
+                    clear_resume_checkpoint(self.work_dir)
+                mesh.barrier(self.device)
         return history
 
     def evaluate(self, mode: int = voc.MODE_VAL, result_saving: bool = False) -> MeanIoU:
         """Streaming mIoU over the split ``mode``; ``result_saving`` writes
         4-panel image | label | prediction | overlay PNGs to
-        ``work_dir/results`` (reference evaluate, :1011-1115).  SIGTERM stops
-        after the batch in flight and returns the metric so far."""
+        ``work_dir/results`` (reference evaluate, :1011-1115), named after
+        each sample's number in the split's order.  SIGTERM stops after the
+        batch in flight and returns the metric so far.  Over N ranks the
+        metric is the whole split's (confusion matrices summed over ranks)
+        and each rank writes its own samples' panels."""
         with PreemptionGuard(self.conf.extra.get("preemption_save", True)) as guard:
             try:
                 loader = self._loader(mode)
+                preempted = False
             except Preempted:
-                print("SIGTERM received: evaluation stopped")
+                preempted = True
+            if mesh.any_rank(preempted, self.device):
+                self._say("SIGTERM received: evaluation stopped")
                 return MeanIoU(self.nn_arch.num_classes)
             return self._evaluate_inner(loader, result_saving, guard)
+
+    def _say(self, text: str) -> None:
+        """Print on rank 0 (every process without a group)."""
+        if self._main:
+            print(text)
+
+    def _fresh_dir(self, path: str) -> None:
+        """``path`` emptied by rank 0, before any rank writes into it."""
+        if self._main:
+            if os.path.isdir(path):
+                shutil.rmtree(path)
+            os.makedirs(path, exist_ok=True)
+        mesh.barrier(self.device)
 
     def _evaluate_inner(self, loader, result_saving: bool, guard) -> MeanIoU:
         self.hps.val_step = loader.steps()
         results_dir = os.path.join(self.work_dir, "results")
         if result_saving:
-            if os.path.isdir(results_dir):
-                shutil.rmtree(results_dir)
-            os.makedirs(results_dir, exist_ok=True)
+            self._fresh_dir(results_dir)
             if self._eval_step_probs is None:
                 self._eval_step_probs = build_eval_step(
                     self.model, self.conf, class_weights=self._cw, with_probs=True, **self._tta)
@@ -397,45 +487,46 @@ class SemanticSegmentation:
             eval_step = self._eval_step
 
         c_miou = MeanIoU(self.nn_arch.num_classes)
-        sample_idx = 0
+        stop = mesh.StopAgreement(self.device)
         for batch in self._batches(loader):
-            if guard.triggered:
-                print("SIGTERM received: evaluation stopped (partial metric returned)")
+            if stop.poll(guard.triggered):
+                self._say("SIGTERM received: evaluation stopped (partial metric returned)")
                 break
-            names = batch.pop("names")
+            batch.pop("names")
             metrics = eval_step(batch)
             c_miou.update_from_cm(metrics["cm"])
             if result_saving:
                 probs = metrics["probs"].cpu().numpy()
                 images = batch["image"].cpu().numpy()
                 labels = batch["label"].cpu().numpy()
-                valid = batch["valid"].cpu().numpy()
-                for i in range(len(names)):
-                    if not valid[i]:
-                        continue
-                    _save_result_panel(images[i], labels[i], probs[i], self.nn_arch.num_classes,
-                                       os.path.join(results_dir, f"result_{sample_idx}.png"))
-                    sample_idx += 1
+                for i, number in enumerate(batch["index"]):
+                    if number >= 0:
+                        _save_result_panel(images[i], labels[i], probs[i],
+                                           self.nn_arch.num_classes,
+                                           os.path.join(results_dir, f"result_{number}.png"))
         if self.conf.extra.get("eval_per_class_iou", False):
             names = (voc.CLASS_NAMES
                      if (self.nn_arch.num_classes == len(voc.CLASS_NAMES)
                          and self.conf.resource_type.startswith("pascal_voc"))
                      else None)
-            print("per-class IoU:")
-            print(c_miou.report(names))
-        print(f"mean iou: {c_miou.result():.4f}")
+            self._say("per-class IoU:\n" + c_miou.report(names))
+        self._say(f"mean iou: {c_miou.result():.4f}")
         return c_miou
 
     def test(self) -> None:
         """Label the test split and write class-index PNGs named after the
         inputs to ``work_dir/test_results`` (reference test(),
         :1117-1187).  SIGTERM stops after the batch in flight; PNGs written
-        so far stay."""
+        so far stay.  Over N ranks each rank labels and writes its own
+        samples."""
         with PreemptionGuard(self.conf.extra.get("preemption_save", True)) as guard:
             try:
                 loader = self._loader(voc.MODE_TEST, with_labels=False)
+                preempted = False
             except Preempted:
-                print("SIGTERM received: test stopped")
+                preempted = True
+            if mesh.any_rank(preempted, self.device):
+                self._say("SIGTERM received: test stopped")
                 return
             self._test_inner(loader, guard)
 
@@ -444,12 +535,11 @@ class SemanticSegmentation:
 
         self.hps.test_step = loader.steps()
         out_dir = os.path.join(self.work_dir, "test_results")
-        if os.path.isdir(out_dir):
-            shutil.rmtree(out_dir)
-        os.makedirs(out_dir, exist_ok=True)
+        self._fresh_dir(out_dir)
+        stop = mesh.StopAgreement(self.device)
         for batch in self._batches(loader, with_labels=False):
-            if guard.triggered:
-                print("SIGTERM received: test stopped (partial results kept)")
+            if stop.poll(guard.triggered):
+                self._say("SIGTERM received: test stopped (partial results kept)")
                 break
             # argmax on the device (K1); only the labels cross to the host
             labels = self._label_step(batch["image"]).cpu().numpy().astype(np.uint8)
@@ -472,11 +562,21 @@ class SemanticSegmentation:
         custom operators of ``kernels/depthwise.py``: load the program with
         ``torch.export.load`` after ``import deeplabv3plus_keras_tpu_torch``.
         ``representative_images`` (int8 calibration) raises: int8 is
-        ROADMAP.md Queue A item 15."""
+        ROADMAP.md Queue A item 15.  Over N ranks rank 0 writes the program
+        (every rank holds the same weights) and the others return no
+        path."""
         if representative_images is not None or self.conf.extra.get("int8_infer", False):
             raise NotImplementedError(
                 "an int8 (representative_images / int8_infer) export is not ported yet "
                 "(ROADMAP.md Queue A item 15, int8 PTQ serving)")
+        if not self._main:
+            mesh.barrier(self.device)
+            return []
+        paths = self._export()
+        mesh.barrier(self.device)
+        return paths
+
+    def _export(self) -> list[str]:
         size = self.nn_arch.image_size
         self.model.eval()
         example = torch.zeros(2, size, size, 3, device=self.device)

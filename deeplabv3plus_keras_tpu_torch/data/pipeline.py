@@ -9,7 +9,17 @@ canvases to the card from pinned host memory and runs
 ``ops.preprocess.prepare_batch`` there (resize, pad, normalise, one-hot).
 
 The ragged last batch is emitted at full batch size with a 0/1 ``valid``
-mask, so every step sees one batch shape.
+mask, so every step sees one batch shape.  Every batch of
+:func:`device_batches` also carries ``index``, each row's number in the
+epoch's sample order (−1 for padding), which names evaluate()'s result
+files.
+
+Under a process group of N ranks (``parallel/mesh.py``) ``batch_size`` is
+the global batch: every rank walks the same global order (the same
+``seed + epoch`` shuffle) and decodes only its own rows of each global
+batch (``mesh.row_indices``), so every rank takes the same number of steps
+and N ranks see the batches one process sees.  The padding of a ragged
+last batch falls on whichever rank owns those rows.
 
 :class:`DeviceDataset` (config key ``cache_device``) keeps the decoded
 uint8 canvases in device memory, so epochs after the build gather their
@@ -26,6 +36,7 @@ from typing import Iterator, Sequence
 import numpy as np
 import torch
 
+from ..parallel import mesh
 from .voc import SampleSpec
 
 
@@ -69,6 +80,11 @@ class HostLoader:
     internal thread pool; bit-identical to PIL — see native/fastloader.cpp),
     falling back to PIL per item for oversized/unusual inputs; "pil" forces
     the pure-Python path; "native" requires the C++ loader.
+
+    ``rank``/``world``: this rank of a process group of ``world`` ranks; it
+    yields only its ``mesh.row_indices(batch_size, world, rank, accum)``
+    rows of each global batch (``accum``: the train step's ``grad_accum``,
+    whose microbatches each rank slices).
     """
 
     def __init__(
@@ -85,9 +101,15 @@ class HostLoader:
         label_clamp: int | None = None,
         cache: bool = False,
         backend: str = "auto",
+        rank: int = 0,
+        world: int = 1,
+        accum: int = 1,
     ):
         self.specs = list(specs)
         self.batch_size = batch_size
+        self.rank, self.world, self.accum = int(rank), int(world), max(1, int(accum))
+        # this rank's rows of a global batch (all of them for one rank)
+        self.rows = mesh.row_indices(batch_size, self.world, self.rank, self.accum)
         self.canvas_size = canvas_size
         self.workers = max(1, workers)
         self.max_queue_size = max(2, max_queue_size)
@@ -208,7 +230,7 @@ class HostLoader:
         return out
 
     def _assemble(self, batch_specs):
-        B, CH = self.batch_size, self.canvas_size
+        B, CH = len(self.rows), self.canvas_size
         img_canvas = np.zeros((B, CH, CH, 3), np.uint8)
         lab_canvas = np.zeros((B, CH, CH), np.uint8) if self.with_labels else None
         sizes = np.ones((B, 2), np.int32)
@@ -236,10 +258,12 @@ class HostLoader:
 
     def __iter__(self) -> Iterator[dict]:
         order = self._order()
-        batches = [
-            [self.specs[j] for j in order[i : i + self.batch_size]]
-            for i in range(0, len(order), self.batch_size)
-        ]
+        # this rank's rows of each global batch: positions in the epoch's
+        # order (increasing, so the real ones come first and a ragged last
+        # batch pads at the end)
+        batches = []
+        for start in range(0, len(order), self.batch_size):
+            batches.append([self.specs[order[p]] for p in start + self.rows if p < len(order)])
         self.epoch += 1
 
         if self.workers <= 1:
@@ -337,12 +361,27 @@ class DeviceDataset:
     build unwinds as ``Preempted``); each epoch then shuffles with the
     loader's formula, ``default_rng(seed + epoch)`` over ``arange``, so a
     full cache gives the host path's batches in its order (a partial cache
-    shuffles the cached and the streamed samples apart).  The layout
-    sharded over several devices waits for multi-GPU data parallelism
-    (ROADMAP.md Queue A item 13)."""
+    shuffles the cached and the streamed samples apart).
+
+    Sharded, for a ``loader`` of rank r of N > 1 ranks (the JAX package's
+    layout over a mesh's ``'data'`` axis): the K cached samples are padded
+    to N shards of ``shard_cap`` = steps · B/N rows, and rank r caches and
+    decodes only shard r, rows [r·shard_cap, (r+1)·shard_cap) of the spec
+    order.  Each epoch every rank draws the plan of every shard from one
+    ``default_rng(seed + epoch)`` stream (:meth:`_shard_draws`, as JAX's)
+    and gathers its B/N rows a step from its own shard: no collective in
+    the input path.  The global batch is then the shards' rows side by
+    side, so its composition differs from the single-stream order (every
+    sample still once an epoch).  ``max_bytes`` is per device (the least
+    of the ranks' budgets when none is given), and a partial cache rounds K
+    down to a multiple of N.  Under ``grad_accum`` a rank's microbatches
+    come from its own shard, where the JAX step regroups the global batch's
+    rows across devices (ROADMAP.md, known divergences)."""
 
     def __init__(self, loader: HostLoader, device=None, max_bytes: int | None = None,
                  residual_cache: bool = False):
+        import copy
+
         from ..utils.preemption import PreemptionGuard
 
         self.device = torch.device(device) if device is not None else torch.device("cpu")
@@ -351,32 +390,56 @@ class DeviceDataset:
         self.seed = loader.seed
         self.with_labels = loader.with_labels
         self.epoch = loader.epoch
+        self.shards, self.rank = loader.world, loader.rank
 
         n_specs = len(loader.specs)
         CH = loader.canvas_size
         bps = CH * CH * (4 if loader.with_labels else 3) + 8  # image, label, sizes
         if max_bytes is None:
             max_bytes = _auto_device_budget(self.device)
-        cap_n = n_specs if max_bytes is None else min(n_specs, max(0, int(max_bytes)) // bps)
+            if max_bytes is not None and mesh.is_active():
+                max_bytes = min(mesh.gather_ints(max_bytes, self.device))
+        cap_n = n_specs if max_bytes is None else min(
+            n_specs, self.shards * (max(0, int(max_bytes)) // bps))
+        if self.shards > 1 and cap_n < n_specs:
+            # every shard the same size
+            cap_n = (cap_n // self.shards) * self.shards
         if cap_n < n_specs:
             print(f"cache_device: HBM budget fits {cap_n}/{n_specs} samples "
-                  f"({cap_n * bps / 2**30:.2f} GiB cached); streaming the remaining "
-                  f"{n_specs - cap_n} through the host pipeline each epoch")
+                  f"({cap_n * bps / 2**30:.2f} GiB cached"
+                  + (f" per {self.shards}-way shard set" if self.shards > 1 else "")
+                  + f"); streaming the remaining {n_specs - cap_n} through the host pipeline "
+                  "each epoch")
+
+        # the rows this device caches: all K, or its shard of them
+        source = loader
+        want = cap_n
+        if self.shards > 1:
+            self.n = cap_n
+            self.shard_cap = self._cached_steps() * (self.batch_size // self.shards)
+            lo = min(self.rank * self.shard_cap, cap_n)
+            hi = min(lo + self.shard_cap, cap_n)
+            source = copy.copy(loader)
+            source.specs = list(loader.specs[lo:hi])
+            source.rank, source.world, source.accum = 0, 1, 1
+            source.rows = np.arange(self.batch_size)
+            source._cache = loader._cache
+            want = hi - lo
 
         # the device buffers, filled batch by batch as the host decodes
         u8 = dict(dtype=torch.uint8, device=self.device)
-        img = torch.empty((cap_n, CH, CH, 3), **u8)
-        lab = torch.empty((cap_n, CH, CH), **u8) if loader.with_labels else None
-        sizes = torch.empty((cap_n, 2), dtype=torch.int32, device=self.device)
+        img = torch.zeros((max(want, 1), CH, CH, 3), **u8)
+        lab = torch.zeros((max(want, 1), CH, CH), **u8) if loader.with_labels else None
+        sizes = torch.ones((max(want, 1), 2), dtype=torch.int32, device=self.device)
         names = []
-        orig_shuffle, orig_epoch = loader.shuffle, loader.epoch
-        loader.shuffle = False
+        orig_shuffle, orig_epoch = source.shuffle, source.epoch
+        source.shuffle = False
         try:
-            for b in loader if cap_n else ():
+            for b in source if want else ():
                 # minutes of decode at full size: a SIGTERM unwinds here so
                 # the caller can save and exit
                 PreemptionGuard.check_active()
-                rows = np.flatnonzero(b["valid"].astype(bool))[: cap_n - len(names)]
+                rows = np.flatnonzero(b["valid"].astype(bool))[: want - len(names)]
                 if not len(rows):
                     break
                 got = slice(len(names), len(names) + len(rows))
@@ -385,16 +448,14 @@ class DeviceDataset:
                     lab[got] = _to_device(b["label_canvas"][rows], self.device)
                 sizes[got] = _to_device(b["sizes"][rows], self.device)
                 names += [b["names"][r] for r in rows]
-                if len(names) >= cap_n:
+                if len(names) >= want:
                     break
         finally:
-            loader.shuffle, loader.epoch = orig_shuffle, orig_epoch
+            source.shuffle, source.epoch = orig_shuffle, orig_epoch
 
         # the specs beyond the cached prefix stream through a host loader
         self.residual_loader = None
         if cap_n < n_specs:
-            import copy
-
             residual = copy.copy(loader)
             residual.specs = list(loader.specs[cap_n:])
             residual.cache = residual_cache
@@ -403,10 +464,13 @@ class DeviceDataset:
             self.residual_loader = residual
 
         self.names = names
-        self.n = len(names)
-        self.data_img = img[: self.n] if self.n else None
-        self.data_lab = lab[: self.n] if self.n and lab is not None else None
-        self.data_sizes = sizes[: self.n] if self.n else None
+        if self.shards == 1:
+            self.n = len(names)
+        # a shard keeps at least its one zero row, for its padding draws
+        held = max(len(names), 1) if self.shards > 1 else len(names)
+        self.data_img = img[:held] if held else None
+        self.data_lab = lab[:held] if held and lab is not None else None
+        self.data_sizes = sizes[:held] if held else None
 
     def _cached_steps(self) -> int:
         return (self.n + self.batch_size - 1) // self.batch_size
@@ -431,31 +495,70 @@ class DeviceDataset:
             np.random.default_rng(self.seed + self.epoch).shuffle(order)
         return order
 
+    def _shard_draws(self):
+        """The epoch's plan of every shard d (the JAX package's
+        ``DeviceDataset._shard_draws``): (steps · B/N,) local row ids, a
+        permutation of shard d's real rows (its first min(n − d·cap, cap)
+        rows) padded with 0, and their 0/1 validity; all shards' plans from
+        one ``default_rng(seed + epoch)`` stream, in shard order."""
+        cap, D = self.shard_cap, self.shards
+        rng = np.random.default_rng(self.seed + self.epoch)
+        idx, valid = [], []
+        for d in range(D):
+            count = int(np.clip(self.n - d * cap, 0, cap))
+            perm = rng.permutation(count) if self.shuffle else np.arange(count)
+            draws = np.zeros((cap,), np.int32)
+            draws[:count] = perm
+            ok = np.zeros((cap,), np.int32)
+            ok[:count] = 1
+            idx.append(draws)
+            valid.append(ok)
+        return idx, valid
+
 
 def _device_dataset_batches(ds: DeviceDataset, image_size: int, num_classes: int,
                             with_labels: bool, one_hot_labels: bool) -> Iterator[dict]:
     """One epoch of ``ds``: its cached samples gathered and preprocessed on
     its device, then the uncached suffix streamed (same seed + epoch
-    formula)."""
+    formula).  Sharded, this rank's B/N rows a step from its own shard."""
     from ..ops.preprocess import prepare_batch_from_cache
 
     epoch_now = ds.epoch
-    order = ds._order()
-    ds.epoch += 1
-    B = ds.batch_size
     cached_labels = with_labels and ds.data_lab is not None
-    for s in range(0, ds.n, B):
-        sel = order[s:s + B]
-        valid = np.zeros((B,), np.int32)
-        valid[:len(sel)] = 1
-        idx = np.zeros((B,), np.int64)
-        idx[:len(sel)] = sel
+    if ds.shards > 1:
+        draws, valids = ds._shard_draws()
+        per = ds.batch_size // ds.shards
+        steps = ds._cached_steps()
+        # each row's number in the order of the global batches (every
+        # shard's rows of a step side by side)
+        v = np.stack(valids).reshape(ds.shards, steps, per).transpose(1, 0, 2)
+        number = np.where(v > 0, np.cumsum(v).reshape(v.shape) - 1, -1)
+        plan = []
+        for s in range(steps):
+            idx, valid = draws[ds.rank][s * per:(s + 1) * per], valids[ds.rank][s * per:(s + 1) * per]
+            # a placeholder name where a row is padding (inside the batch)
+            plan.append((idx, valid, number[s, ds.rank],
+                         [ds.names[i] if ok else "" for i, ok in zip(idx, valid)]))
+    else:
+        order = ds._order()
+        B = ds.batch_size
+        plan = []
+        for s in range(0, ds.n, B):
+            sel = order[s:s + B]
+            valid = np.zeros((B,), np.int32)
+            valid[:len(sel)] = 1
+            idx = np.zeros((B,), np.int64)
+            idx[:len(sel)] = sel
+            plan.append((idx, valid, np.where(valid > 0, s + np.arange(B), -1),
+                         [ds.names[i] for i in sel]))
+    ds.epoch += 1
+    for idx, valid, number, names in plan:
         valid_t = _to_device(valid, ds.device)
         images, labels = prepare_batch_from_cache(
             ds.data_img, ds.data_lab if cached_labels else None, ds.data_sizes,
-            _to_device(idx, ds.device), valid_t, size=image_size, num_classes=num_classes,
-            with_labels=cached_labels, one_hot_labels=one_hot_labels)
-        out = {"image": images, "valid": valid_t, "names": [ds.names[i] for i in sel]}
+            _to_device(idx.astype(np.int64), ds.device), valid_t, size=image_size,
+            num_classes=num_classes, with_labels=cached_labels, one_hot_labels=one_hot_labels)
+        out = {"image": images, "valid": valid_t, "index": number, "names": names}
         if cached_labels:
             out["label"] = labels
         yield out
@@ -463,7 +566,7 @@ def _device_dataset_batches(ds: DeviceDataset, image_size: int, num_classes: int
     if ds.residual_loader is not None:
         ds.residual_loader.epoch = epoch_now
         yield from device_batches(ds.residual_loader, image_size, num_classes, with_labels,
-                                  one_hot_labels, device=ds.device)
+                                  one_hot_labels, device=ds.device, first_index=ds.n)
 
 
 def _to_device(array: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -478,11 +581,13 @@ def _to_device(array: np.ndarray, device: torch.device) -> torch.Tensor:
 
 def device_batches(loader: HostLoader | DeviceDataset, image_size: int, num_classes: int,
                    with_labels: bool = True, one_hot_labels: bool = True,
-                   host_prepro: bool = False, device=None) -> Iterator[dict]:
+                   host_prepro: bool = False, device=None,
+                   first_index: int = 0) -> Iterator[dict]:
     """Batches of ``loader`` ready for a step on ``device``: dicts of
     ``image`` (B, S, S, 3) float32, ``label`` (one-hot (B, S, S, C) float32
     or int32 (B, S, S)) when ``with_labels``, ``valid`` (B,) int32, all on
-    ``device``, and ``names``.
+    ``device``, ``names`` and ``index`` (each row's number in the epoch's
+    sample order from ``first_index``, −1 for padding; a host array).
 
     Only the uint8 canvases and their sizes cross to the device;
     ``prepare_batch`` runs there.  Double-buffered: batch N+1's copy and
@@ -504,8 +609,11 @@ def device_batches(loader: HostLoader | DeviceDataset, image_size: int, num_clas
                            "on the CPU")
     device = torch.device(device if device is not None else "cuda")
 
+    def numbers(k, valid):
+        return np.where(valid > 0, first_index + k * loader.batch_size + loader.rows, -1)
+
     if host_prepro:
-        for host_batch in loader:
+        for k, host_batch in enumerate(loader):
             B = host_batch["sizes"].shape[0]
             images = np.zeros((B, image_size, image_size, 3), np.float32)
             labels = (np.zeros((B, image_size, image_size, num_classes), np.float32)
@@ -523,14 +631,14 @@ def device_batches(loader: HostLoader | DeviceDataset, image_size: int, num_clas
                     labels[i] = oh
             out = {"image": _to_device(images, device),
                    "valid": _to_device(host_batch["valid"], device),
-                   "names": host_batch["names"]}
+                   "names": host_batch["names"], "index": numbers(k, host_batch["valid"])}
             if with_labels:
                 lab_t = _to_device(labels, device)
                 out["label"] = lab_t if one_hot_labels else lab_t.argmax(-1).to(torch.int32)
             yield out
         return
 
-    def to_device(host_batch):
+    def to_device(k, host_batch):
         lab = host_batch["label_canvas"] if with_labels else None
         images, labels = prepare_batch(
             _to_device(host_batch["image_canvas"], device),
@@ -539,14 +647,14 @@ def device_batches(loader: HostLoader | DeviceDataset, image_size: int, num_clas
             size=image_size, num_classes=num_classes, with_labels=with_labels,
             one_hot_labels=one_hot_labels)
         out = {"image": images, "valid": _to_device(host_batch["valid"], device),
-               "names": host_batch["names"]}
+               "names": host_batch["names"], "index": numbers(k, host_batch["valid"])}
         if with_labels:
             out["label"] = labels
         return out
 
     prev = None
-    for host_batch in loader:
-        cur = to_device(host_batch)
+    for k, host_batch in enumerate(loader):
+        cur = to_device(k, host_batch)
         if prev is not None:
             yield prev
         prev = cur

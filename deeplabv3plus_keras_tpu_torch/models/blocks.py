@@ -52,6 +52,7 @@ from torch import nn
 from torch.autograd.function import once_differentiable
 
 from ..kernels import depthwise_conv, same_pads
+from ..parallel import mesh
 
 _LOW_PRECISION = (torch.bfloat16, torch.float16)
 
@@ -292,7 +293,12 @@ class BatchNorm(nn.Module):
     handles it: the mean and the fast variance E[x²] − E[x]² (clipped at 0)
     in float32 from the input, the normalisation (x − mean)·(rsqrt(var +
     eps)·scale) + bias in float32, the result cast to the input's dtype.
-    Parameters and running statistics stay float32."""
+    Parameters and running statistics stay float32.
+
+    Under a process group of more than one rank, training takes that mean
+    and fast variance over the rows of every rank (:class:`_RowBatchNorm`),
+    in any dtype: flax's statistics over the global batch of a mesh.  The
+    running statistics then move identically on every rank."""
 
     def __init__(self, channels: int, momentum: float = 0.99, epsilon: float = 1e-3,
                  scale: bool = True):
@@ -313,8 +319,8 @@ class BatchNorm(nn.Module):
                 x, self.running_mean, self.running_var, self.weight, self.bias,
                 False, 0.0, self.epsilon,
             )
-        if x.dtype in _LOW_PRECISION:
-            return self._train_low_precision(x)
+        if x.dtype in _LOW_PRECISION or mesh.is_active():
+            return self._train_rows(x)
         m = self.momentum
         if _frozen():
             return F.batch_norm(x, self.running_mean.clone(), self.running_var.clone(),
@@ -333,12 +339,13 @@ class BatchNorm(nn.Module):
             self.running_var.copy_((moved - kept) * ((n - 1) / n) + kept)
         return y
 
-    def _train_low_precision(self, x):
+    def _train_rows(self, x):
         # on the (N·H·W, C) rows of the channels_last memory (a view): the
         # per-channel vectors broadcast along the contiguous dimension
         B, C, H, W = x.shape
-        y, mean, var = _LowPrecisionBatchNorm.apply(
-            x.permute(0, 2, 3, 1).reshape(-1, C), self.weight, self.bias, self.epsilon)
+        y, mean, var = _RowBatchNorm.apply(
+            x.permute(0, 2, 3, 1).reshape(-1, C), self.weight, self.bias, self.epsilon,
+            mesh.is_active())
         if not _frozen():
             m = self.momentum
             with torch.no_grad():
@@ -347,24 +354,50 @@ class BatchNorm(nn.Module):
         return y.reshape(B, H, W, C).permute(0, 3, 1, 2)
 
 
-class _LowPrecisionBatchNorm(torch.autograd.Function):
-    """flax's training BatchNorm of bfloat16/float16 rows x (n, C): the mean
-    and the fast variance E[x²] − E[x]² (clipped at 0) in float32, y =
-    (x − mean)·(rsqrt(var + eps)·scale) + bias in float32, cast to x's
-    dtype.  Returns (y, mean, var).  Saves x in its own dtype and the
-    per-channel statistics, not the float32 intermediates autograd would
-    keep; the gradient is that of the same function (d var/dx = 2(x −
-    mean)/n for either variance formula), in float32, cast to x's dtype."""
+class _RowBatchNorm(torch.autograd.Function):
+    """flax's training BatchNorm of rows x (n, C): the mean and the fast
+    variance E[x²] − E[x]² (clipped at 0) in at least float32, y =
+    (x − mean)·(rsqrt(var + eps)·scale) + bias in that precision, cast to
+    x's dtype.  Returns (y, mean, var).  Saves x in its own dtype and the
+    per-channel statistics, not the intermediates autograd would keep; the
+    gradient is that of the same function (d var/dx = 2(x − mean)/n for
+    either variance formula), cast to x's dtype.
+
+    ``sync``: the statistics are those of the rows of every rank of the
+    process group, as flax's over a batch sharded on a mesh.  Each rank's
+    mean and variance of its own rows cross ranks in one all-reduce (a slot
+    a rank) and combine as the parallel variance algorithm combines them
+    (the train step gives every rank as many rows): equal to flax's
+    E[x²] − E[x]² in exact arithmetic, without its loss of digits to the
+    mean, so N ranks agree with one process (torch's two-pass variance in
+    float32/float64) to rounding.  The backward all-reduces Σg and Σg·x̂
+    for dx, and keeps this rank's own sums as the scale and bias gradients,
+    which the train step sums over ranks with every other gradient."""
 
     @staticmethod
-    def forward(ctx, x, weight, bias, eps):
-        xf = x.float()
-        mean = xf.mean(0)
-        var = torch.clamp(xf.square().mean(0) - mean.square(), min=0.0)
+    def forward(ctx, x, weight, bias, eps, sync):
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        C = x.shape[1]
+        if sync:
+            # every rank's (mean, variance) of its own rows, gathered by
+            # one all-reduce of rank slots, combined with equal counts
+            world = mesh.world_size()
+            n = x.shape[0] * world
+            var_r, mean_r = torch.var_mean(xf, 0, correction=0)
+            slots = xf.new_zeros(world, 2, C)
+            slots[mesh.rank()] = torch.stack([mean_r, var_r])
+            means, variances = mesh.all_reduce_(slots).unbind(1)
+            mean = means.mean(0)
+            var = (variances + (means - mean).square()).mean(0)
+        else:
+            n = x.shape[0]
+            mean = xf.mean(0)
+            var = torch.clamp(xf.square().mean(0) - mean.square(), min=0.0)
         invstd = torch.rsqrt(var + eps)
         mul = invstd * weight if weight is not None else invstd
         y = ((xf - mean) * mul + bias).to(x.dtype)
         ctx.save_for_backward(x, weight, mean, invstd)
+        ctx.n, ctx.sync = n, sync
         ctx.mark_non_differentiable(mean, var)
         return y, mean, var
 
@@ -372,14 +405,17 @@ class _LowPrecisionBatchNorm(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, gy, _gmean, _gvar):
         x, weight, mean, invstd = ctx.saved_tensors
-        g = gy.float()
-        xhat = (x.float() - mean) * invstd
-        n = x.shape[0]
+        g = gy.to(mean.dtype)
+        xhat = (x.to(mean.dtype) - mean) * invstd
+        n = ctx.n
         dbias = g.sum(0)
         dscale = (g * xhat).sum(0)
+        sum_g, sum_gx = dbias, dscale
+        if ctx.sync:
+            sum_g, sum_gx = mesh.all_reduce_(torch.cat([dbias, dscale])).split(x.shape[1])
         mul = invstd * weight if weight is not None else invstd
-        dx = (g - dbias / n - xhat * (dscale / n)) * mul
-        return (dx.to(x.dtype), dscale if weight is not None else None, dbias, None)
+        dx = (g - sum_g / n - xhat * (sum_gx / n)) * mul
+        return (dx.to(x.dtype), dscale if weight is not None else None, dbias, None, None)
 
 
 class ConvBNReLU(nn.Module):
@@ -431,7 +467,8 @@ class SplitSepConvBlock(nn.Module):
 class Dropout(nn.Module):
     """flax ``nn.Dropout``: keep each element with probability 1 − rate and
     scale it by 1/(1 − rate); the identity in eval mode or at rate 0.  The
-    mask comes from an explicit generator on the input's device.
+    mask comes from an explicit generator on the input's device (or the
+    streams of a :class:`~..parallel.mesh.RankDraws`).
     ``per_sample`` draws one keep for each sample, the whole (C, H, W) of it
     (flax ``broadcast_dims=(1, 2, 3)``: EfficientNet's stochastic depth)."""
 
@@ -440,7 +477,7 @@ class Dropout(nn.Module):
         self.rate = float(rate)
         self.per_sample = per_sample
 
-    def forward(self, x, generator: torch.Generator | None = None):
+    def forward(self, x, generator: torch.Generator | mesh.RankDraws | None = None):
         if not self.training or self.rate == 0.0:
             return x
         if self.rate >= 1.0:
@@ -448,6 +485,13 @@ class Dropout(nn.Module):
         if generator is None:
             raise ValueError("dropout in training needs an explicit torch.Generator")
         keep = 1.0 - self.rate
+        if isinstance(generator, mesh.RankDraws):
+            if self.per_sample:
+                u = torch.rand((generator.batch,), generator=generator.shared, device=x.device)
+                mask = u[generator.rows].reshape(-1, 1, 1, 1) < keep
+            else:
+                mask = torch.rand(x.shape, generator=generator.local, device=x.device) < keep
+            return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
         shape = (x.shape[0], 1, 1, 1) if self.per_sample else x.shape
         mask = torch.rand(shape, generator=generator, device=x.device) < keep
         return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))

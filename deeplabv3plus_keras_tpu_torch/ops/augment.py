@@ -139,7 +139,15 @@ def apply_augment(image: torch.Tensor, label: torch.Tensor | None, params: dict)
 
 
 def augment_batch(image, label, generator: torch.Generator, *, flip: bool = True,
-                  scale_range=(0.5, 2.0)):
-    """Draw per-image parameters from ``generator`` and apply them."""
-    params = sample_params(generator, image.shape[0], flip, scale_range)
+                  scale_range=(0.5, 2.0), rows: torch.Tensor | None = None,
+                  batch: int | None = None):
+    """Draw per-image parameters from ``generator`` and apply them.  Under a
+    process group ``image`` holds one rank's ``rows`` (a device index
+    tensor) of a global batch of ``batch``: the parameters are drawn for the
+    whole global batch, as one process draws them, and the rank applies
+    its rows'."""
+    params = sample_params(generator, image.shape[0] if batch is None else batch, flip,
+                           scale_range)
+    if rows is not None:
+        params = {k: v[rows] for k, v in params.items()}
     return apply_augment(image, label, params)

@@ -1,4 +1,6 @@
-"""Train, eval and serving steps of the PyTorch port."""
+"""Train, eval and serving steps of the PyTorch port, and the process group
+that stands for the JAX package's device mesh (``mesh``, ``multihost``,
+``launch``)."""
 
 from .step import (
     build_eval_step,

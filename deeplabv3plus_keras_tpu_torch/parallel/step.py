@@ -21,6 +21,18 @@ from (seed, step)).  The extra key ``augment`` draws a flip and a scale
 jitter from that generator before the dropout (ops/augment.py), and
 ``eval_scales``/``eval_flip`` make the eval step average the probabilities
 over scales and a horizontal flip (test-time augmentation).
+
+Under a process group of N > 1 ranks (``parallel/mesh.py``) the train and
+eval steps take this rank's rows of a global batch and compute what the
+JAX steps compute over a batch sharded on an N-device mesh: BN statistics
+over every rank's rows (``models/blocks.py``), the loss's denominator the
+global count of valid pixels, gradients, loss and confusion matrix summed
+over ranks.  The gradients cross ranks once, after the last microbatch's
+backward, through flat all-reduces in parameter order (no
+``DistributedDataParallel``: its buckets would be all-reduced from
+autograd hooks, interleaved with BN's own backward all-reduces in an order
+that is not fixed, it would stall on a parameter the loss never reaches,
+and accumulation would need ``no_sync``).
 """
 
 from __future__ import annotations
@@ -43,6 +55,7 @@ from ..train.loss import (
 )
 from ..train.metrics import confusion_matrix_update, confusion_matrix_update_sparse
 from ..train.optimizer import KerasAdam, make_optimizer
+from . import mesh
 
 # Extra config keys of the JAX steps that the port does not take yet, and
 # where ROADMAP.md queues them.
@@ -89,11 +102,20 @@ def create_train_state(conf: Config, model: torch.nn.Module) -> KerasAdam:
     return make_optimizer(model.parameters(), conf.hps)
 
 
-def _loss_for(label, probs, pw, nw, valid):
-    """One-hot (B,H,W,C) or integer (B,H,W) labels."""
+def _loss_for(label, probs, pw, nw, valid, n_valid=None):
+    """One-hot (B,H,W,C) or integer (B,H,W) labels; ``n_valid``: the global
+    count of valid samples (``train/loss.py`` ``masked_pixel_mean``)."""
     if label.dim() == probs.dim():
-        return class_balanced_loss(label, probs, pw, nw, valid=valid)
-    return class_balanced_loss_sparse(label, probs, pw, nw, valid=valid)
+        return class_balanced_loss(label, probs, pw, nw, valid=valid, n_valid=n_valid)
+    return class_balanced_loss_sparse(label, probs, pw, nw, valid=valid, n_valid=n_valid)
+
+
+def _sum_over_ranks(loss_share: torch.Tensor, cm: torch.Tensor):
+    """(Σ loss shares, Σ confusion matrices) over the ranks, in one
+    all-reduce in float64 (exact for the counts)."""
+    out = mesh.all_reduce_(torch.cat([loss_share.detach().reshape(1).to(torch.float64),
+                                      cm.reshape(-1).to(torch.float64)]))
+    return out[0].to(loss_share.dtype), out[1:].reshape(cm.shape).to(cm.dtype)
 
 
 def _cm_for(label, probs, num_classes, valid):
@@ -102,11 +124,14 @@ def _cm_for(label, probs, num_classes, valid):
     return confusion_matrix_update_sparse(label, probs, num_classes, valid)
 
 
-def step_generator(seed: int, step: int, device, microbatch: int | None = None) -> torch.Generator:
+def step_generator(seed: int, step: int, device, microbatch: int | None = None,
+                   rank: int | None = None) -> torch.Generator:
     """The dropout generator of one (micro)step, seeded from (seed, step[,
-    microbatch]): the port's ``jax.random.fold_in(rng, step)``."""
+    microbatch]): the port's ``jax.random.fold_in(rng, step)``.  ``rank``:
+    that rank's own stream (element-wise dropout under a process group)."""
     key = [int(seed), int(step)] + ([int(microbatch)] if microbatch is not None else [])
-    state = int(np.random.SeedSequence(key).generate_state(1, np.uint64)[0])
+    seq = np.random.SeedSequence(key, spawn_key=() if rank is None else (int(rank),))
+    state = int(seq.generate_state(1, np.uint64)[0])
     return torch.Generator(device=device).manual_seed(state)
 
 
@@ -118,44 +143,79 @@ def build_train_step(model, optimizer: KerasAdam, conf: Config, class_weights=No
     sequential microbatches: gradients and losses are averaged, confusion
     matrices summed, and BN's running statistics move once per microbatch
     (each sees its microbatch's statistics), as in the JAX step.  The
-    gradients of the last update stay in each parameter's ``.grad``."""
+    gradients of the last update stay in each parameter's ``.grad``.
+
+    Under a process group of W > 1 ranks (the group active when the step is
+    built) ``batch`` holds this rank's rows of a global batch W times as
+    large, in the order ``mesh.row_indices`` gives them (its slice of each
+    microbatch).  Each rank differentiates its share of the global loss
+    (its pixels' sum over the global valid-pixel count, + L2/W), and the
+    gradients are summed over ranks; the augmentation's and stochastic
+    depth's per-sample draws are made for the global batch and sliced, so
+    W ranks draw what one process draws; element-wise dropout draws from
+    the rank's own stream.  Loss and confusion matrix are the global
+    ones."""
     _refuse_unported(conf, ("fused_tail",))
     wd = conf.hps.weight_decay
     num_classes = conf.nn_arch.num_classes
     pw, nw = class_weights or default_class_weights(num_classes)
     accum = max(1, int(conf.extra.get("grad_accum", 1)))
     aug = parse_augment_conf(conf.extra.get("augment"))
+    world, rank = mesh.world_size(), mesh.rank()
 
     def train_step(batch: dict) -> dict:
         model.train()
         image, label, valid = batch["image"], batch["label"], batch["valid"]
+        dev = image.device
         B = image.shape[0]
         if B % accum:
             raise ValueError(f"grad_accum {accum} must divide batch size {B}")
         mb = B // accum
         step = optimizer.iterations
-        gen = step_generator(seed, step, image.device)
+        gen = step_generator(seed, step, dev)
+        rows = n_valid = None
+        if world > 1:
+            rows = torch.as_tensor(mesh.row_indices(B * world, world, rank, accum), device=dev)
+            # each microbatch's count of valid samples over every rank
+            n_valid = mesh.all_reduce_(valid.reshape(accum, mb).sum(1).to(torch.float64))
         if aug is not None:
             # drawn before the dropout, as the JAX step splits its step key
-            image, label = augment_batch(image, label, gen, flip=aug[0], scale_range=aug[1])
+            image, label = augment_batch(image, label, gen, flip=aug[0], scale_range=aug[1],
+                                         rows=rows, batch=B * world)
         optimizer.zero_grad()
-        loss_sum, cm_sum = 0.0, 0
+        loss_sum, l2_sum, cm_sum = 0.0, 0.0, 0
         for i in range(accum):
             part = slice(i * mb, (i + 1) * mb)
             if accum > 1:
-                gen = step_generator(seed, step, image.device, i)
-            probs = model(image[part], generator=gen)
-            loss = _loss_for(label[part], probs, pw, nw, valid[part]) + l2_penalty(model, wd)
-            loss.backward()
+                gen = step_generator(seed, step, dev, i)
+            draws = gen
+            if world > 1:
+                own = step_generator(seed, step, dev, i if accum > 1 else None, rank=rank)
+                draws = mesh.RankDraws(gen, own, torch.arange(rank * mb, (rank + 1) * mb, device=dev),
+                                       mb * world)
+            probs = model(image[part], generator=draws)
+            l2 = l2_penalty(model, wd)
+            if world > 1:
+                share = _loss_for(label[part], probs, pw, nw, valid[part], n_valid[i])
+                (share + l2 / world).backward()
+                loss_sum = loss_sum + share.detach()
+                l2_sum = l2_sum + (l2.detach() if torch.is_tensor(l2) else l2)
+            else:
+                loss = _loss_for(label[part], probs, pw, nw, valid[part]) + l2
+                loss.backward()
+                loss_sum = loss_sum + loss.detach()
             with torch.no_grad():
                 cm_sum = cm_sum + _cm_for(label[part], probs, num_classes, valid[part])
-            loss_sum = loss_sum + loss.detach()
-            del probs, loss
+            del probs
         # a parameter the loss does not reach (Xception's unused os-8
         # shortcut) gets a zero gradient, as jax.grad gives it
         for p in optimizer.params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+        if world > 1:
+            mesh.all_reduce_tensors_([p.grad for p in optimizer.params])
+            loss_sum, cm_sum = _sum_over_ranks(loss_sum, cm_sum)
+            loss_sum = loss_sum + l2_sum
         if accum > 1:
             torch._foreach_div_([p.grad for p in optimizer.params], float(accum))
         optimizer.step()
@@ -204,7 +264,10 @@ def _tta_probs_fn(model, conf: Config, scales, flip: bool) -> Callable[[torch.Te
 def build_eval_step(model, conf: Config, class_weights=None, with_probs: bool = True,
                     tta_scales=None, tta_flip: bool = False) -> Callable[[dict], dict]:
     """``eval_step(batch) -> {"loss", "cm"[, "probs"]}`` in eval mode.
-    ``with_probs=False`` drops the (B, S, S, C) probabilities.
+    ``with_probs=False`` drops the (B, S, S, C) probabilities.  Under a
+    process group the loss and the confusion matrix are the global batch's
+    (summed over ranks, the loss over the global valid-pixel count); the
+    probabilities are this rank's rows'.
     ``tta_scales``/``tta_flip`` (extra keys ``eval_scales``/``eval_flip``)
     turn on test-time augmentation (:func:`_tta_probs_fn`)."""
     _refuse_unported(conf, ("fused_tail",))
@@ -212,16 +275,21 @@ def build_eval_step(model, conf: Config, class_weights=None, with_probs: bool = 
     num_classes = conf.nn_arch.num_classes
     pw, nw = class_weights or default_class_weights(num_classes)
     probs_fn = _tta_probs_fn(model, conf, tta_scales, tta_flip) if tta_scales or tta_flip else model
+    world = mesh.world_size()
 
     def eval_step(batch: dict) -> dict:
         model.eval()
         with torch.inference_mode():
             probs = probs_fn(batch["image"])
-            loss = _loss_for(batch["label"], probs, pw, nw, batch["valid"])
-            out = {
-                "loss": loss + l2_penalty(model, wd),
-                "cm": _cm_for(batch["label"], probs, num_classes, batch["valid"]),
-            }
+            valid = batch["valid"]
+            n_valid = None
+            if world > 1:
+                n_valid = mesh.all_reduce_(valid.sum().to(torch.float64).reshape(1))[0]
+            loss = _loss_for(batch["label"], probs, pw, nw, valid, n_valid)
+            cm = _cm_for(batch["label"], probs, num_classes, valid)
+            if world > 1:
+                loss, cm = _sum_over_ranks(loss, cm)
+            out = {"loss": loss + l2_penalty(model, wd), "cm": cm}
             if with_probs:
                 out["probs"] = probs
             return out

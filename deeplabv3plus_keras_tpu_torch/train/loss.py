@@ -68,36 +68,42 @@ def per_pixel_loss_sparse(labels, y_pred, pos_weights, neg_weights, epsilon=1e-7
     return -(pw[t] * torch.log(p_t + epsilon) + neg_sum - nw[t] * log1m_t)
 
 
-def masked_pixel_mean(per_pixel, valid):
+def masked_pixel_mean(per_pixel, valid, n_valid=None):
     """Mean of per-pixel losses over valid samples (``valid`` (B,) 0/1, or
-    None for all)."""
+    None for all).  ``n_valid``, the count of valid samples of the global
+    batch (summed over the ranks of a process group), replaces this
+    batch's own count in the denominator: then each rank's value is its
+    share of the global mean, and their sum is the mean over every rank's
+    valid pixels, as the JAX package's over a batch sharded on a mesh."""
     n_pix = per_pixel[0].numel()
     if valid is None:
         return per_pixel.sum() / (per_pixel.shape[0] * n_pix)
     v = valid.to(per_pixel.dtype).reshape((-1,) + (1,) * (per_pixel.dim() - 1))
-    denom = torch.clamp(v.sum() * n_pix, min=1.0)
+    count = v.sum() if n_valid is None else n_valid.to(per_pixel.dtype)
+    denom = torch.clamp(count * n_pix, min=1.0)
     return (per_pixel * v).sum() / denom
 
 
 def class_balanced_loss(y_true, y_pred, pos_weights=SS_PW, neg_weights=SS_NW,
-                        epsilon: float = 1e-7, valid=None):
+                        epsilon: float = 1e-7, valid=None, n_valid=None):
     """Weighted per-class BCE of one-hot ``y_true`` and probabilities
     ``y_pred`` (both (B, H, W, C)), summed over classes, mean over the rest
-    (over valid samples only when ``valid`` (B,) is given)."""
+    (over valid samples only when ``valid`` (B,) is given; ``n_valid``:
+    :func:`masked_pixel_mean`)."""
     per_pixel = per_pixel_loss_dense(y_true, y_pred, pos_weights, neg_weights, epsilon)
     if valid is None:
         return per_pixel.mean()
-    return masked_pixel_mean(per_pixel, valid)
+    return masked_pixel_mean(per_pixel, valid, n_valid)
 
 
 def class_balanced_loss_sparse(labels, y_pred, pos_weights=SS_PW, neg_weights=SS_NW,
-                               epsilon: float = 1e-7, valid=None):
+                               epsilon: float = 1e-7, valid=None, n_valid=None):
     """:func:`class_balanced_loss` of integer labels (B, H, W): the same
     value without a (B, H, W, C) one-hot tensor."""
     per_pixel = per_pixel_loss_sparse(labels, y_pred, pos_weights, neg_weights, epsilon)
     if valid is None:
         return per_pixel.mean()
-    return masked_pixel_mean(per_pixel, valid)
+    return masked_pixel_mean(per_pixel, valid, n_valid)
 
 
 def l2_penalty(model: nn.Module, weight_decay: float):

@@ -88,11 +88,11 @@ def test_segment_rejects_bad_images_and_unported_options():
 
 
 @pytest.mark.parametrize("keys,item", [
-    ({"multi_gpu": True, "num_gpus": 2}, "item 13"),
-    ({"multi_gpu": True, "num_gpus": 4, "allow_fewer_devices": True}, "item 13"),
+    ({"multi_gpu": True, "num_gpus": 2}, "launcher"),
+    ({"multi_gpu": True, "num_gpus": 4, "allow_fewer_devices": True}, "shrinks"),
     ({"backbone_weights": "/nonexistent/backbone.h5"}, "item 14b"),
     ({"backbone_weights": "imagenet"}, "item 14b"),
-    ({"mesh_space": 2}, "item 13"),
+    ({"mesh_space": 2}, "item 13b"),
     ({"cache_device": True}, "item 19"),
     ({"hps": {"dtype": "bfloat16"}}, "item 18"),
 ])
@@ -100,13 +100,23 @@ def test_config_keys_that_change_the_result_raise(keys, item, tmp_path):
     """The JAX facade builds a num_gpus mesh under ``multi_gpu``
     (api.py:90-108), loads ``backbone_weights`` into the backbone
     (api.py:131-133) and shards space under ``mesh_space`` > 1
-    (api.py:109-113); the port does none of these yet, so it must refuse
-    rather than train from random weights on one device.  It keeps the
+    (api.py:109-113).  The port runs ``multi_gpu`` over the ranks of a
+    process group: with none and no launcher it must refuse rather than
+    train on one device, and ``allow_fewer_devices`` shrinks to the one
+    process, as the JAX facade shrinks its mesh.  It does not load
+    backbone weights or shard space yet, so it refuses those.  It keeps the
     dataset in device memory under ``cache_device`` (api.py:221-236,
     ROADMAP item 19) and computes in the ``hps.dtype`` (item 18) as the JAX
     facade does, so those keys are accepted and take effect."""
     conf = {**conf_dict(32), **keys}
-    if item == "item 18":  # computes in bfloat16; parameters stay float32
+    if item == "launcher":
+        with pytest.raises(RuntimeError, match="torchrun"):
+            SemanticSegmentation(conf, device="cpu")
+    elif item == "shrinks":
+        seg = SemanticSegmentation(conf, device="cpu")
+        assert seg.world == 1
+        assert seg.segment(np.zeros((1, 32, 32, 3), np.float32)).shape == (1, 32, 32)
+    elif item == "item 18":  # computes in bfloat16; parameters stay float32
         seg = SemanticSegmentation(conf, device="cpu")
         assert seg.model.compute_dtype == torch.bfloat16
         assert {p.dtype for p in seg.model.parameters()} == {torch.float32}

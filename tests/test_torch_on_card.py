@@ -528,3 +528,43 @@ def test_data_path_on_card_matches_cpu(card):
     ai, al = apply_augment(ci, cl, params)
     assert (gi.cpu() - ai).abs().max().item() <= 1e-5
     assert (gl.cpu().argmax(-1) == al.argmax(-1)).float().mean().item() >= 0.9999
+
+
+@pytest.mark.cuda
+def test_two_ranks_launch_the_kernels_of_one_process(card, tmp_path):
+    """One flagship-shaped step (the five-branch ASPP, 128², 4 rows a rank
+    of a global batch of 8) on two ranks: NCCL with a card each where two
+    cards exist, else gloo with both ranks on the one card.  Each rank
+    launches K2–K5 as often as one process taking the whole batch, and
+    both ranks report the same global loss, within 1e-5 of one process's
+    (dropout 0: element-wise dropout draws from each rank's own stream)."""
+    import json
+
+    import numpy as np
+
+    import torch_ddp_workers as workers
+    from deeplabv3plus_keras_tpu_torch import SemanticSegmentation
+    from deeplabv3plus_keras_tpu_torch.parallel import launch
+    from torch_helpers import FLAGSHIP_MIDDLE, conf_dict
+
+    two_cards = torch.cuda.device_count() >= 2
+    launch.spawn(workers.on_card_worker, 2, (str(tmp_path),),
+                 devices=["cuda:0", "cuda:1"] if two_cards else ["cuda:0", "cuda:0"],
+                 backend="nccl" if two_cards else "gloo", timeout_s=300, group_timeout_s=120)
+    ranks = [json.loads((tmp_path / f"card_r{r}.json").read_text()) for r in (0, 1)]
+
+    conf = conf_dict(128)
+    conf["hps"]["batch_size"] = 8
+    conf["nn_arch"].update(encoder_middle_conf=FLAGSHIP_MIDDLE, dropout_rate=0.0)
+    seg = SemanticSegmentation(conf, device="cuda")
+    rng = np.random.default_rng(0)
+    kernels.reset_launch_counts()
+    loss = float(seg.train_step({"image": rng.uniform(-1, 1, (8, 128, 128, 3)).astype(np.float32),
+                                 "label": rng.integers(0, 21, (8, 128, 128))})["loss"])
+    one = kernels.launch_counts()
+    names = ("depthwise_fwd_s1", "depthwise_fwd_s2", "depthwise_bwd_s1", "depthwise_bwd_s2")
+    assert [one[k] for k in names] == [15, 3, 15, 3]
+    for r in ranks:
+        assert [r["launches"][k] for k in names] == [one[k] for k in names], r
+    assert ranks[0]["loss"] == ranks[1]["loss"]
+    assert abs(ranks[0]["loss"] - loss) <= 1e-5 * loss
