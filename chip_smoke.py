@@ -75,7 +75,21 @@ BN statistics of its float32 phases:
   first-step gradients, confusion matrices, parameters; ranks bit for
   bit; K2–K5 launches per rank and step), then on a VOC tree ``train()``
   streamed and with a sharded ``cache_device``, ``evaluate()`` and
-  ``test()``, images/s and a profiled epoch's idle share.
+  ``test()``, images/s and a profiled epoch's idle share; and
+  ``int8_infer``'s ``evaluate()`` on the two ranks against one process;
+- ``int8`` (before ``ddp``): ``int8_infer`` on the flagship and on
+  Xception (under ``nhwc``) calibrated on the serving batches: the
+  quantized sites against the CPU's for the same config, ``segment()``
+  (K1–K3 launches and the int8 convs per call, images/s against float32
+  and bfloat16 ``segment()`` of the same weights, labels against float32
+  and against the CPU's int8 path on 2 images), every distinct int8 site
+  timed against cuDNN's float32 and bfloat16 conv (and checked against the
+  CPU's int8 conv), the gate edges (a site above the pixel gate, one below
+  the channel gate), ``evaluate()`` and ``test()`` under ``int8_infer`` on
+  a VOC tree, and the int8 ``.pt2`` against int8 ``segment()``;
+- ``pretrained`` (after the other backbones): a random-weight Keras
+  MobileNetV2 ``.h5`` through ``backbone_weights`` where TensorFlow
+  imports, else the facade's refusal naming TensorFlow;
 
 Then the backbones' pools and their gradients in ``channels_last`` on
 the card against float64 (:func:`check_pools`), and the other backbones,
@@ -96,8 +110,9 @@ Then it prints the forward and backward depthwise summaries against cuDNN
 and the byte bound (K7's beside the one-tile-a-block design it replaced),
 K2–K5 by kernel size at the new backbones' sites (``depthwise_by_k``),
 one JSON line of kernel results (K1-K7; K2-K7 also in bfloat16, K2-K5 in
-float16; launches by path, the new phases' paths and the ddp phase's rank
-0 included), the card's
+float16; launches by path, the new phases' paths (``segment_int8``,
+``xception_segment_int8``, ``evaluate_int8``, ``test_int8``,
+``export_program_int8``) and the ddp phase's rank 0 included), the card's
 name and power limit, and as its last line ``{"ok": true, "device": {...}}``.
 
 Any failed check exits non-zero.  Long outputs (the per-site table
@@ -1945,6 +1960,369 @@ def run_export(kernels, card: str, state: dict) -> dict:
     return by_path
 
 
+# ---- the int8 phase: int8_infer on the flagship and Xception ----
+
+INT8_OPS_PER_S = 1979e12  # H100 SXM dense int8 tensor-core rate (NVIDIA data sheet)
+# Label agreement floors of the int8 path (random weights, BN set from a
+# batch).  int8 is a discontinuous function of the float pre-activations:
+# where the card's float32 rounds otherwise than the CPU's, a quantized
+# value moves one step and carries to every later site (tests/
+# test_torch_int8.py counts them against JAX), so the card's int8 labels
+# are held to sanity floors, far above chance (1/21), not to the float
+# path's 0.999.
+INT8_LABEL_FLOOR = {"float32": 0.5, "cpu_int8": 0.5}
+
+
+def _quant_shapes(model, fn) -> dict:
+    """{QuantConv name: (input shape, cin, cout, k, stride, padding)} of
+    every QuantConv call while ``fn()`` runs."""
+    from deeplabv3plus_keras_tpu_torch.models.blocks import QuantConv
+
+    names = {m: n for n, m in model.named_modules()}
+    shapes = {}
+
+    def hook(mod, args):
+        shapes[names[mod]] = (tuple(args[0].shape), mod.weight.shape[1], mod.weight.shape[0],
+                              mod.kernel, mod.strides, mod.padding)
+
+    hooks = [m.register_forward_pre_hook(hook) for m in model.modules()
+             if isinstance(m, QuantConv)]
+    try:
+        fn()
+    finally:
+        for h in hooks:
+            h.remove()
+    return shapes
+
+
+def int8_site_row(card_w, shape, k, stride, padding, amax, site: str, calls: int) -> dict:
+    """One int8 site: the int8 conv (quantize, ``_int_mm``, dequantize)
+    against cuDNN's float32 and bfloat16 conv at the same shape, its bound
+    (float32 x read and y written, int8 operations at the int8 rate), and
+    the card's result against the CPU's plain version on 2 images."""
+    import torch
+
+    from deeplabv3plus_keras_tpu_torch.models.blocks import Conv
+    from deeplabv3plus_keras_tpu_torch.ops import quant
+
+    B, C, H, W = shape
+    x = torch.randn(shape, device="cuda", generator=torch.Generator("cuda").manual_seed(3))
+    x = x.contiguous(memory_format=torch.channels_last)
+    conv = Conv(C, card_w.shape[0], k, strides=stride, padding=padding).cuda()
+    w = card_w.detach()
+    xb, wb = x.bfloat16(), w.bfloat16()
+    amax = torch.as_tensor(amax, device="cuda", dtype=torch.float32)
+    y = quant.int8_conv(x, w, amax, strides=stride, padding=padding, site=site)
+    ref = quant.int8_conv(x[:2].cpu(), w.cpu(), amax.cpu(), strides=stride, padding=padding)
+    err = (y[:2].cpu() - ref).abs().max().item()
+    _, O, Ho, Wo = y.shape
+    macs = B * Ho * Wo * C * k * k * O
+    t_mem = (x.numel() * 4 + y.numel() * 4 + w.numel() * 4) / MEM_BYTES_PER_S * 1e3
+    t_ops = 2 * macs / INT8_OPS_PER_S * 1e3
+    with torch.inference_mode():
+        row = {
+            "site": site, "shape": list(shape), "cout": O, "k": k, "stride": stride,
+            "calls": calls, "eligible": quant.eligible(C, O, H * W),
+            "ms": cuda_ms(lambda: quant.int8_conv(x, w, amax, strides=stride, padding=padding)),
+            "library_ms_float32": cuda_ms(lambda: conv._conv(x, w)),
+            "library_ms_bfloat16": cuda_ms(lambda: conv._conv(xb, wb)),
+            "bound_ms": max(t_mem, t_ops), "bound_by": "bytes" if t_mem >= t_ops else "operations",
+            "max_abs_err_vs_cpu": err,
+        }
+    row["speedup_vs_float32"] = row["library_ms_float32"] / row["ms"]
+    row["speedup_vs_bfloat16"] = row["library_ms_bfloat16"] / row["ms"]
+    return row
+
+
+def run_int8_model(kernels, card: str, name: str, conf: dict, batches, t0: float) -> dict:
+    """``int8_infer`` on one model under ``nhwc``: calibration on the
+    serving batches, the sites against the CPU's for the same config,
+    ``segment()`` (launches, images/s) against float32 and bfloat16
+    ``segment()`` of the same weights, labels against float32 and against
+    the CPU's int8 path on 2 images, and every distinct eligible site timed.
+    Returns (result, launches of ``segment_int8``, facade, site shapes)."""
+    import numpy as np
+    import torch
+
+    from deeplabv3plus_keras_tpu_torch import SemanticSegmentation
+    from deeplabv3plus_keras_tpu_torch.ops import quant
+    from deeplabv3plus_keras_tpu_torch.parallel.step import build_label_step
+
+    seg = SemanticSegmentation({**conf, "int8_infer": True}, device="cuda")
+    first = torch.from_numpy(batches[0]).cuda()
+    calibrate_bn(seg.model, first)
+    expect = {k: v for k, v in depthwise_expect(depthwise_sites(seg.model, first)).items() if v}
+    del first
+    shapes = _quant_shapes(seg.model, lambda: seg.calibrate_int8(np.concatenate(batches)))
+    ranges = seg._quant
+    # the CPU's sites for the same config: names depend on shapes alone
+    cpu = SemanticSegmentation({**conf, "int8_infer": True}, device="cpu")
+    cpu.model.load_state_dict(seg.model.state_dict())
+    cpu_sites = sorted(quant.calibrate(cpu.model, [batches[0][:1]]))
+    if sorted(ranges) != cpu_sites:
+        raise SystemExit(f"{name} int8: card sites {sorted(ranges)} != CPU's {cpu_sites}")
+
+    def timed(facade):
+        times, labels = [], []
+        for images in batches:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            labels.append(facade.segment(images))
+            times.append(time.perf_counter() - t)
+        return BATCH / statistics.median(times[1:]), labels, times
+
+    def device_ms(facade, tag: str) -> float:
+        """Device busy ms of one call (the host clock's images/s vary
+        between runs: serving is host-bound)."""
+        return profile_device(lambda: facade.segment(batches[1]),
+                              OUT / f"int8_{name}_segment_{tag}_profile.txt",
+                              f"{card}\n{name}, int8 phase, {tag}, B={BATCH}, {SIZE}^2", 30)["device_ms"]
+
+    kernels.reset_launch_counts()
+    quant.reset_counts()
+    labels8, times = [], []
+    for i, images in enumerate(batches):
+        before, q0 = kernels.launch_counts(), quant.counts["int8_conv"]
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        labels8.append(seg.segment(images))
+        times.append(time.perf_counter() - t)
+        delta = {k: v - before[k] for k, v in kernels.launch_counts().items() if v - before[k]}
+        if delta != expect or quant.counts["int8_conv"] - q0 != len(ranges):
+            raise SystemExit(f"{name} int8 segment() call {i}: launches {delta} (expected "
+                             f"{expect}), {quant.counts['int8_conv'] - q0} int8 convs "
+                             f"(expected {len(ranges)})")
+    launches = kernels.launch_counts()
+    int8_img_s = BATCH / statistics.median(times[1:])
+    busy = {"int8": device_ms(seg, "int8")}
+    f32 = SemanticSegmentation(conf, device="cuda")
+    f32.model.load_state_dict(seg.model.state_dict())
+    f32_img_s, labels32, _ = timed(f32)
+    busy["float32"] = device_ms(f32, "float32")
+    bf16 = SemanticSegmentation({**conf, "hps": {**conf["hps"], "dtype": "bfloat16"}},
+                                device="cuda")
+    bf16.model.load_state_dict(seg.model.state_dict())
+    bf16_img_s, _, _ = timed(bf16)
+    busy["bfloat16"] = device_ms(bf16, "bfloat16")
+    del f32, bf16
+    agree32 = float(np.mean([(a == b).mean() for a, b in zip(labels8, labels32)]))
+    cpu_labels = build_label_step(cpu.model, {k: v.cpu() for k, v in ranges.items()})(
+        torch.from_numpy(batches[0][:2])).numpy()
+    agree_cpu = float((cpu_labels == labels8[0][:2]).mean())
+    del cpu
+
+    # every distinct eligible site, timed at its shape with its weight
+    mods = dict(seg.model.named_modules())
+    distinct = {}
+    for site in ranges:
+        shape, cin, cout, k, stride, padding = shapes[site]
+        key = (shape, cout, k, stride, str(padding))
+        distinct.setdefault(key, [site, 0])[1] += 1
+    rows = [int8_site_row(mods[site].weight, key[0], key[2], key[3], shapes[site][5],
+                          ranges[site], site, calls) for key, (site, calls) in distinct.items()]
+    torch.cuda.empty_cache()
+    out = {"model": name, "batch": BATCH, "image": SIZE, "sites": len(ranges),
+           "sites_equal_cpu": True, "img_per_s": {"int8": int8_img_s, "float32": f32_img_s,
+                                                  "bfloat16": bf16_img_s},
+           "int8_over_float32": int8_img_s / f32_img_s, "int8_over_bfloat16": int8_img_s / bf16_img_s,
+           "device_busy_ms_per_call": busy,
+           "call_s_int8": times, "label_agreement": {"float32": agree32, "cpu_int8_2_images": agree_cpu},
+           "launches_per_call": expect, "sum_site_ms": {
+               f: sum(r[f] * r["calls"] for r in rows)
+               for f in ("ms", "library_ms_float32", "library_ms_bfloat16", "bound_ms")},
+           "s": time.perf_counter() - t0, "card": card}
+    print(json.dumps({"int8": out}))
+    (OUT / f"int8_sites_{name}.json").write_text(json.dumps({"card": card, "sites": rows}, indent=1))
+    print(json.dumps({"int8_sites": [{k: r[k] for k in ("site", "shape", "cout", "calls", "ms",
+                                                        "library_ms_float32", "library_ms_bfloat16",
+                                                        "bound_ms", "max_abs_err_vs_cpu")}
+                                     for r in rows], "model": name, "card": card}))
+    # the same quantized values, an exact product, the same float32
+    # dequantization: equal
+    bad = [r["site"] for r in rows if r["max_abs_err_vs_cpu"] != 0.0]
+    if bad:
+        raise SystemExit(f"{name} int8: card vs CPU int8 conv differ at {bad}")
+    if agree32 < INT8_LABEL_FLOOR["float32"] or agree_cpu < INT8_LABEL_FLOOR["cpu_int8"]:
+        raise SystemExit(f"{name} int8 labels: {out['label_agreement']} below {INT8_LABEL_FLOOR}")
+    return out, launches, seg, shapes
+
+
+def run_int8(kernels, card: str) -> dict:
+    """The ``int8`` phase, under ``nhwc`` and TF32 off, at 16×512²: the
+    flagship and Xception calibrated on the serving batches and served
+    (:func:`run_int8_model`); the gate edges on the card (a site above the
+    pixel gate, Xception's 256→256 pointwise at 127², and one below the
+    channel gate, the flagship's 320→48 refinement conv at 32², timed as
+    int8 against cuDNN); ``evaluate()`` and ``test()`` under ``int8_infer``
+    on a VOC tree (PNGs against int8 ``segment()``); the int8 ``.pt2``
+    loaded and run against int8 ``segment()``.  Returns the launches of the
+    paths ``segment_int8``, ``xception_segment_int8``, ``evaluate_int8``,
+    ``test_int8`` and ``export_program_int8``."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from deeplabv3plus_keras_tpu_torch import SemanticSegmentation
+    from deeplabv3plus_keras_tpu_torch.data import MODE_TEST, make_synthetic_voc
+    from deeplabv3plus_keras_tpu_torch.ops import quant
+    from deeplabv3plus_keras_tpu_torch.parallel.step import build_predict_step
+
+    t0 = time.perf_counter()
+    batches = serving_batches()
+    by_path = {}
+    flag, by_path["segment_int8"], seg, flag_shapes = run_int8_model(
+        kernels, card, "mobilenetv2", flagship_conf(), batches, t0)
+    xcp, by_path["xception_segment_int8"], xseg, x_shapes = run_int8_model(
+        kernels, card, "xception", xception_conf(), batches, t0)
+
+    # the gate edges: above the pixel gate and below the channel gate
+    mods, xmods = dict(seg.model.named_modules()), dict(xseg.model.named_modules())
+    edges = []
+    for facade_mods, shapes, site in ((xmods, x_shapes, "base.block3_sepconv2.pointwise"),
+                                      (mods, flag_shapes, "decoder.refine_conv48.conv_l2")):
+        shape, cin, cout, k, stride, padding = shapes[site]
+        row = int8_site_row(facade_mods[site].weight, shape, k, stride, padding, 4.0, site, 1)
+        edges.append(row)
+    print(json.dumps({"int8_gate_edges": edges, "gates": {
+        "MIN_QUANT_CHANNELS": quant.MIN_QUANT_CHANNELS, "MAX_QUANT_PIXELS": quant.MAX_QUANT_PIXELS},
+        "card": card}))
+    if any(r["eligible"] for r in edges):
+        raise SystemExit(f"int8 gate edges: a timed edge site is eligible: {edges}")
+    del xseg
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # ---- evaluate() and test() under int8_infer on a VOC tree ----
+        root, work = os.path.join(tmp, "resource"), os.path.join(tmp, "work")
+        make_synthetic_voc(root, n_train=16, n_val=16, n_test=16, min_size=300, max_size=501)
+        dseg = SemanticSegmentation({**data_path_conf(root), "int8_infer": True},
+                                    work_dir=work, device="cuda")
+        dseg.model.load_state_dict(seg.model.state_dict())
+        kernels.reset_launch_counts()
+        quant.reset_counts()
+        miou = dseg.evaluate().result()
+        by_path["evaluate_int8"] = kernels.launch_counts()
+        eval_int8 = quant.counts["int8_conv"]
+        kernels.reset_launch_counts()
+        dseg.test()
+        by_path["test_int8"] = kernels.launch_counts()
+        mismatched = 0
+        pngs = sorted(os.listdir(os.path.join(work, "test_results")))
+        for b in dseg._batches(dseg._loader(MODE_TEST, with_labels=False), with_labels=False):
+            labels = dseg.segment(b["image"])
+            for n, lab in zip(b["names"], labels):
+                png = np.asarray(Image.open(os.path.join(work, "test_results", f"{n}.png")))
+                mismatched += int((png != lab.astype(np.uint8)).sum())
+        del dseg
+
+        # ---- the int8 .pt2 against int8 segment() ----
+        t = time.perf_counter()
+        eseg = SemanticSegmentation({**flagship_conf(), "int8_infer": True}, work_dir=tmp,
+                                    device="cuda")
+        eseg.model.load_state_dict(seg.model.state_dict())
+        paths = eseg.convert_to_tf_lite(representative_images=np.concatenate(batches))
+        export_s = time.perf_counter() - t
+        exported = torch.export.load(paths[1])
+        program = exported.module()
+    int_mm_nodes = sum(n.target == torch.ops.aten._int_mm.default for n in exported.graph.nodes)
+    same_ranges = all(torch.equal(seg._quant[k], v) for k, v in
+                      quant.calibrate(eseg.model, eseg._calib_batches(np.concatenate(batches))).items())
+    x = torch.from_numpy(batches[0]).cuda()
+    kernels.reset_launch_counts()
+    with torch.no_grad():
+        probs = program(x)
+    by_path["export_program_int8"] = kernels.launch_counts()
+    ref = build_predict_step(seg.model, seg._quant)(x)
+    probs_err = (probs - ref).abs().max().item()
+    top2 = probs.topk(2, dim=-1).values
+    ties = (top2[..., 0] == top2[..., 1]).cpu().numpy()
+    labels = probs.argmax(-1).cpu().numpy()
+    seg_labels = seg.segment(batches[0])
+    differ = labels != seg_labels
+    export = {"artifact": os.path.basename(paths[1]), "export_s": export_s,
+              "ranges_equal_segment": same_ranges, "probs_max_abs_err_vs_int8_forward": probs_err,
+              "labels_differ": int(differ.sum()), "labels_differ_outside_ties": int((differ & ~ties).sum()),
+              "probability_ties": int(ties.sum()), "int_mm_nodes": int_mm_nodes,
+              "sites": len(seg._quant)}
+    result = {"data_path": {"evaluate_miou": miou, "int8_convs_evaluate": eval_int8,
+                            "test_pngs": len(pngs), "test_mismatched_pixels": mismatched},
+              "export": export, "s": time.perf_counter() - t0, "card": card}
+    print(json.dumps({"int8_entry_points": result}))
+    failures = []
+    if not (math.isfinite(miou) and eval_int8 > 0 and len(pngs) == 16 and not mismatched):
+        failures.append(f"evaluate()/test() under int8_infer: {result['data_path']}")
+    if not (same_ranges and probs_err <= 1e-6 and not export["labels_differ_outside_ties"]
+            and int_mm_nodes == len(seg._quant)):
+        failures.append(f"int8 .pt2: {export}")
+    # evaluate() takes the probabilities (no K1); test() labels through K1
+    for path, names in (("evaluate_int8", ("depthwise_fwd_s1", "depthwise_fwd_s2")),
+                        ("test_int8", ("upsample_argmax", "depthwise_fwd_s1", "depthwise_fwd_s2"))):
+        if not all(by_path[path][k] for k in names):
+            failures.append(f"{path} launches {by_path[path]}")
+    if failures:
+        raise SystemExit("int8: " + "; ".join(failures))
+    return by_path
+
+
+def run_pretrained(card: str) -> dict:
+    """The ``pretrained`` line: where TensorFlow imports, a random-weight
+    Keras MobileNetV2 ``.h5`` at 512² loaded through the facade's
+    ``backbone_weights`` (every backbone tensor against the Keras source's,
+    converted, then one batch served); where it does not, the facade must
+    raise naming TensorFlow (a missing host dependency, not a device
+    fallback)."""
+    import importlib.util
+    import tempfile
+
+    import numpy as np
+
+    from deeplabv3plus_keras_tpu_torch import SemanticSegmentation
+    from deeplabv3plus_keras_tpu_torch.utils import keras_weights, pretrained
+    from deeplabv3plus_keras_tpu_torch.utils.jax_weights import export_jax_variables
+
+    t0 = time.perf_counter()
+    has_tf = importlib.util.find_spec("tensorflow") is not None
+    out = {"tensorflow": has_tf, "card": card}
+    with tempfile.TemporaryDirectory() as tmp:
+        h5 = os.path.join(tmp, "mobilenetv2.weights.h5")
+        conf = {**flagship_conf(), "backbone_weights": h5}
+        if not has_tf:
+            open(h5, "wb").close()
+            try:
+                SemanticSegmentation(conf, device="cuda")
+                raise SystemExit("pretrained: the facade loaded weights without TensorFlow")
+            except RuntimeError as e:
+                if "TensorFlow" not in str(e):
+                    raise
+                out["refused"] = str(e)[:200]
+        else:
+            source = pretrained.keras_builder("mobilenetv2", SIZE)()
+            source.save_weights(h5)
+            seg = SemanticSegmentation(conf, device="cuda")
+            got = export_jax_variables(seg.model)
+            ref = keras_weights.convert_keras_backbone(source, got)[0]
+            n = mismatched = 0
+            for c in ("params", "batch_stats"):
+                stack = [(ref[c]["base"], got[c]["base"])]
+                while stack:
+                    a, b = stack.pop()
+                    for k in a:
+                        if isinstance(a[k], dict):
+                            stack.append((a[k], b[k]))
+                        else:
+                            n += 1
+                            mismatched += not np.array_equal(a[k], b[k])
+            labels = seg.segment(serving_batches()[0])
+            out.update(tensors=n, mismatched=mismatched, labels_shape=list(labels.shape))
+            if mismatched or n < 100 or labels.shape != (BATCH, SIZE, SIZE):
+                raise SystemExit(f"pretrained: {out}")
+    out["s"] = time.perf_counter() - t0
+    print(json.dumps({"pretrained": out}))
+    return out
+
+
 # ---- the ddp phase: two ranks of a process group against one process ----
 
 DDP_STEPS = 3
@@ -1972,6 +2350,10 @@ DDP_LOSS_REL, DDP_PARAM_ATOL, DDP_SPREAD = 1e-5, 3e-3, 10
 # same), so 5e-2 for both
 DDP_HISTORY = {"streamed": (2e-2, 2e-2), "cache_device": (5e-2, 5e-2)}
 DDP_MIOU_ABS = 1e-4  # evaluate() of one checkpoint, 2 ranks against one process
+# int8 evaluate(): each rank's abs-max of its 8 rows, the maximum over the
+# ranks, against one process's of 16 rows: a row's activations round alike
+# in either batch to float32 rounding
+DDP_INT8_RANGE_REL = 1e-6
 
 
 def ddp_conf(conf: dict) -> dict:
@@ -2121,6 +2503,15 @@ def _ddp_data_rank(root: str, work: str, out_dir: str) -> None:
     kernels.reset_launch_counts()
     out["evaluate_miou"] = seg.evaluate().result()
     by_path["evaluate_ddp"] = kernels.launch_counts()
+    # int8_infer: calibrated on this rank's rows, the ranges the maximum over
+    # the ranks
+    q = SemanticSegmentation({**conf, "model_loading": True, "int8_infer": True},
+                             work_dir=os.path.join(work, "streamed"), device=device)
+    kernels.reset_launch_counts()
+    out["evaluate_int8"] = {"miou": q.evaluate().result(),
+                            "ranges": {k: v.item() for k, v in q._quant.items()}}
+    by_path["evaluate_int8_ddp"] = kernels.launch_counts()
+    del q
     seg.test()
     mismatched, mine = 0, []
     png_dir = os.path.join(work, "streamed", "test_results")
@@ -2206,6 +2597,12 @@ def run_ddp(kernels, card: str, state: dict) -> dict:
         one_miou = seg.evaluate().result()
         pngs = sorted(os.listdir(os.path.join(work, "streamed", "test_results")))
         del seg
+        seg = SemanticSegmentation({**ddp_conf(data_path_conf(root)), "model_loading": True,
+                                    "int8_infer": True},
+                                   work_dir=os.path.join(work, "streamed"), device="cuda")
+        one_int8 = {"miou": seg.evaluate().result(),
+                    "ranges": {k: v.item() for k, v in seg._quant.items()}}
+        del seg
     torch.cuda.empty_cache()
     torch.backends.cudnn.deterministic = deterministic
 
@@ -2272,6 +2669,9 @@ def run_ddp(kernels, card: str, state: dict) -> dict:
             "loss_rel": max(abs(a - b) / abs(b) for k in ("loss", "val_loss")
                             for a, b in zip(h2[k], h1[k])),
             "miou_abs": max(abs(a - b) for k in ("miou", "val_miou") for a, b in zip(h2[k], h1[k]))}
+    r8, o8 = data[0]["evaluate_int8"]["ranges"], one_int8["ranges"]
+    int8_rel = (max(abs(r8[k] - v) / v for k, v in o8.items()) if sorted(r8) == sorted(o8)
+                else math.inf)
     n_img = 64 * 2
     result = {
         **{k: layout[k] for k in ("backend", "cards", "world")},
@@ -2296,6 +2696,9 @@ def run_ddp(kernels, card: str, state: dict) -> dict:
                       "ranks_equal_histories": all(data[0][n]["history"] == data[1][n]["history"]
                                                    for n in ("streamed", "cache_device")),
                       "evaluate_miou": data[0]["evaluate_miou"], "one_process_miou": one_miou,
+                      "evaluate_int8_miou": data[0]["evaluate_int8"]["miou"],
+                      "one_process_int8_miou": one_int8["miou"],
+                      "int8_ranges_max_rel_diff": int8_rel,
                       "test_pngs": len(pngs),
                       "test_mismatched_pixels": [d["test"]["mismatched_pixels"] for d in data],
                       "train_img_per_s": {n: n_img / data[0][n]["train_s"]
@@ -2331,6 +2734,10 @@ def run_ddp(kernels, card: str, state: dict) -> dict:
         failures.append("the ranks' train() histories differ")
     if not abs(data[0]["evaluate_miou"] - one_miou) <= DDP_MIOU_ABS:
         failures.append(f"evaluate() mIoU {data[0]['evaluate_miou']} vs one process {one_miou}")
+    if not (data[0]["evaluate_int8"] == data[1]["evaluate_int8"] and int8_rel <= DDP_INT8_RANGE_REL
+            and abs(data[0]["evaluate_int8"]["miou"] - one_int8["miou"]) <= DDP_MIOU_ABS):
+        failures.append(f"int8 evaluate() on two ranks {data[0]['evaluate_int8']['miou']} "
+                        f"(ranges {int8_rel} apart) vs one process {one_int8['miou']}")
     if len(pngs) != 16 or any(d["test"]["mismatched_pixels"] for d in data) or sorted(
             data[0]["test"]["names"] + data[1]["test"]["names"]) != [p[:-4] for p in pngs]:
         failures.append(f"test(): {len(pngs)} PNGs, {result['data_path']['test_mismatched_pixels']}")
@@ -2422,6 +2829,14 @@ def main() -> int:
                           "s": time.perf_counter() - t1}))
         by_path.update(run_export(kernels, card, state))
         print(json.dumps({"model": "mobilenetv2", "phase": "export", "s": time.perf_counter() - t1}))
+        # int8_infer: the flagship and Xception quantized, K1-K3 on the path
+        t2 = time.perf_counter()
+        p = run_int8(kernels, card)
+        by_path.update(p)
+        if not all(p["segment_int8"][k] for k in ("upsample_argmax", "depthwise_fwd_s1",
+                                                  "depthwise_fwd_s2")):
+            raise SystemExit(f"int8 segment(): K1-K3 not all launched: {p['segment_int8']}")
+        print(json.dumps({"phase": "int8", "s": time.perf_counter() - t2}))
         # two ranks of a process group against one process
         by_path.update(run_ddp(kernels, card, state))
         print(json.dumps({"model": "mobilenetv2", "phase": "ddp", "s": time.perf_counter() - t1}))
@@ -2436,6 +2851,9 @@ def main() -> int:
         t1 = time.perf_counter()
         by_path.update(run_sweep(kernels, card, g, rows))
         print(json.dumps({"phase": "sweep", "s": time.perf_counter() - t1}))
+    # backbone_weights: a Keras .h5 through the facade, or the refusal
+    # naming TensorFlow where the host lacks it
+    run_pretrained(card)
     (OUT / "kernel_sites.json").write_text(json.dumps({"card": card, "sites": rows}, indent=1))
     print(json.dumps({"depthwise_forward_summary": forward_summary(rows), "card": card}))
     print(json.dumps({"depthwise_backward_summary": backward_summary(rows), "card": card}))

@@ -24,6 +24,15 @@ memory, ``data/pipeline.py`` ``DeviceDataset``) are taken as the JAX
 facade takes them.  ``convert_to_tf_lite()`` writes a ``torch.export``
 program (``EXPORT_MODEL_PATH``).
 
+The extra key ``backbone_weights`` (``"imagenet"`` or an ``.h5`` path)
+starts the backbone from Keras weights (``utils/pretrained.py``), after the
+random init and before the optimizer and a checkpoint restore, as the JAX
+facade does (``api.py:125-135``).  ``int8_infer`` serves ``evaluate()``,
+``test()`` and ``segment()`` with the wide convolutions in int8 after a
+calibration pass over ``int8_calib_batches`` (default 4) training batches,
+or over ``segment()``'s first images (``ops/quant.py``, JAX
+``api.py:182-192, 282-337``); training stays float.
+
 ``multi_gpu`` with ``num_gpus`` N > 1 trains, evaluates and tests over the
 N ranks of a ``torch.distributed`` process group, one device each
 (``parallel/mesh.py``): the group the caller has initialised, else the one
@@ -36,7 +45,7 @@ written by the rank that owns each sample.  The extra key
 ``allow_fewer_devices`` shrinks N to the ranks there are, as in JAX.
 
 Config keys that would change the result and are not ported yet
-(``int8_infer``, ``backbone_weights``, ``mesh_space`` > 1) raise
+(``mesh_space`` > 1, and ``fused_tail`` in the steps) raise
 ``NotImplementedError`` naming their ROADMAP.md item.
 
 The environment variable ``DLV3_DW_LAYOUT=bhcw`` routes the 3×3 stride-1
@@ -46,6 +55,7 @@ undilated depthwise sites through the channels-first kernels
 
 from __future__ import annotations
 
+import contextlib
 import os
 import shutil
 import time
@@ -63,10 +73,12 @@ from .config import (
 from .data import pipeline as pipe
 from .data import voc
 from .models.deeplab import DeepLabV3Plus
+from .ops import quant as quant_lib
 from .parallel import mesh
 from .parallel.step import (
     build_eval_step,
     build_label_step,
+    build_predict_step,
     build_train_step,
     create_train_state,
     resolve_class_weights,
@@ -82,11 +94,15 @@ from .train.checkpoint import (
 )
 from .utils import MetricsLogger, StepTimer, profiler_trace
 from .utils.preemption import Preempted, PreemptionGuard
+from .utils.pretrained import load_pretrained_backbone
 
 _SEED = 1024  # the reference seeds 1024 (semantic_segmentation.py:1797-1802)
 # convert_to_tf_lite()'s artifact: the inference forward as a torch.export
 # program (the JAX package writes a StableHLO one beside the .tflite)
 EXPORT_MODEL_PATH = "semantic_segmentation_deeplabv3plus.pt2"
+# ... and, under int8_infer or with representative images, the calibrated
+# int8 program beside it (the JAX package's TF_LITE_INT8_MODEL_PATH)
+EXPORT_INT8_MODEL_PATH = "semantic_segmentation_deeplabv3plus_int8.pt2"
 
 
 def resolve_device(device=None) -> torch.device:
@@ -146,16 +162,6 @@ class SemanticSegmentation:
         self.nn_arch = self.conf.nn_arch
         self.work_dir = work_dir
         extra = self.conf.extra
-        if extra.get("int8_infer", False):
-            raise NotImplementedError("int8_infer is not ported yet (ROADMAP.md Queue A item 15)")
-        # the JAX facade loads these weights or raises (api.py:131-133); it
-        # skips only an unset or empty key (utils/pretrained.py:79-81)
-        if extra.get("backbone_weights"):
-            raise NotImplementedError(
-                f"backbone_weights={extra['backbone_weights']!r}: pretrained "
-                "backbones are not ported yet (ROADMAP.md Queue A item 14b, the Keras .h5 "
-                "weight converter)"
-            )
         if int(extra.get("mesh_space", 1)) > 1:
             raise NotImplementedError(
                 f"mesh_space={extra['mesh_space']}: spatial sharding is not "
@@ -169,6 +175,10 @@ class SemanticSegmentation:
 
         self.model = DeepLabV3Plus(self.conf)
         self.model.init_weights(torch.Generator().manual_seed(_SEED))
+        # extra key 'backbone_weights' ("imagenet" or an .h5 path): the
+        # backbone from Keras weights; every rank converts the same file. A
+        # checkpoint restore below still takes precedence
+        load_pretrained_backbone(self.conf, self.model)
         self.model.to(self.device, memory_format=torch.channels_last).eval()
         self.optimizer = create_train_state(self.conf, self.model)
         if self.conf.model_loading and checkpoint_exists(work_dir):
@@ -187,6 +197,12 @@ class SemanticSegmentation:
                                           with_probs=False, **self._tta)
         self._eval_step_probs = None  # built by evaluate(result_saving=True)
         self._label_step = build_label_step(self.model)
+        # extra key 'int8_infer': the inference entry points with the
+        # eligible convs in int8 (ops/quant.py) after a calibration pass;
+        # training and its validation loop stay float
+        self._int8 = bool(extra.get("int8_infer", False))
+        self._quant = None  # the calibrated ranges
+        self._int8_steps = {}
 
     # ------------------------------------------------------------------
     # Steps on batches the caller builds
@@ -209,8 +225,13 @@ class SemanticSegmentation:
     def segment(self, images) -> np.ndarray:
         """Programmatic batch inference: images (B,S,S,3) in (−1,1) →
         argmax class-index labels (B,S,S) int32 (reference segment,
-        :1207-1227).  Only the labels cross to the host."""
-        return self._label_step(self._images(images)).cpu().numpy()
+        :1207-1227).  Only the labels cross to the host.
+        Under ``int8_infer`` the first call calibrates on the given images
+        (no dataset needed); call :meth:`calibrate_int8` beforehand to
+        calibrate on the training distribution instead."""
+        x = self._images(images)
+        label_step = self._int8_step("label", calib_images=x) if self._int8 else self._label_step
+        return label_step(x).cpu().numpy()
 
     def _images(self, images) -> torch.Tensor:
         x = torch.as_tensor(images, dtype=torch.float32, device=self.device)
@@ -295,6 +316,60 @@ class SemanticSegmentation:
             host_prepro=self.conf.prepro_device == DEVICE_CPU,
             device=self.device,
         )
+
+    # ------------------------------------------------------------------
+    # int8 inference (extra keys 'int8_infer' / 'int8_calib_batches')
+    # ------------------------------------------------------------------
+
+    def _calib_batches(self, images=None) -> list:
+        """Calibration batches for PTQ: slices of ``images`` ((N, S, S, 3)
+        in (−1, 1)) of ``hps.batch_size``, or by default
+        ``int8_calib_batches`` batches of the training split in order (the
+        standard PTQ protocol: calibrate on the training distribution; over
+        N ranks, this rank's rows of them)."""
+        if images is not None:
+            x = self._images(images)
+            B = max(1, self.hps.batch_size)
+            return [x[i:i + B] for i in range(0, len(x), B)]
+        n = int(self.conf.extra.get("int8_calib_batches", 4))
+        batches = self._batches(self._loader(voc.MODE_TRAIN, shuffle=False))
+        out = []
+        try:
+            for b in batches:
+                if len(out) == n:
+                    break
+                out.append(b["image"])
+        finally:
+            batches.close()
+        return out
+
+    def calibrate_int8(self, images=None) -> dict:
+        """Record the eligible convs' activation ranges for the int8
+        inference path (``ops/quant.py``) and drop the int8 steps built
+        against older ranges.  ``images``: optional (N, S, S, 3) in (−1, 1);
+        by default ``int8_calib_batches`` batches of the training split.
+        Over N ranks the ranges are the maximum over the ranks' batches.
+        Returns the ranges {site: float32 scalar}."""
+        self._quant = quant_lib.calibrate(self.model, self._calib_batches(images))
+        self._int8_steps = {}
+        return self._quant
+
+    def _int8_step(self, kind: str, calib_images=None, **kw):
+        """The quantized step of an inference entry point, built after
+        (auto-)calibration; the float steps stay as they are."""
+        if self._quant is None:
+            self.calibrate_int8(images=calib_images)
+        key = (kind, tuple(sorted(kw.items())))
+        if key not in self._int8_steps:
+            if kind == "eval":
+                fn = build_eval_step(self.model, self.conf, class_weights=self._cw,
+                                     quant=self._quant, **self._tta, **kw)
+            elif kind == "label":
+                fn = build_label_step(self.model, quant=self._quant)
+            else:
+                fn = build_predict_step(self.model, quant=self._quant)
+            self._int8_steps[key] = fn
+        return self._int8_steps[key]
 
     # ------------------------------------------------------------------
     # Entry points (reference :956-1187)
@@ -479,6 +554,9 @@ class SemanticSegmentation:
         results_dir = os.path.join(self.work_dir, "results")
         if result_saving:
             self._fresh_dir(results_dir)
+        if self._int8:
+            eval_step = self._int8_step("eval", with_probs=result_saving)
+        elif result_saving:
             if self._eval_step_probs is None:
                 self._eval_step_probs = build_eval_step(
                     self.model, self.conf, class_weights=self._cw, with_probs=True, **self._tta)
@@ -536,13 +614,14 @@ class SemanticSegmentation:
         self.hps.test_step = loader.steps()
         out_dir = os.path.join(self.work_dir, "test_results")
         self._fresh_dir(out_dir)
+        label_step = self._int8_step("label") if self._int8 else self._label_step
         stop = mesh.StopAgreement(self.device)
         for batch in self._batches(loader, with_labels=False):
             if stop.poll(guard.triggered):
                 self._say("SIGTERM received: test stopped (partial results kept)")
                 break
             # argmax on the device (K1); only the labels cross to the host
-            labels = self._label_step(batch["image"]).cpu().numpy().astype(np.uint8)
+            labels = label_step(batch["image"]).cpu().numpy().astype(np.uint8)
             valid = batch["valid"].cpu().numpy()
             for i, name in enumerate(batch["names"]):
                 if valid[i]:
@@ -556,40 +635,49 @@ class SemanticSegmentation:
         dimension, ``work_dir/semantic_segmentation_deeplabv3plus.pt2``
         (``torch.export.save``), and returns the paths written.
 
+        With ``representative_images`` ((N, S, S, 3) in (−1, 1)) or under
+        ``int8_infer``, a second program is written beside it:
+        ``semantic_segmentation_deeplabv3plus_int8.pt2``, the same forward
+        with the eligible convs in int8 (``ops/quant.py``), calibrated on
+        those images or on ``int8_calib_batches`` training batches, as the
+        JAX package calibrates its int8 ``.tflite`` (``_calib_batches``).
+
         The JAX package also converts to ``.tflite`` where TensorFlow is
-        installed; no torch→TFLite converter is installed here, so none is
-        written (it says so).  On the card the depthwise sites are the
-        custom operators of ``kernels/depthwise.py``: load the program with
-        ``torch.export.load`` after ``import deeplabv3plus_keras_tpu_torch``.
-        ``representative_images`` (int8 calibration) raises: int8 is
-        ROADMAP.md Queue A item 15.  Over N ranks rank 0 writes the program
+        installed; no torch→TFLite converter is installed here, so no
+        ``.tflite`` (float or int8) is written (it says so).  On the card
+        the depthwise sites are the custom operators of
+        ``kernels/depthwise.py``: load a program with ``torch.export.load``
+        after ``import deeplabv3plus_keras_tpu_torch``.  Over N ranks every
+        rank takes part in the calibration, rank 0 writes the programs
         (every rank holds the same weights) and the others return no
         path."""
-        if representative_images is not None or self.conf.extra.get("int8_infer", False):
-            raise NotImplementedError(
-                "an int8 (representative_images / int8_infer) export is not ported yet "
-                "(ROADMAP.md Queue A item 15, int8 PTQ serving)")
+        ranges = None
+        if representative_images is not None or self._int8:
+            ranges = quant_lib.calibrate(self.model, self._calib_batches(representative_images))
         if not self._main:
             mesh.barrier(self.device)
             return []
-        paths = self._export()
+        paths = [self._export(EXPORT_MODEL_PATH)]
+        if ranges is not None:
+            paths.append(self._export(EXPORT_INT8_MODEL_PATH, ranges))
+        print(f"no torch->TFLite converter is installed: no .tflite written; "
+              f"artifacts written: {[os.path.basename(p) for p in paths]}")
         mesh.barrier(self.device)
         return paths
 
-    def _export(self) -> list[str]:
+    def _export(self, name: str, ranges: dict | None = None) -> str:
         size = self.nn_arch.image_size
         self.model.eval()
         example = torch.zeros(2, size, size, 3, device=self.device)
-        with torch.no_grad():
+        with torch.no_grad(), (quant_lib.quantized(self.model, ranges) if ranges
+                               else contextlib.nullcontext()):
             program = torch.export.export(
                 _ProbabilityForward(self.model), (example,),
                 dynamic_shapes={"images": {0: torch.export.Dim("batch", min=1, max=4096)}})
         os.makedirs(self.work_dir, exist_ok=True)
-        path = os.path.join(self.work_dir, EXPORT_MODEL_PATH)
+        path = os.path.join(self.work_dir, name)
         torch.export.save(program, path)
-        print(f"no torch->TFLite converter is installed: no .tflite written; "
-              f"artifacts written: {[os.path.basename(path)]}")
-        return [path]
+        return path
 
 
 class _ProbabilityForward(torch.nn.Module):

@@ -170,8 +170,12 @@ class Config:
     """Top-level config (reference conf.json:1-54).
 
     ``multi_gpu``/``num_gpus`` were vestigial in the reference (never built a
-    parallel model, semantic_segmentation.py:1222-1223).  The port keeps
-    them for round-tripping and serves on one device.
+    parallel model, semantic_segmentation.py:1222-1223).  As the JAX
+    package's mesh does, the port takes them: ``multi_gpu`` with ``num_gpus``
+    N > 1 starts N ranks of a ``torch.distributed`` process group, one device
+    each (``parallel/mesh.py``, ``api.py`` ``join_ranks``).  Keys the
+    dataclass does not name (``backbone_weights``, ``int8_infer``,
+    ``int8_calib_batches``, ...) land in ``extra``.
     """
 
     mode: str = "train"

@@ -20,7 +20,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..blocks import BatchNorm, Conv, avg_pool_valid
+from ..blocks import BatchNorm, Conv, QuantConv, avg_pool_valid
 
 _BN_EPS = 1.001e-5
 
@@ -42,7 +42,7 @@ class DenseLayer(nn.Module):
     def __init__(self, cin: int, growth_rate: int = 32):
         super().__init__()
         self.add_module("0_bn", _bn(cin))
-        self.add_module("1_conv", Conv(cin, 4 * growth_rate, 1))
+        self.add_module("1_conv", QuantConv(cin, 4 * growth_rate, 1))
         self.add_module("1_bn", _bn(4 * growth_rate))
         self.add_module("2_conv", Conv(4 * growth_rate, growth_rate, 3))
 
@@ -70,7 +70,7 @@ class DenseNetBackbone(nn.Module):
                 self.add_module(names[-1], DenseLayer(c))
                 c += 32
             self.add_module(f"pool{bi}_bn", _bn(c))
-            self.add_module(f"pool{bi}_conv", Conv(c, c // 2, 1))
+            self.add_module(f"pool{bi}_conv", QuantConv(c, c // 2, 1))
             c //= 2
             self.stages.append((names, bi))
         self.last = last

@@ -33,6 +33,7 @@ from ..blocks import (
     BatchNorm,
     Conv,
     DepthwiseConv,
+    QuantConv,
     Dropout,
     efficientnet_conv_init_,
     sigmoid,
@@ -85,14 +86,14 @@ class MBConv(nn.Module):
         expanded = cin * expand_ratio
         self.has_expand = expand_ratio != 1
         if self.has_expand:
-            self.expand_conv = Conv(cin, expanded, 1, init_fn=init)
+            self.expand_conv = QuantConv(cin, expanded, 1, init_fn=init)
             self.expand_bn = BatchNorm(expanded)
         self.dwconv = DepthwiseConv(expanded, kernel, strides, init_fn=init)
         self.bn = BatchNorm(expanded)
         se_filters = max(1, int(cin * se_ratio))
         self.se_reduce = Conv(expanded, se_filters, 1, init_fn=init, bias=True)
         self.se_expand = Conv(se_filters, expanded, 1, init_fn=init, bias=True)
-        self.project_conv = Conv(expanded, features_out, 1, init_fn=init)
+        self.project_conv = QuantConv(expanded, features_out, 1, init_fn=init)
         self.project_bn = BatchNorm(features_out)
         self.residual = strides == 1 and cin == features_out
         self.drop = Dropout(drop_rate, per_sample=True) if self.residual else None

@@ -31,7 +31,15 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..blocks import BatchNorm, Conv, DepthwiseConv, avg_pool_same_s1, he_normal_, pool_s2_keras
+from ..blocks import (
+    BatchNorm,
+    Conv,
+    DepthwiseConv,
+    QuantConv,
+    avg_pool_same_s1,
+    he_normal_,
+    pool_s2_keras,
+)
 
 _BN_MOM = 0.9997
 _BN_EPS = 1e-3
@@ -41,8 +49,8 @@ def _bn(channels: int) -> BatchNorm:
     return BatchNorm(channels, _BN_MOM, _BN_EPS)
 
 
-def _conv1x1(cin: int, features: int, strides: int = 1) -> Conv:
-    return Conv(cin, features, 1, strides=strides, init_fn=he_normal_, padding="VALID")
+def _conv1x1(cin: int, features: int, strides: int = 1, cls=Conv) -> Conv:
+    return cls(cin, features, 1, strides=strides, init_fn=he_normal_, padding="VALID")
 
 
 class _SepBlock(nn.Module):
@@ -54,7 +62,7 @@ class _SepBlock(nn.Module):
         for i, (c, s) in ((1, (cin, strides)), (2, (filters, 1))):
             self.add_module(f"separable_conv_{i}_depthwise",
                             DepthwiseConv(c, kernel, s, init_fn=he_normal_))
-            self.add_module(f"separable_conv_{i}_pointwise", _conv1x1(c, filters))
+            self.add_module(f"separable_conv_{i}_pointwise", _conv1x1(c, filters, cls=QuantConv))
             self.add_module(f"separable_conv_{i}_bn", _bn(filters))
 
     def forward(self, x):

@@ -24,7 +24,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..blocks import BatchNorm, Conv, SeparableConv, max_pool_same
+from ..blocks import BatchNorm, QuantConv, SeparableConv, max_pool_same
 
 _BN_MOMENTUM = 0.99
 
@@ -35,15 +35,15 @@ class XceptionBackbone(nn.Module):
     def __init__(self, output_stride: int = 16):
         super().__init__()
         self.output_stride = output_stride
-        self.block1_conv1 = Conv(3, 32, 3, strides=2, padding="VALID")
+        self.block1_conv1 = QuantConv(3, 32, 3, strides=2, padding="VALID")
         self.block1_conv1_bn = BatchNorm(32, _BN_MOMENTUM)
-        self.block1_conv2 = Conv(32, 64, 3, padding="VALID")
+        self.block1_conv2 = QuantConv(32, 64, 3, padding="VALID")
         self.block1_conv2_bn = BatchNorm(64, _BN_MOMENTUM)
         # the residual blocks 2-4: (shortcut names, block, in, out channels)
         self.entry = []
         for i, (b, cin, cout) in enumerate(((2, 64, 128), (3, 128, 256), (4, 256, 728))):
             suffix = f"_{i}" if i else ""
-            self.add_module(f"conv2d{suffix}", Conv(cin, cout, 1, strides=2))
+            self.add_module(f"conv2d{suffix}", QuantConv(cin, cout, 1, strides=2))
             self.add_module(f"batch_normalization{suffix}", BatchNorm(cout, _BN_MOMENTUM))
             self._sepconv(b, 1, cin, cout)
             self._sepconv(b, 2, cout, cout)

@@ -24,7 +24,9 @@ Numerics mirrored from the Keras reference:
   and pool ``VALID``; its stride-1 ``SAME`` average pool leaves the
   padding out of the divisor.  EfficientNet's stochastic depth is flax
   ``nn.Dropout(broadcast_dims=(1, 2, 3))``: one draw per sample.
-- Only the float path of ``QuantConv``: int8 serving is a later slice.
+- ``QuantConv`` is ``Conv`` at the sites where the JAX package uses its
+  ``QuantConv``; inside a calibration or quantized pass
+  (``ops/quant.py``) it records its input's range or runs int8.
 
 Compute dtype, with flax's semantics (``hps.dtype``; the backbone casts
 the images to it where the JAX backbone's first conv does,
@@ -52,6 +54,7 @@ from torch import nn
 from torch.autograd.function import once_differentiable
 
 from ..kernels import depthwise_conv, same_pads
+from ..ops import quant
 from ..parallel import mesh
 
 _LOW_PRECISION = (torch.bfloat16, torch.float16)
@@ -206,8 +209,8 @@ class _Init:
 
 class Conv(_Init, nn.Module):
     """k×k conv with TF ``SAME``, ``VALID`` or explicit ``((top, bottom),
-    (left, right))`` padding: flax ``nn.Conv`` and the float path of the JAX
-    package's ``QuantConv``.  ``bias=True`` adds a zero-initialised bias
+    (left, right))`` padding: flax ``nn.Conv`` (``QuantConv`` adds the JAX
+    package's int8 path).  ``bias=True`` adds a zero-initialised bias
     after the conv, in the conv's dtype, as flax adds it."""
 
     def __init__(self, cin: int, features: int, kernel: int = 1, strides: int = 1,
@@ -239,6 +242,24 @@ class Conv(_Init, nn.Module):
         if (pt, pl) == (pb, pr):
             return F.conv2d(x, w, stride=self.strides, padding=(pt, pl))
         return F.conv2d(F.pad(x, (pl, pr, pt, pb)), w, stride=self.strides)
+
+
+class QuantConv(Conv):
+    """``Conv`` (no bias) with the JAX package's int8 inference path
+    (``models/blocks.py:74-131``): the same parameter, the same float
+    forward; inside ``ops/quant.recording`` an eligible call records its
+    input's abs-max, inside ``ops/quant.quantized`` a calibrated eligible
+    call runs s8×s8→s32 and returns the input's dtype."""
+
+    quantizable = True
+
+    def forward(self, x):
+        p = quant.active()
+        if p is not None:
+            y = p.conv(self, x)
+            if y is not None:
+                return y
+        return super().forward(x)
 
 
 class DepthwiseConv(_Init, nn.Module):
@@ -425,7 +446,7 @@ class ConvBNReLU(nn.Module):
                  bn_momentum: float = 0.99, bn_scale: bool = True):
         super().__init__()
         self.conv_name = "conv_l2" if l2 else "conv"
-        self.add_module(self.conv_name, Conv(cin, features, kernel))
+        self.add_module(self.conv_name, QuantConv(cin, features, kernel))
         self.bn = BatchNorm(features, bn_momentum, scale=bn_scale)
 
     def forward(self, x):
@@ -439,7 +460,7 @@ class SeparableConv(nn.Module):
                  init_fn=glorot_uniform_):
         super().__init__()
         self.depthwise = DepthwiseConv(cin, kernel, 1, dilation, init_fn)
-        self.pointwise = Conv(cin, features, 1, init_fn=init_fn)
+        self.pointwise = QuantConv(cin, features, 1, init_fn=init_fn)
 
     def forward(self, x):
         return self.pointwise(self.depthwise(x))
@@ -456,7 +477,7 @@ class SplitSepConvBlock(nn.Module):
         self.sepconv = SeparableConv(cin, features, kernel, dilation=dilation,
                                      init_fn=truncated_normal_05_)
         self.bn1 = BatchNorm(features, bn_momentum, scale=bn_scale)
-        self.conv_l2 = Conv(features, features, 1, init_fn=truncated_normal_05_)
+        self.conv_l2 = QuantConv(features, features, 1, init_fn=truncated_normal_05_)
         self.bn2 = BatchNorm(features, bn_momentum, scale=bn_scale)
 
     def forward(self, x):

@@ -20,7 +20,11 @@ train mode (BN on batch statistics, dropout drawn from a generator seeded
 from (seed, step)).  The extra key ``augment`` draws a flip and a scale
 jitter from that generator before the dropout (ops/augment.py), and
 ``eval_scales``/``eval_flip`` make the eval step average the probabilities
-over scales and a horizontal flip (test-time augmentation).
+over scales and a horizontal flip (test-time augmentation).  Given the
+calibrated ranges of ``ops/quant.calibrate`` (``quant``), the eval,
+predict and label steps run the eligible convolutions in int8 (JAX
+``_variables(state, quant)``, ``step.py:109-116``); the train step never
+takes them.
 
 Under a process group of N > 1 ranks (``parallel/mesh.py``) the train and
 eval steps take this rank's rows of a global batch and compute what the
@@ -37,6 +41,7 @@ and accumulation would need ``no_sync``).
 
 from __future__ import annotations
 
+import contextlib
 from typing import Callable
 
 import numpy as np
@@ -45,6 +50,7 @@ import torch.nn.functional as F
 
 from ..config import Config
 from ..kernels import upsample_argmax
+from ..ops import quant as quant_lib
 from ..ops.augment import augment_batch, parse_augment_conf
 from ..train.loss import (
     SS_NW,
@@ -261,15 +267,26 @@ def _tta_probs_fn(model, conf: Config, scales, flip: bool) -> Callable[[torch.Te
     return tta_probs
 
 
+@contextlib.contextmanager
+def _inference(model, quant):
+    """The context of an inference forward: inference mode, and int8 at
+    the sites ``quant`` (calibrated ranges) holds."""
+    with torch.inference_mode(), (quant_lib.quantized(model, quant) if quant
+                                  else contextlib.nullcontext()):
+        yield
+
+
 def build_eval_step(model, conf: Config, class_weights=None, with_probs: bool = True,
-                    tta_scales=None, tta_flip: bool = False) -> Callable[[dict], dict]:
+                    tta_scales=None, tta_flip: bool = False,
+                    quant=None) -> Callable[[dict], dict]:
     """``eval_step(batch) -> {"loss", "cm"[, "probs"]}`` in eval mode.
     ``with_probs=False`` drops the (B, S, S, C) probabilities.  Under a
     process group the loss and the confusion matrix are the global batch's
     (summed over ranks, the loss over the global valid-pixel count); the
     probabilities are this rank's rows'.
     ``tta_scales``/``tta_flip`` (extra keys ``eval_scales``/``eval_flip``)
-    turn on test-time augmentation (:func:`_tta_probs_fn`)."""
+    turn on test-time augmentation (:func:`_tta_probs_fn`); ``quant``, the
+    calibrated int8 ranges, quantizes the eligible sites of each scale."""
     _refuse_unported(conf, ("fused_tail",))
     wd = conf.hps.weight_decay
     num_classes = conf.nn_arch.num_classes
@@ -279,7 +296,7 @@ def build_eval_step(model, conf: Config, class_weights=None, with_probs: bool = 
 
     def eval_step(batch: dict) -> dict:
         model.eval()
-        with torch.inference_mode():
+        with _inference(model, quant):
             probs = probs_fn(batch["image"])
             valid = batch["valid"]
             n_valid = None
@@ -297,28 +314,29 @@ def build_eval_step(model, conf: Config, class_weights=None, with_probs: bool = 
     return eval_step
 
 
-def build_predict_step(model) -> Callable[[torch.Tensor], torch.Tensor]:
-    """images (B, S, S, 3) → softmax probabilities (B, S, S, classes)."""
+def build_predict_step(model, quant=None) -> Callable[[torch.Tensor], torch.Tensor]:
+    """images (B, S, S, 3) → softmax probabilities (B, S, S, classes);
+    int8 at the sites of ``quant``."""
 
     def predict_step(images: torch.Tensor) -> torch.Tensor:
         model.eval()
-        with torch.inference_mode():
+        with _inference(model, quant):
             return model(images)
 
     return predict_step
 
 
-def build_label_step(model) -> Callable[[torch.Tensor], torch.Tensor]:
+def build_label_step(model, quant=None) -> Callable[[torch.Tensor], torch.Tensor]:
     """images (B, S, S, 3) → class labels (B, S, S) int32.
 
     argmax∘softmax∘upsample ≡ argmax∘upsample, so labels come from the
     decoder's pre-upsample logits through the fused upsample+argmax kernel
     (``kernels/upsample_argmax``): the (B, S, S, C) probabilities never
-    exist."""
+    exist.  int8 at the sites of ``quant``."""
 
     def label_step(images: torch.Tensor) -> torch.Tensor:
         model.eval()
-        with torch.inference_mode():
+        with _inference(model, quant):
             logits, up = model(images, return_presample=True)
             return upsample_argmax(logits.contiguous(), up)
 

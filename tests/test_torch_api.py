@@ -83,8 +83,14 @@ def test_segment_rejects_bad_images_and_unported_options():
     labels = SemanticSegmentation({**conf_dict(32), "base_model": "efficientnetb0"},
                                   device="cpu").segment(np.zeros((2, 32, 32, 3), np.float32))
     assert labels.shape == (2, 32, 32) and labels.min() >= 0 and labels.max() < 21
-    with pytest.raises(NotImplementedError, match="int8_infer"):
-        SemanticSegmentation(conf_dict(64, int8_infer=True), device="cpu")
+    # int8_infer serves (the port once refused it, naming Queue A item 15):
+    # the first call calibrates on its images, the wide convs run int8
+    from deeplabv3plus_keras_tpu_torch.ops import quant
+
+    seg = SemanticSegmentation(conf_dict(64, int8_infer=True), device="cpu")
+    quant.reset_counts()
+    assert seg.segment(np.zeros((2, 64, 64, 3), np.float32)).shape == (2, 64, 64)
+    assert seg._quant and quant.counts["int8_conv"] == len(seg._quant)
 
 
 @pytest.mark.parametrize("keys,item", [
@@ -96,15 +102,17 @@ def test_segment_rejects_bad_images_and_unported_options():
     ({"cache_device": True}, "item 19"),
     ({"hps": {"dtype": "bfloat16"}}, "item 18"),
 ])
-def test_config_keys_that_change_the_result_raise(keys, item, tmp_path):
+def test_config_keys_that_change_the_result_raise(keys, item, tmp_path, monkeypatch):
     """The JAX facade builds a num_gpus mesh under ``multi_gpu``
     (api.py:90-108), loads ``backbone_weights`` into the backbone
     (api.py:131-133) and shards space under ``mesh_space`` > 1
     (api.py:109-113).  The port runs ``multi_gpu`` over the ranks of a
     process group: with none and no launcher it must refuse rather than
     train on one device, and ``allow_fewer_devices`` shrinks to the one
-    process, as the JAX facade shrinks its mesh.  It does not load
-    backbone weights or shard space yet, so it refuses those.  It keeps the
+    process, as the JAX facade shrinks its mesh.  It loads backbone weights
+    from a Keras file and downloads nothing: a missing file (an ImageNet one
+    absent from an empty Keras cache) raises naming it, before TensorFlow
+    is imported.  It does not shard space yet, so it refuses that.  It keeps the
     dataset in device memory under ``cache_device`` (api.py:221-236,
     ROADMAP item 19) and computes in the ``hps.dtype`` (item 18) as the JAX
     facade does, so those keys are accepted and take effect."""
@@ -121,6 +129,12 @@ def test_config_keys_that_change_the_result_raise(keys, item, tmp_path):
         assert seg.model.compute_dtype == torch.bfloat16
         assert {p.dtype for p in seg.model.parameters()} == {torch.float32}
         assert seg.segment(np.zeros((1, 32, 32, 3), np.float32)).shape == (1, 32, 32)
+    elif item == "item 14b":  # pretrained backbones: the file must exist
+        monkeypatch.setenv("KERAS_HOME", str(tmp_path / "keras"))
+        name = ("mobilenet_v2_weights_tf_dim_ordering_tf_kernels_1.0_224_no_top.h5"
+                if keys["backbone_weights"] == "imagenet" else "backbone.h5")
+        with pytest.raises(FileNotFoundError, match=name):
+            SemanticSegmentation(conf, device="cpu")
     elif item == "item 19":  # the train loader is a device-resident dataset
         root = make_synthetic_voc(str(tmp_path / "voc"), n_train=2, n_val=1, n_test=0,
                                   min_size=20, max_size=30)

@@ -16,6 +16,10 @@ Tolerances.  Against one process from the same weights, float32:
   matrix's total exactly (every validation pixel counted once).
 - ``test()``: each PNG equal to one process's labels of the same
   checkpoint.
+- ``int8_infer``'s ``evaluate()``: the calibrated ranges (each rank's
+  abs-max over its rows, the maximum over the ranks) to 1e-6 relative (a
+  row's activations round alike in a batch of 2 or 4), the mIoU to 1e-4,
+  the confusion matrix's total exactly.
 """
 
 import json
@@ -228,3 +232,23 @@ def test_allow_fewer_devices_on_two_ranks(facade):
     for r in (r0, r1):
         assert "num_gpus=4" in r["refused"] and "allow_fewer_devices" in r["refused"]
         assert r["shrunk_world"] == 2
+
+
+def test_int8_evaluate_on_two_ranks_equals_one_process(facade, tree):
+    """int8 evaluate() of one checkpoint on two ranks quantizes as one
+    process does: the calibration's abs-maxima are reduced with MAX over
+    the ranks (JAX's N devices calibrate on the global batch)."""
+    _, wd, conf = facade
+    launch.spawn(workers.int8_worker, 2, (conf, str(wd), str(wd)), devices=["cpu", "cpu"],
+                 timeout_s=240, group_timeout_s=120)
+    r0, r1 = (json.loads((wd / f"int8_r{r}.json").read_text()) for r in (0, 1))
+    assert r0 == r1
+    one = SemanticSegmentation({**_conf(tree), "model_loading": True, "int8_infer": True,
+                                "int8_calib_batches": 4}, work_dir=str(wd), device="cpu")
+    ref = one.evaluate()
+    ranges = {k: v.item() for k, v in one._quant.items()}
+    assert sorted(r0["ranges"]) == sorted(ranges) and ranges
+    for k, v in ranges.items():
+        assert abs(r0["ranges"][k] - v) <= 1e-6 * v, k
+    assert abs(r0["val_miou"] - ref.result()) <= 1e-4
+    assert int(np.sum(r0["cm"])) == N_VAL * SIZE * SIZE

@@ -75,9 +75,15 @@ def test_loaded_program_equals_model_and_jax(exported, batch):
 
 
 def test_representative_images_raise_naming_int8(exported):
-    _, _, seg, _, _ = exported
-    with pytest.raises(NotImplementedError, match="item 15"):
-        seg.convert_to_tf_lite(representative_images=np.zeros((1, 64, 64, 3), np.float32))
+    """Representative images (int8 calibration) no longer raise: they add
+    the calibrated int8 program beside the float one (JAX's third artifact,
+    ``TF_LITE_INT8_MODEL_PATH``); tests/test_torch_int8_api.py checks its
+    numbers."""
+    _, _, seg, paths, _ = exported
+    both = seg.convert_to_tf_lite(representative_images=_images(2).numpy())
+    assert [p.rsplit("/", 1)[-1] for p in both] == [
+        "semantic_segmentation_deeplabv3plus.pt2", "semantic_segmentation_deeplabv3plus_int8.pt2"]
+    assert both[0] == paths[0]
 
 
 def test_cli_converts(tmp_path, monkeypatch, capsys):

@@ -568,3 +568,61 @@ def test_two_ranks_launch_the_kernels_of_one_process(card, tmp_path):
         assert [r["launches"][k] for k in names] == [one[k] for k in names], r
     assert ranks[0]["loss"] == ranks[1]["loss"]
     assert abs(ranks[0]["loss"] - loss) <= 1e-5 * loss
+
+
+# int8 products (M, K, N) of the zoo's quantized sites: the flagship's ASPP
+# at 16×512² (32² maps: 320 → 256, the 1280 → 256 projection), Xception's
+# middle flow (728) and exit flow (1024 → 1536 → 2048 at 32²), EfficientNet's
+# expand/project widths at 32², and row counts at and below _int_mm's 17
+INT8_PRODUCT_CASES = [
+    (16 * 32 * 32, 320, 256), (16 * 32 * 32, 1280, 256), (16 * 32 * 32, 728, 728),
+    (16 * 32 * 32, 1024, 1536), (16 * 32 * 32, 1536, 2048), (16 * 32 * 32, 672, 192),
+    (17, 128, 128), (16, 256, 128), (1, 728, 728),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", INT8_PRODUCT_CASES)
+def test_int8_product_matches_plain(card, m, k, n):
+    """``torch._int_mm`` (rows padded past 16) against the exact int64
+    product on the CPU: equal, every term a product of two int8s."""
+    from deeplabv3plus_keras_tpu_torch.ops import quant
+
+    a = torch.randint(-127, 128, (m, k), generator=card, device="cuda", dtype=torch.int8)
+    w = torch.randint(-127, 128, (n, k), generator=card, device="cuda", dtype=torch.int8)
+    got = quant.int8_product(a, w)
+    assert got.dtype == torch.int32 and got.shape == (m, n)
+    assert torch.equal(got.cpu(), quant.int8_product(a.cpu(), w.cpu()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,stride,shape", [(1, 1, (4, 728, 32, 32)), (1, 2, (2, 256, 63, 63)),
+                                            (3, 1, (2, 128, 9, 10)), (3, 2, (1, 128, 16, 16))])
+def test_int8_conv_matches_plain(card, k, stride, shape):
+    """The whole int8 conv (quantize, im2col, product, dequantize) on the
+    card against the CPU's plain version: the quantized values and the
+    integer product are exact, the dequantization the same float32
+    operations."""
+    from deeplabv3plus_keras_tpu_torch.ops import quant
+
+    x = torch.randn(shape, generator=card, device="cuda").contiguous(
+        memory_format=torch.channels_last)
+    w = torch.randn(256, shape[1], k, k, generator=card, device="cuda") * 0.05
+    amax = x.abs().amax() * 0.9
+    got = quant.int8_conv(x, w, amax, strides=stride)
+    ref = quant.int8_conv(x.cpu(), w.cpu(), amax.cpu(), strides=stride)
+    assert got.shape == ref.shape
+    torch.testing.assert_close(got.cpu(), ref, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_int8_site_that_int_mm_cannot_take_raises(card):
+    """An eligible site whose K or N is no multiple of 8 raises naming the
+    site: the card never falls back to float where JAX computes int8."""
+    from deeplabv3plus_keras_tpu_torch.ops import quant
+
+    conv = blocks.QuantConv(132, 256, 1).cuda()
+    x = torch.randn(2, 132, 8, 8, device="cuda")
+    with torch.no_grad(), quant.quantized(conv, {"": torch.tensor(1.0, device="cuda")}):
+        with pytest.raises(ValueError, match=r"int8 site : K=132"):
+            conv(x)

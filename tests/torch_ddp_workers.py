@@ -139,6 +139,23 @@ def facade_worker(conf: dict, work_dir: str, out_dir: str) -> None:
                    "refused": refused, "shrunk_world": shrunk}, f)
 
 
+def int8_worker(conf: dict, work_dir: str, out_dir: str) -> None:
+    """``int8_infer`` over the group: a ``model_loading`` facade's
+    evaluate(), calibrated on each rank's rows of the training batches (the
+    ranges the maximum over the ranks); the metric, the confusion matrix
+    and the ranges."""
+    from deeplabv3plus_keras_tpu_torch import SemanticSegmentation
+    from deeplabv3plus_keras_tpu_torch.parallel import mesh
+
+    torch.set_num_threads(1)
+    seg = SemanticSegmentation({**conf, "model_loading": True, "int8_infer": True},
+                               work_dir=work_dir, device="cpu")
+    miou = seg.evaluate()
+    with open(os.path.join(out_dir, f"int8_r{mesh.rank()}.json"), "w") as f:
+        json.dump({"val_miou": miou.result(), "cm": miou.total_cm.tolist(),
+                   "ranges": {k: v.item() for k, v in seg._quant.items()}}, f)
+
+
 def preempt_worker(conf: dict, work_dir: str, out_dir: str) -> None:
     """train() for 3 epochs where rank 1 alone gets a SIGTERM during its
     second step: every rank must stop at the same step, rank 0 save the
