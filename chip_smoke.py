@@ -7,7 +7,7 @@ toolkit:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from ``deeplabv3plus_keras_tpu_torch/csrc``
-(and prints what ``ptxas`` makes of every instantiation of the four
+(and prints what ``ptxas`` makes of every instantiation of the five
 sources, failing on a register spill), then drives two models, each with random weights from a seed and BN
 statistics set from its first batch, at 512², float32, B=16:
 
@@ -77,6 +77,17 @@ BN statistics of its float32 phases:
   streamed and with a sharded ``cache_device``, ``evaluate()`` and
   ``test()``, images/s and a profiled epoch's idle share; and
   ``int8_infer``'s ``evaluate()`` on the two ranks against one process;
+- ``fused_tail`` (after ``ddp``): the parity-decomposed training tail.
+  T1/T2 (``csrc/parity_tail.cu``) at the flagship's tail (logits
+  16 × 256² × 21, labels at 512², one padded sample) in float32 and
+  bfloat16, one-hot and integer labels, against the plain version (the
+  per-sample sums, the matrix, dlogits; twice, bit for bit), timed beside
+  the plain version, the unfused tail and the byte bound; 6
+  ``train_step()``s with the key on and off from the same weights
+  (step-1 loss, matrix and gradients, peak memory, step time, launches a
+  step: T1 1, T2 1, K2 15, K3 3, K4 15, K5 3) and the probability-free
+  ``eval_step()`` (T1 once a call), the same in bfloat16, and one step on
+  two ranks (the ``ddp`` layout) against one process;
 - ``int8`` (before ``ddp``): ``int8_infer`` on the flagship and on
   Xception (under ``nhwc``) calibrated on the serving batches: the
   quantized sites against the CPU's for the same config, ``segment()``
@@ -109,8 +120,10 @@ boundary refinement, 21 classes):
 Then it prints the forward and backward depthwise summaries against cuDNN
 and the byte bound (K7's beside the one-tile-a-block design it replaced),
 K2–K5 by kernel size at the new backbones' sites (``depthwise_by_k``),
-one JSON line of kernel results (K1-K7; K2-K7 also in bfloat16, K2-K5 in
-float16; launches by path, the new phases' paths (``segment_int8``,
+one JSON line of kernel results (K1-K7 and T1/T2, the fused tail's kernels,
+which port a jnp function and no Pallas call; K2-K7 also in bfloat16,
+K2-K5 in float16, T1/T2 in bfloat16 and with integer labels; launches by
+path, the new phases' paths (``segment_int8``,
 ``xception_segment_int8``, ``evaluate_int8``, ``test_int8``,
 ``export_program_int8``) and the ddp phase's rank 0 included), the card's
 name and power limit, and as its last line ``{"ok": true, "device": {...}}``.
@@ -147,6 +160,9 @@ TPU_SOURCES = {
     "upsample_argmax": "deeplabv3plus_keras_tpu/kernels/upsample_argmax.py:89",
     "depthwise_fwd_cf": "deeplabv3plus_keras_tpu/kernels/depthwise3.py:105",
     "depthwise_bwd_cf": "deeplabv3plus_keras_tpu/kernels/depthwise3.py:185",
+    # T1/T2 port the jnp function tail_loss_cm, not a Pallas call
+    "parity_tail_fwd": "deeplabv3plus_keras_tpu/ops/parity_tail.py:84",
+    "parity_tail_bwd": "deeplabv3plus_keras_tpu/ops/parity_tail.py:84",
 }
 SOURCES = {
     "depthwise_fwd_s1": "deeplabv3plus_keras_tpu_torch/csrc/depthwise_fwd.cu",
@@ -156,6 +172,8 @@ SOURCES = {
     "upsample_argmax": "deeplabv3plus_keras_tpu_torch/csrc/upsample_argmax.cu",
     "depthwise_fwd_cf": "deeplabv3plus_keras_tpu_torch/csrc/depthwise_cf.cu",
     "depthwise_bwd_cf": "deeplabv3plus_keras_tpu_torch/csrc/depthwise_cf.cu",
+    "parity_tail_fwd": "deeplabv3plus_keras_tpu_torch/csrc/parity_tail.cu",
+    "parity_tail_bwd": "deeplabv3plus_keras_tpu_torch/csrc/parity_tail.cu",
 }
 # The path whose launches a kernel's "launches" reports: the one it was
 # ported for.
@@ -163,6 +181,7 @@ MAIN_PATH = {
     "upsample_argmax": "segment", "depthwise_fwd_s1": "segment", "depthwise_fwd_s2": "segment",
     "depthwise_bwd_s1": "train_step", "depthwise_bwd_s2": "train_step",
     "depthwise_fwd_cf": "xception_segment", "depthwise_bwd_cf": "xception_train_step",
+    "parity_tail_fwd": "train_step_fused_tail", "parity_tail_bwd": "train_step_fused_tail",
 }
 
 
@@ -2397,17 +2416,18 @@ def ddp_batches(n: int, seed: int = 7) -> list[dict]:
 
 
 def ddp_steps(state: dict, device, rows=None, dtype: str = "float32",
-              steps: int = DDP_STEPS) -> dict:
+              steps: int = DDP_STEPS, **extra) -> dict:
     """``train_step()`` of the flagship from ``state`` on ``steps`` global
     batches (this rank's ``rows`` of each under a group, all of them
-    otherwise): per step the loss, the confusion matrix, the kernels'
-    launches and the wall time; then the weights and statistics."""
+    otherwise), with the config keys ``extra``: per step the loss, the
+    confusion matrix, the kernels' launches and the wall time; then the
+    weights and statistics."""
     import torch
 
     from deeplabv3plus_keras_tpu_torch import SemanticSegmentation, kernels
     from deeplabv3plus_keras_tpu_torch.parallel import mesh
 
-    conf = ddp_conf(flagship_conf())
+    conf = {**ddp_conf(flagship_conf()), **extra}
     conf["hps"]["dtype"] = dtype
     if mesh.is_active():
         conf.update(multi_gpu=True, num_gpus=mesh.world_size())
@@ -2746,6 +2766,357 @@ def run_ddp(kernels, card: str, state: dict) -> dict:
     return {"train_step_ddp": r0["float32"]["launches"][0], **data[0]["launches"]}
 
 
+# ---------------------------------------------------------------------------
+# fused_tail: the parity-decomposed training tail, T1/T2
+
+# The operations T1 and T2 need per full-resolution pixel and class, each
+# transcendental counted as one: the parity lerp (3 blends of 2 products
+# and a sum: 9), the softmax (subtract, exp, sum, divide: 4), the loss
+# (two shifted logs, two products, a sum: 7); T2 the lerp and softmax, the
+# slope a (two divisions, 4 products and sums: 6), the dot product and
+# p·(a − dot)·scale (5) and the transposed lerp's share (8 products and sums)
+TAIL_FWD_OPS, TAIL_BWD_OPS = 20, 32
+# T1's per-sample sums and T2's dlogits against the plain version on the
+# same float32 values (the kernels compute in float32): sums over pixels and
+# classes in another order, 1e-5 relative; dlogits to 1e-5 of their largest,
+# 2^-7 in bfloat16 (the rounding of the result); the matrix exactly (the
+# parity values are the plain version's lerps, rounded alike)
+TAIL_SUM_REL = 1e-5
+TAIL_DX_REL = {"float32": 1e-5, "bfloat16": 2.0 ** -7}
+# bfloat16 logits: the kernels (float32 arithmetic) against the plain
+# version in bfloat16 (JAX's roundings), the bound of
+# tests/test_torch_parity_tail.py
+TAIL_BF16_PLAIN_REL = 1e-2
+# fused against unfused steps from the same weights: the step-1 loss to
+# 2e-6 relative (the JAX package's bound, tests/test_parity_tail.py); the
+# first step's gradients to 1e-4 in relative 2-norm (the forward is the
+# same to the bit, so no ReLU mask moves: only dlogits' float32 rounding,
+# carried back); the confusion matrix to max(8, pixels/4096) differing
+# pixels (the unfused matrix argmaxes the full-resolution probabilities of
+# the matmul-form upsample, the fused one the parity lerps: a class pair
+# within one rounding may swap); in bfloat16 the loss to 1e-2 (the
+# unfused tail upsamples and softmaxes in bfloat16, the fused one in
+# float32) and the matrix to 1 % of the pixels
+TAIL_STEP_LOSS_REL, TAIL_STEP_GRAD_REL, TAIL_BF16_LOSS_REL = 2e-6, 1e-4, 1e-2
+TAIL_STEPS = 6
+
+
+def event_ms(fn, reps: int = 5) -> float:
+    """Device time of one call of ``fn`` between CUDA events over ``reps``
+    calls, after a warm-up (no graph: autograd runs its own backward)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def check_parity_tail(card: str) -> dict:
+    """T1 and T2 at the flagship's tail, logits (16, 256, 256, 21) and labels
+    at 512², one padded sample, in float32 and bfloat16, one-hot (float32)
+    and integer labels: against the plain version on the same float32
+    values (sums, matrix, dlogits), twice for bit equality, and timed beside
+    the plain version, the unfused tail (``tf_resize_images_matmul`` (or
+    ``tf_resize_images`` in bfloat16) + ``softmax`` + ``class_balanced_loss``
+    forward and backward, what the step runs without the key) and the
+    bound.  Returns the ``kernels`` line's rows."""
+    import torch
+
+    from deeplabv3plus_keras_tpu_torch.kernels import parity_tail as pt
+    from deeplabv3plus_keras_tpu_torch.models.decoder import softmax
+    from deeplabv3plus_keras_tpu_torch.ops.resize import tf_resize_images, tf_resize_images_matmul
+    from deeplabv3plus_keras_tpu_torch.train.loss import (SS_NW, SS_PW, class_balanced_loss,
+                                                          class_balanced_loss_sparse)
+
+    t0 = time.perf_counter()
+    B, h, C = BATCH, SIZE // 2, CLASSES
+    g = torch.Generator(device="cuda").manual_seed(11)
+    x32 = torch.randn(B, h, h, C, device="cuda", generator=g) * 3
+    ids = torch.randint(0, C, (B, SIZE, SIZE), device="cuda", generator=g)
+    valid = torch.ones(B, dtype=torch.int32, device="cuda")
+    valid[-1] = 0
+    denom = float(valid.sum()) * SIZE * SIZE
+    scale = valid.float() / denom  # what autograd hands T2 for the mean loss
+    layouts = {"one_hot": torch.nn.functional.one_hot(ids, C).float(), "integer": ids}
+    rows, failures = {}, []
+    for dtype in ("float32", "bfloat16"):
+        x = x32.to(getattr(torch, dtype))
+        for layout, lab in layouts.items():
+            sums, cm = pt.parity_tail_forward(x, lab, SS_PW, SS_NW, valid)
+            dx = pt.parity_tail_backward(x, lab, SS_PW, SS_NW, scale)
+            again = (*pt.parity_tail_forward(x, lab, SS_PW, SS_NW, valid),
+                     pt.parity_tail_backward(x, lab, SS_PW, SS_NW, scale))
+            bits = all(torch.equal(a, b) for a, b in zip((sums, cm, dx), again))
+            ref_sums, ref_cm = pt.parity_tail_forward_plain(x.float(), lab, SS_PW, SS_NW, valid)
+            ref_dx = pt.parity_tail_backward_plain(x.float(), lab, SS_PW, SS_NW, scale)
+            loss, ref_loss = ((s * valid).sum().item() / denom for s in (sums, ref_sums))
+            row = {
+                "loss_max_abs_err": abs(loss - ref_loss),
+                "sums_max_rel_err": ((sums - ref_sums).abs() / ref_sums.abs()).max().item(),
+                "cm_differing": int((cm - ref_cm).abs().sum()),
+                "dx_max_abs_err": (dx.float() - ref_dx).abs().max().item(),
+                "dx_max_abs": ref_dx.abs().max().item(),
+                "bit_equal_runs": bits, "cm_pixels": int(cm.sum())}
+            if dtype == "bfloat16":  # the plain version in bfloat16: JAX's roundings
+                p16, _ = pt.parity_tail_forward_plain(x, lab, SS_PW, SS_NW, valid)
+                l16 = (p16 * valid).sum().item() / denom
+                row["loss_rel_vs_plain_bfloat16"] = abs(loss - l16) / abs(l16)
+                if not row["loss_rel_vs_plain_bfloat16"] <= TAIL_BF16_PLAIN_REL:
+                    failures.append(f"{dtype} {layout}: loss {loss} vs plain bfloat16 {l16}")
+            if not (row["sums_max_rel_err"] <= TAIL_SUM_REL and row["cm_differing"] == 0
+                    and row["dx_max_abs_err"] <= TAIL_DX_REL[dtype] * row["dx_max_abs"] and bits
+                    and row["cm_pixels"] == (B - 1) * SIZE * SIZE):
+                failures.append(f"{dtype} {layout}: {row}")
+            del ref_dx
+
+            # times: the kernels (CUDA graphs), the plain version and the
+            # unfused tail (CUDA events), on these inputs
+            xr = x.detach().clone().requires_grad_(True)
+
+            def unfused():
+                nchw = xr.permute(0, 3, 1, 2)
+                up = (tf_resize_images_matmul(nchw, 2, 2) if dtype == "float32"
+                      else tf_resize_images(nchw, 2, 2))
+                probs = softmax(up, dim=1).permute(0, 2, 3, 1).float()
+                if lab.dim() == 4:
+                    return class_balanced_loss(lab, probs, SS_PW, SS_NW, valid=valid)
+                return class_balanced_loss_sparse(lab, probs, SS_PW, SS_NW, valid=valid)
+
+            def unfused_both():
+                xr.grad = None
+                unfused().backward()
+
+            def plain_both():
+                pt.parity_tail_backward_plain(x, lab, SS_PW, SS_NW, scale)
+
+            ms_fwd = cuda_ms(lambda: pt.parity_tail_forward(x, lab, SS_PW, SS_NW, valid))
+            ms_bwd = cuda_ms(lambda: pt.parity_tail_backward(x, lab, SS_PW, SS_NW, scale))
+            plain_fwd = event_ms(lambda: pt.parity_tail_forward_plain(x, lab, SS_PW, SS_NW, valid))
+            plain_all = event_ms(plain_both)
+            lib_fwd = event_ms(unfused)
+            lib_all = event_ms(unfused_both)
+            xb, lb = x.numel() * x.element_size(), lab.numel() * lab.element_size()
+            pix = B * SIZE * SIZE * C
+            fb, fby = bound(xb + lb + 2 * B * 4 + C * C * 4, pix * TAIL_FWD_OPS)
+            bb, bby = bound(2 * xb + lb + 2 * B * 4, pix * TAIL_BWD_OPS)
+            row.update(fwd={"ms": ms_fwd, "plain_ms": plain_fwd, "library_ms": lib_fwd,
+                            "bound_ms": fb, "bound_by": fby},
+                       bwd={"ms": ms_bwd, "plain_ms": plain_all - plain_fwd,
+                            "library_ms": lib_all - lib_fwd, "bound_ms": bb, "bound_by": bby},
+                       plain_fwd_bwd_ms=plain_all, unfused_fwd_bwd_ms=lib_all)
+            rows[f"{dtype}_{layout}"] = row
+            del xr
+            torch.cuda.empty_cache()
+    print(json.dumps({"parity_tail_kernels": {
+        "logits": [B, h, h, C], "labels": SIZE, "padded_samples": 1, "rows": rows,
+        "note": ("ms: CUDA graphs of 20 calls; plain and unfused: CUDA events over 5 calls; a "
+                 "backward's plain_ms and library_ms are forward + backward less the forward"),
+        "s": time.perf_counter() - t0, "card": card}}))
+    if failures:
+        raise SystemExit("parity_tail kernels: " + "; ".join(failures))
+
+    def entry(which: str) -> dict:
+        main = rows["float32_one_hot"]
+        out = {k: main[which][k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}
+        out["max_abs_err"] = main["loss_max_abs_err"] if which == "fwd" else main["dx_max_abs_err"]
+        for key in ("float32_integer", "bfloat16_one_hot", "bfloat16_integer"):
+            r = rows[key]
+            out[key] = {**{k: r[which][k] for k in ("ms", "plain_ms", "library_ms", "bound_ms")},
+                        "max_abs_err": r["loss_max_abs_err"] if which == "fwd" else r["dx_max_abs_err"]}
+        return out
+
+    return {"parity_tail_fwd": entry("fwd"), "parity_tail_bwd": entry("bwd")}
+
+
+def tail_steps(kernels, state: dict, dtype: str, fused: bool, steps: int) -> dict:
+    """The flagship's probability-free ``eval_step()`` on the first batch,
+    then ``steps`` ``train_step()``s at 16 × 512² from ``state``, with or
+    without ``fused_tail``: the eval loss, matrix and launches; the first
+    step's loss, matrix and gradients (cuDNN deterministic); then peak
+    memory, step times and launches a step of the others; in float32 one
+    more step profiled (``fused_tail_{on,off}_train_profile.txt`` in ``OUT``)."""
+    import torch
+
+    from deeplabv3plus_keras_tpu_torch import SemanticSegmentation
+
+    conf = flagship_conf()
+    conf["hps"]["dtype"] = dtype
+    conf["fused_tail"] = fused
+    seg = SemanticSegmentation(conf, device="cuda")
+    seg.model.load_state_dict(state)
+    batches = train_batches(steps, BATCH, SIZE, "cuda", seed=5)
+    batches[0]["valid"][-1] = 0  # a padded sample
+    kernels.reset_launch_counts()
+    ev = seg.eval_step(batches[0])
+    out = {"eval": {"loss": ev["loss"].item(), "cm": ev["cm"].cpu(),
+                    "launches": kernels.launch_counts()}}
+    torch.backends.cudnn.deterministic = True
+    first = seg.train_step(batches[0])
+    torch.backends.cudnn.deterministic = False
+    out["first"] = {"loss": first["loss"].item(), "cm": first["cm"].cpu(),
+                    "grads": [p.grad.detach().clone() for p in seg.model.parameters()]}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    times = []
+    for batch in batches[1:]:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        loss = seg.train_step(batch)["loss"].item()
+        times.append(time.perf_counter() - t)
+        if not math.isfinite(loss):
+            raise SystemExit(f"fused_tail={fused} {dtype}: loss {loss}")
+    counts = kernels.launch_counts()
+    out.update(step_s=times, img_per_s=BATCH / statistics.median(times),
+               max_memory_allocated_gib=torch.cuda.max_memory_allocated() / 2**30,
+               launches_per_step={k: v / len(times) for k, v in counts.items() if v},
+               launches=counts)
+    if dtype == "float32":  # the device time of one step, by kernel
+        tag = "on" if fused else "off"
+        out["profile"] = profile_device(
+            lambda: seg.train_step(batches[1])["loss"].item(), OUT / f"fused_tail_{tag}_train_profile.txt",
+            f"fused_tail={fused}, TF32 off, B={BATCH}, {SIZE}^2, one train_step", 40)
+    del seg
+    torch.cuda.empty_cache()
+    return out
+
+
+def _fused_ddp_rank(state_path: str, out_dir: str) -> None:
+    """A rank of the fused_tail phase's check: one ``fused_tail`` step on
+    its 8 rows of the ddp phase's first global batch."""
+    import torch
+
+    from deeplabv3plus_keras_tpu_torch.parallel import mesh
+
+    ddp_numerics()
+    device = torch.device("cuda", torch.cuda.current_device())
+    state = torch.load(state_path, map_location=device)
+    rows = torch.as_tensor(mesh.row_indices(BATCH))
+    torch.save(ddp_steps(state, device, rows, steps=1, fused_tail=True),
+               os.path.join(out_dir, f"tail_r{mesh.rank()}.pt"))
+
+
+def run_fused_tail(kernels, card: str, state: dict) -> tuple[dict, dict]:
+    """The ``fused_tail`` phase (flagship, 16 × 512², TF32 off, the weights
+    and BN statistics in ``state``): T1/T2 against the plain version
+    (:func:`check_parity_tail`); ``TRAIN_STEPS`` ``train_step()``s with the
+    key on and off (step-1 loss, matrix and gradients, peak memory, step
+    time, launches a step) and the probability-free ``eval_step()``; the
+    same in bfloat16 (4 steps); one step on two ranks (the ddp phase's
+    layout) against one process.  Returns the ``kernels`` line's rows and
+    the launches of the paths ``train_step_fused_tail``,
+    ``eval_step_fused_tail``, ``train_step_fused_tail_bfloat16`` and
+    ``train_step_fused_tail_ddp`` (rank 0's)."""
+    import tempfile
+
+    import torch
+
+    from deeplabv3plus_keras_tpu_torch.parallel import launch
+
+    t0 = time.perf_counter()
+    agg = check_parity_tail(card)
+    pixels = BATCH * SIZE * SIZE
+    cm_bound = max(8, pixels // 4096)
+    steps, failures, by_path = {}, [], {}
+    for dtype, n in (("float32", TRAIN_STEPS), ("bfloat16", 4)):
+        on = tail_steps(kernels, state, dtype, True, n)
+        off = tail_steps(kernels, state, dtype, False, n)
+        grad = math.sqrt(sum((a - b).double().square().sum().item()
+                             for a, b in zip(on["first"]["grads"], off["first"]["grads"])))
+        grad /= math.sqrt(sum(b.double().square().sum().item() for b in off["first"]["grads"]))
+        res = {
+            "step1_loss": [on["first"]["loss"], off["first"]["loss"]],
+            "step1_loss_rel": abs(on["first"]["loss"] - off["first"]["loss"]) / off["first"]["loss"],
+            "step1_cm_differing": int((on["first"]["cm"] - off["first"]["cm"]).abs().sum()),
+            "step1_grad_rel_2norm": grad,
+            "eval_loss_rel": abs(on["eval"]["loss"] - off["eval"]["loss"]) / off["eval"]["loss"],
+            "eval_cm_differing": int((on["eval"]["cm"] - off["eval"]["cm"]).abs().sum()),
+            "eval_launches": [on["eval"]["launches"], off["eval"]["launches"]],
+            **{f"{k}_on_off": [on[k], off[k]] for k in
+               ("max_memory_allocated_gib", "img_per_s", "step_s", "launches_per_step")}}
+        if "profile" in on:
+            res["device_ms_on_off"] = [on["profile"]["device_ms"], off["profile"]["device_ms"]]
+            res["top_kernels_ms_on_off"] = [on["profile"]["top_kernels_ms"],
+                                            off["profile"]["top_kernels_ms"]]
+        res["peak_saving_gib"] = off["max_memory_allocated_gib"] - on["max_memory_allocated_gib"]
+        steps[dtype] = res
+        suffix = "" if dtype == "float32" else f"_{dtype}"
+        by_path[f"train_step_fused_tail{suffix}"] = on["launches"]
+        if dtype == "float32":
+            by_path["eval_step_fused_tail"] = on["eval"]["launches"]
+        loss_bound = TAIL_STEP_LOSS_REL if dtype == "float32" else TAIL_BF16_LOSS_REL
+        cm_b = cm_bound if dtype == "float32" else pixels // 100
+        expect = {"parity_tail_fwd": 1, "parity_tail_bwd": 1, "depthwise_fwd_s1": 15,
+                  "depthwise_fwd_s2": 3, "depthwise_bwd_s1": 15, "depthwise_bwd_s2": 3}
+        if not (res["step1_loss_rel"] <= loss_bound and res["eval_loss_rel"] <= loss_bound):
+            failures.append(f"{dtype}: losses fused vs unfused {res['step1_loss_rel']}, eval "
+                            f"{res['eval_loss_rel']} > {loss_bound}")
+        if not (res["step1_cm_differing"] <= cm_b and res["eval_cm_differing"] <= cm_b):
+            failures.append(f"{dtype}: matrices differ by {res['step1_cm_differing']} / "
+                            f"{res['eval_cm_differing']} pixels > {cm_b}")
+        if dtype == "float32" and not grad <= TAIL_STEP_GRAD_REL:
+            failures.append(f"first step's gradients fused vs unfused {grad} > {TAIL_STEP_GRAD_REL}")
+        if on["launches_per_step"] != expect or any(
+                k.startswith("parity_tail") for k in off["launches_per_step"]):
+            failures.append(f"{dtype}: launches a step {on['launches_per_step']} (unfused "
+                            f"{off['launches_per_step']}), expected {expect}")
+        ev_on, ev_off = on["eval"]["launches"], off["eval"]["launches"]
+        if (ev_on["parity_tail_fwd"], ev_on["parity_tail_bwd"], ev_off["parity_tail_fwd"]) != (1, 0, 0):
+            failures.append(f"{dtype}: eval_step launches {ev_on} (unfused {ev_off})")
+        if not on["max_memory_allocated_gib"] < off["max_memory_allocated_gib"]:
+            failures.append(f"{dtype}: fused_tail did not lower the peak memory: {res}")
+    print(json.dumps({"fused_tail_steps": steps, "batch": BATCH, "image": SIZE, "card": card}))
+
+    # two ranks against one process: the ddp phase's layout and bounds
+    layout = ddp_layout()
+    deterministic = torch.backends.cudnn.deterministic
+    ddp_numerics()
+    with tempfile.TemporaryDirectory() as tmp:
+        state_path = os.path.join(tmp, "state.pt")
+        torch.save(state, state_path)
+        launch.spawn(_fused_ddp_rank, 2, (state_path, tmp), devices=layout["devices"],
+                     backend=layout["backend"], timeout_s=240, group_timeout_s=180)
+        ranks = [torch.load(os.path.join(tmp, f"tail_r{r}.pt")) for r in (0, 1)]
+    one = ddp_steps(state, torch.device("cuda"), steps=1, fused_tail=True)
+    reordered = ddp_steps(state, torch.device("cuda"), torch.arange(BATCH - 1, -1, -1), steps=1,
+                          fused_tail=True)
+    torch.backends.cudnn.deterministic = deterministic
+    torch.cuda.empty_cache()
+
+    def grad_rel(run):
+        diff = sum((run["grads"][n] - g).double().square().sum() for n, g in one["grads"].items())
+        return math.sqrt(diff / sum(g.double().square().sum() for g in one["grads"].values()))
+
+    spread = grad_rel(reordered)
+    grad_bound = max(1e-5, DDP_SPREAD * spread)
+    two = {"backend": layout["backend"], "cards": layout["cards"],
+           "loss_rel": abs(ranks[0]["losses"][0] - one["losses"][0]) / one["losses"][0],
+           "cm_abs_diff": int((ranks[0]["cms"][0] - one["cms"][0]).abs().sum()),
+           "grad_rel_2norm": grad_rel(ranks[0]), "grad_bound": grad_bound,
+           "one_process_rows_reversed_grad_rel_2norm": spread,
+           "ranks_bit_identical": all(torch.equal(ranks[0]["state"][k], ranks[1]["state"][k])
+                                      for k in ranks[0]["state"]),
+           "launches_per_rank": [r["launches"][0] for r in ranks]}
+    by_path["train_step_fused_tail_ddp"] = ranks[0]["launches"][0]
+    print(json.dumps({"fused_tail_ddp": two, "card": card}))
+    names = ("parity_tail_fwd", "parity_tail_bwd", "depthwise_fwd_s1", "depthwise_fwd_s2",
+             "depthwise_bwd_s1", "depthwise_bwd_s2")
+    if not (two["loss_rel"] <= DDP_LOSS_REL and two["cm_abs_diff"] <= cm_bound
+            and two["grad_rel_2norm"] <= grad_bound and two["ranks_bit_identical"]
+            and all([c[k] for k in names] == [1, 1, 15, 3, 15, 3] for c in two["launches_per_rank"])):
+        failures.append(f"two ranks against one process: {two}")
+    print(json.dumps({"model": "mobilenetv2", "phase": "fused_tail", "s": time.perf_counter() - t0}))
+    if failures:
+        raise SystemExit("fused_tail: " + "; ".join(failures))
+    return agg, by_path
+
+
 def main() -> int:
     import torch
 
@@ -2840,6 +3211,10 @@ def main() -> int:
         # two ranks of a process group against one process
         by_path.update(run_ddp(kernels, card, state))
         print(json.dumps({"model": "mobilenetv2", "phase": "ddp", "s": time.perf_counter() - t1}))
+        # fused_tail: the parity-decomposed tail, T1/T2
+        a, p = run_fused_tail(kernels, card, state)
+        agg.update(a)
+        by_path.update(p)
         # EfficientNet-B0, NASNet-Mobile and DenseNet-121 at full size (K2–K5
         # at k = 3, 5, 7 and C = 11, 22; also in bfloat16 for the first two),
         # then the nine other variants at 128²
@@ -2864,16 +3239,20 @@ def main() -> int:
 
     out = []
     for name in ("upsample_argmax", "depthwise_fwd_s1", "depthwise_fwd_s2",
-                 "depthwise_bwd_s1", "depthwise_bwd_s2", "depthwise_fwd_cf", "depthwise_bwd_cf"):
+                 "depthwise_bwd_s1", "depthwise_bwd_s2", "depthwise_fwd_cf", "depthwise_bwd_cf",
+                 "parity_tail_fwd", "parity_tail_bwd"):
         a = agg[name]
         entry = {
             "name": name, "route": "cuda", "source": SOURCES[name], "replaces": TPU_SOURCES[name],
-            "status": "ported", "launches": by_path[MAIN_PATH[name]][name],
+            "status": ("ported (a jnp function, not a Pallas call)" if name.startswith("parity_tail")
+                       else "ported"),
+            "launches": by_path[MAIN_PATH[name]][name],
             "launches_by_path": {path: counts[name] for path, counts in by_path.items()},
             "max_abs_err": a["max_abs_err"], "ms": a["ms"], "plain_ms": a["plain_ms"],
             "bound_ms": a["bound_ms"], "bound_by": a["bound_by"], "library_ms": a["library_ms"],
         }
-        for f in ("route_ms", "nhwc_kernel_ms"):
+        for f in ("route_ms", "nhwc_kernel_ms", "float32_integer", "bfloat16_one_hot",
+                  "bfloat16_integer"):
             if f in a:
                 entry[f] = a[f]
         for dtype in LOW_PRECISION:  # K2-K5 at the flagship's sites in that dtype

@@ -44,9 +44,16 @@ writes checkpoints; ``evaluate``'s result panels and ``test``'s PNGs are
 written by the rank that owns each sample.  The extra key
 ``allow_fewer_devices`` shrinks N to the ranks there are, as in JAX.
 
-Config keys that would change the result and are not ported yet
-(``mesh_space`` > 1, and ``fused_tail`` in the steps) raise
-``NotImplementedError`` naming their ROADMAP.md item.
+The extra key ``fused_tail`` (default off, as in the JAX package) ends
+the train step and the probability-free eval step (``train()``'s
+validation, ``evaluate()`` without result saving, the int8 eval step) in
+the parity-decomposed tail: no full-resolution tensor, on the card one
+fused forward and one fused backward kernel (``ops/parity_tail.py``,
+``kernels/parity_tail.py``).  It applies under boundary refinement only.
+
+A config key that would change the result and is not ported yet
+(``mesh_space`` > 1) raises ``NotImplementedError`` naming its ROADMAP.md
+item.
 
 The environment variable ``DLV3_DW_LAYOUT=bhcw`` routes the 3×3 stride-1
 undilated depthwise sites through the channels-first kernels

@@ -175,7 +175,7 @@ class Config:
     N > 1 starts N ranks of a ``torch.distributed`` process group, one device
     each (``parallel/mesh.py``, ``api.py`` ``join_ranks``).  Keys the
     dataclass does not name (``backbone_weights``, ``int8_infer``,
-    ``int8_calib_batches``, ...) land in ``extra``.
+    ``int8_calib_batches``, ``fused_tail``, ...) land in ``extra``.
     """
 
     mode: str = "train"

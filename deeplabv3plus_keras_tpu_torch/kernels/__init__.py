@@ -5,6 +5,7 @@ by :mod:`._build` on its first launch.
 """
 
 from . import depthwise as _depthwise
+from . import parity_tail as _parity_tail
 from . import upsample_argmax as _upsample_argmax
 from .depthwise import (
     depthwise_cf,
@@ -16,9 +17,15 @@ from .depthwise import (
     depthwise_route,
     same_pads,
 )
+from .parity_tail import (
+    parity_tail_backward,
+    parity_tail_backward_plain,
+    parity_tail_forward,
+    parity_tail_forward_plain,
+)
 from .upsample_argmax import upsample_argmax, upsample_argmax_plain
 
-_COUNTERS = (_depthwise.launches, _upsample_argmax.launches)
+_COUNTERS = (_depthwise.launches, _upsample_argmax.launches, _parity_tail.launches)
 
 
 def launch_counts() -> dict[str, int]:
@@ -49,6 +56,10 @@ __all__ = [
     "depthwise_route",
     "launch_counts",
     "launch_counts_by_dtype",
+    "parity_tail_backward",
+    "parity_tail_backward_plain",
+    "parity_tail_forward",
+    "parity_tail_forward_plain",
     "reset_launch_counts",
     "same_pads",
     "upsample_argmax",

@@ -20,7 +20,9 @@ train mode (BN on batch statistics, dropout drawn from a generator seeded
 from (seed, step)).  The extra key ``augment`` draws a flip and a scale
 jitter from that generator before the dropout (ops/augment.py), and
 ``eval_scales``/``eval_flip`` make the eval step average the probabilities
-over scales and a horizontal flip (test-time augmentation).  Given the
+over scales and a horizontal flip (test-time augmentation).  The extra key
+``fused_tail`` (default off) ends the train and eval steps in the
+parity-decomposed tail (``ops/parity_tail.py``; T1/T2 on the card).  Given the
 calibrated ranges of ``ops/quant.calibrate`` (``quant``), the eval,
 predict and label steps run the eligible convolutions in int8 (JAX
 ``_variables(state, quant)``, ``step.py:109-116``); the train step never
@@ -52,6 +54,7 @@ from ..config import Config
 from ..kernels import upsample_argmax
 from ..ops import quant as quant_lib
 from ..ops.augment import augment_batch, parse_augment_conf
+from ..ops.parity_tail import tail_loss_cm
 from ..train.loss import (
     SS_NW,
     SS_PW,
@@ -63,17 +66,14 @@ from ..train.metrics import confusion_matrix_update, confusion_matrix_update_spa
 from ..train.optimizer import KerasAdam, make_optimizer
 from . import mesh
 
-# Extra config keys of the JAX steps that the port does not take yet, and
-# where ROADMAP.md queues them.
-_UNPORTED = {
-    "fused_tail": "the parity-decomposed loss tail, ROADMAP.md Queue A item 16",
-}
-
-
-def _refuse_unported(conf: Config, keys) -> None:
-    for key in keys:
-        if conf.extra.get(key):
-            raise NotImplementedError(f"extra key {key!r} is not ported yet ({_UNPORTED[key]})")
+def _use_fused_tail(conf: Config) -> bool:
+    """The extra key ``fused_tail`` (default off, as in the JAX package,
+    ``step.py:46-60``): the steps end in the parity-decomposed tail
+    (``ops/parity_tail.py``) instead of the ×2 upsample, softmax and loss of
+    the full-resolution probabilities.  It applies under boundary
+    refinement, whose last upsample is always ×2; elsewhere the key is
+    ignored."""
+    return bool(conf.extra.get("fused_tail", False)) and conf.nn_arch.boundary_refinement
 
 
 def default_class_weights(num_classes: int):
@@ -160,13 +160,18 @@ def build_train_step(model, optimizer: KerasAdam, conf: Config, class_weights=No
     depth's per-sample draws are made for the global batch and sliced, so
     W ranks draw what one process draws; element-wise dropout draws from
     the rank's own stream.  Loss and confusion matrix are the global
-    ones."""
-    _refuse_unported(conf, ("fused_tail",))
+    ones.
+
+    With ``fused_tail`` (:func:`_use_fused_tail`) the model stops at its
+    half-resolution logits and ``ops/parity_tail.tail_loss_cm`` gives each
+    microbatch's loss and confusion matrix (on the card: T1, and T2 in the
+    backward), as the JAX step's ``grads_one`` (``step.py:163-182``)."""
     wd = conf.hps.weight_decay
     num_classes = conf.nn_arch.num_classes
     pw, nw = class_weights or default_class_weights(num_classes)
     accum = max(1, int(conf.extra.get("grad_accum", 1)))
     aug = parse_augment_conf(conf.extra.get("augment"))
+    fused = _use_fused_tail(conf)
     world, rank = mesh.world_size(), mesh.rank()
 
     def train_step(batch: dict) -> dict:
@@ -199,20 +204,28 @@ def build_train_step(model, optimizer: KerasAdam, conf: Config, class_weights=No
                 own = step_generator(seed, step, dev, i if accum > 1 else None, rank=rank)
                 draws = mesh.RankDraws(gen, own, torch.arange(rank * mb, (rank + 1) * mb, device=dev),
                                        mb * world)
-            probs = model(image[part], generator=draws)
+            nv = n_valid[i] if world > 1 else None
+            if fused:
+                logits, _ = model(image[part], return_presample=True, generator=draws)
+                loss, cm = tail_loss_cm(logits, label[part], pw, nw, num_classes, valid[part],
+                                        n_valid=nv)
+                del logits
+            else:
+                probs = model(image[part], generator=draws)
+                loss = _loss_for(label[part], probs, pw, nw, valid[part], nv)
+                with torch.no_grad():
+                    cm = _cm_for(label[part], probs, num_classes, valid[part])
+                del probs
             l2 = l2_penalty(model, wd)
             if world > 1:
-                share = _loss_for(label[part], probs, pw, nw, valid[part], n_valid[i])
-                (share + l2 / world).backward()
-                loss_sum = loss_sum + share.detach()
+                (loss + l2 / world).backward()
+                loss_sum = loss_sum + loss.detach()
                 l2_sum = l2_sum + (l2.detach() if torch.is_tensor(l2) else l2)
             else:
-                loss = _loss_for(label[part], probs, pw, nw, valid[part]) + l2
+                loss = loss + l2
                 loss.backward()
                 loss_sum = loss_sum + loss.detach()
-            with torch.no_grad():
-                cm_sum = cm_sum + _cm_for(label[part], probs, num_classes, valid[part])
-            del probs
+            cm_sum = cm_sum + cm
         # a parameter the loss does not reach (Xception's unused os-8
         # shortcut) gets a zero gradient, as jax.grad gives it
         for p in optimizer.params:
@@ -286,24 +299,33 @@ def build_eval_step(model, conf: Config, class_weights=None, with_probs: bool = 
     probabilities are this rank's rows'.
     ``tta_scales``/``tta_flip`` (extra keys ``eval_scales``/``eval_flip``)
     turn on test-time augmentation (:func:`_tta_probs_fn`); ``quant``, the
-    calibrated int8 ranges, quantizes the eligible sites of each scale."""
-    _refuse_unported(conf, ("fused_tail",))
+    calibrated int8 ranges, quantizes the eligible sites of each scale.
+    ``fused_tail`` without probabilities and without test-time
+    augmentation (which wins, as in JAX ``step.py:329-359``) ends in the
+    parity-decomposed tail, as the train step."""
     wd = conf.hps.weight_decay
     num_classes = conf.nn_arch.num_classes
     pw, nw = class_weights or default_class_weights(num_classes)
-    probs_fn = _tta_probs_fn(model, conf, tta_scales, tta_flip) if tta_scales or tta_flip else model
+    tta = bool(tta_scales) or tta_flip
+    probs_fn = _tta_probs_fn(model, conf, tta_scales, tta_flip) if tta else model
+    fused = _use_fused_tail(conf) and not with_probs and not tta
     world = mesh.world_size()
 
     def eval_step(batch: dict) -> dict:
         model.eval()
         with _inference(model, quant):
-            probs = probs_fn(batch["image"])
             valid = batch["valid"]
             n_valid = None
             if world > 1:
                 n_valid = mesh.all_reduce_(valid.sum().to(torch.float64).reshape(1))[0]
-            loss = _loss_for(batch["label"], probs, pw, nw, valid, n_valid)
-            cm = _cm_for(batch["label"], probs, num_classes, valid)
+            if fused:
+                logits, _ = model(batch["image"], return_presample=True)
+                loss, cm = tail_loss_cm(logits, batch["label"], pw, nw, num_classes, valid,
+                                        n_valid=n_valid)
+            else:
+                probs = probs_fn(batch["image"])
+                loss = _loss_for(batch["label"], probs, pw, nw, valid, n_valid)
+                cm = _cm_for(batch["label"], probs, num_classes, valid)
             if world > 1:
                 loss, cm = _sum_over_ranks(loss, cm)
             out = {"loss": loss + l2_penalty(model, wd), "cm": cm}

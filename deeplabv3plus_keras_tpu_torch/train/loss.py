@@ -68,14 +68,17 @@ def per_pixel_loss_sparse(labels, y_pred, pos_weights, neg_weights, epsilon=1e-7
     return -(pw[t] * torch.log(p_t + epsilon) + neg_sum - nw[t] * log1m_t)
 
 
-def masked_pixel_mean(per_pixel, valid, n_valid=None):
+def masked_pixel_mean(per_pixel, valid, n_valid=None, total_pixels_per_sample=None):
     """Mean of per-pixel losses over valid samples (``valid`` (B,) 0/1, or
     None for all).  ``n_valid``, the count of valid samples of the global
     batch (summed over the ranks of a process group), replaces this
     batch's own count in the denominator: then each rank's value is its
     share of the global mean, and their sum is the mean over every rank's
-    valid pixels, as the JAX package's over a batch sharded on a mesh."""
-    n_pix = per_pixel[0].numel()
+    valid pixels, as the JAX package's over a batch sharded on a mesh.
+    ``total_pixels_per_sample`` replaces the per-sample pixel count of the
+    denominator: the parity tail (``ops/parity_tail.py``) sums quarter-size
+    planes, or whole samples, and divides by the full-resolution count."""
+    n_pix = total_pixels_per_sample or per_pixel[0].numel()
     if valid is None:
         return per_pixel.sum() / (per_pixel.shape[0] * n_pix)
     v = valid.to(per_pixel.dtype).reshape((-1,) + (1,) * (per_pixel.dim() - 1))

@@ -178,8 +178,8 @@ print("MODULES", " ".join(m for m in sys.modules if m.startswith("deeplabv3plus_
     # the modules of the data path, the loops, checkpoints and the CLI
     loaded = set(out.stdout.split("MODULES ")[1].split())
     for m in ("api", "cli", "config", "data", "data.openimages", "data.pipeline",
-              "data.synthetic", "data.voc", "native", "ops.augment", "ops.preprocess",
-              "ops.resize", "parallel.step", "train.callbacks", "train.checkpoint",
+              "data.synthetic", "data.voc", "kernels.parity_tail", "native", "ops.augment",
+              "ops.parity_tail", "ops.preprocess", "ops.resize", "parallel.step", "train.callbacks", "train.checkpoint",
               "train.loss", "utils.preemption", "utils.profiling"):
         assert f"deeplabv3plus_keras_tpu_torch.{m}" in loaded, m
 

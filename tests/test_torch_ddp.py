@@ -67,12 +67,14 @@ def runs(tmp_path_factory):
     return out, jm, variables
 
 
-@pytest.mark.parametrize("case", ["plain", "grad_accum", "remat", "augment"])
+@pytest.mark.parametrize("case", ["plain", "grad_accum", "remat", "augment", "fused_tail"])
 def test_two_ranks_equal_one_process_fp64(runs, case):
     """float64, 3 steps, the ragged batch included: two ranks' losses,
     confusion matrices, parameters and BN statistics against one
     process's (augment: the flip and scale draws of the global batch,
-    sliced; remat: BN's all-reduces issued again by the recompute)."""
+    sliced; remat: BN's all-reduces issued again by the recompute;
+    fused_tail: each rank's share of the parity-decomposed loss over the
+    global valid-pixel count)."""
     r0, _, one = runs[0][case]
     for step, (a, b) in enumerate(zip(r0["losses"], one["losses"]), 1):
         assert abs(a - b) <= 1e-12 * abs(b), (case, step, a, b)

@@ -626,3 +626,119 @@ def test_int8_site_that_int_mm_cannot_take_raises(card):
     with torch.no_grad(), quant.quantized(conv, {"": torch.tensor(1.0, device="cuda")}):
         with pytest.raises(ValueError, match=r"int8 site : K=132"):
             conv(x)
+
+
+# T1/T2 (csrc/parity_tail.cu): (B, H, W, C) of the flagship's tail at a
+# small map, a ragged one with C even, and one whose C = 150 takes smaller
+# tiles and counts the matrix in device memory
+PARITY_TAIL_CASES = [(2, 16, 32, 21), (3, 7, 9, 8), (2, 10, 12, 150)]
+
+
+def _parity_tail_inputs(shape, dtype, dense, seed=0):
+    from deeplabv3plus_keras_tpu_torch.train.loss import SS_NW, SS_PW
+
+    B, H, W, C = shape
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = (torch.randn(shape, device="cuda", generator=g) * 2).to(dtype)
+    ids = torch.randint(0, C, (B, 2 * H, 2 * W), device="cuda", generator=g)
+    lab = torch.nn.functional.one_hot(ids, C).to(dtype) if dense else ids
+    pw = SS_PW[:C] if C <= 21 else torch.linspace(0.3, 0.99, C).numpy()
+    nw = 1.0 - pw
+    valid = torch.ones(B, dtype=torch.int32, device="cuda")
+    valid[-1] = 0
+    scale = torch.rand(B, device="cuda", generator=g) * valid
+    return x, lab, pw, nw, valid, scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", PARITY_TAIL_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("dense", [True, False])
+def test_parity_tail_kernels_match_plain(card, shape, dtype, dense):
+    """T1 and T2 against the plain version on the float32 values of the
+    same logits (the kernels compute in float32): the per-sample sums to
+    1e-5 relative (sums over pixels and classes in another order), the
+    confusion matrix exactly (the parity values are the plain version's
+    lerps, rounded alike), dlogits to 1e-5 of their largest in float32 and
+    to 2⁻⁷ of it in bfloat16/float16 (their rounding of the result); one
+    launch each."""
+    from deeplabv3plus_keras_tpu_torch.kernels import parity_tail as pt
+
+    x, lab, pw, nw, valid, scale = _parity_tail_inputs(shape, dtype, dense)
+    before = dict(kernels.launch_counts())
+    sums, cm = pt.parity_tail_forward(x, lab, pw, nw, valid)
+    dx = pt.parity_tail_backward(x, lab, pw, nw, scale)
+    torch.cuda.synchronize()
+    after = kernels.launch_counts()
+    assert after["parity_tail_fwd"] == before["parity_tail_fwd"] + 1
+    assert after["parity_tail_bwd"] == before["parity_tail_bwd"] + 1
+    ref_sums, ref_cm = pt.parity_tail_forward_plain(x.float(), lab.float() if dense else lab, pw, nw, valid)
+    ref_dx = pt.parity_tail_backward_plain(x.float(), lab.float() if dense else lab, pw, nw, scale)
+    assert sums.dtype == torch.float32 and dx.dtype == dtype and dx.shape == x.shape
+    torch.testing.assert_close(sums, ref_sums, rtol=1e-5, atol=0)
+    assert torch.equal(cm, ref_cm)
+    assert int(cm.sum()) == (shape[0] - 1) * 4 * shape[1] * shape[2]
+    tol = 1e-5 if dtype == torch.float32 else 2.0 ** -7
+    top = float(ref_dx.abs().max())
+    assert float((dx.float() - ref_dx).abs().max()) <= tol * top
+    assert not dx[-1].any()  # the padded sample's scale is 0
+
+
+@pytest.mark.cuda
+def test_parity_tail_kernels_are_bit_reproducible(card):
+    """Two runs of T1 and T2 on the same inputs give the same bits:
+    fixed-order float sums, integer atomics for the matrix."""
+    from deeplabv3plus_keras_tpu_torch.kernels import parity_tail as pt
+
+    x, lab, pw, nw, valid, scale = _parity_tail_inputs((4, 64, 64, 21), torch.float32, True)
+    runs = [(*pt.parity_tail_forward(x, lab, pw, nw, valid), pt.parity_tail_backward(x, lab, pw, nw, scale))
+            for _ in range(2)]
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_parity_tail_autograd_launches_t1_and_t2(card):
+    """``ops/parity_tail.tail_loss_cm`` on a CUDA tensor: T1 in the forward,
+    T2 in the backward, one launch each, and the loss and the gradient of
+    the plain version on the same values (within the kernel test's
+    bounds)."""
+    from deeplabv3plus_keras_tpu_torch.kernels import parity_tail as pt
+    from deeplabv3plus_keras_tpu_torch.ops import parity_tail
+
+    x, lab, pw, nw, valid, _ = _parity_tail_inputs((2, 16, 16, 21), torch.float32, False)
+    xr = x.clone().requires_grad_()
+    kernels.reset_launch_counts()
+    loss, cm = parity_tail.tail_loss_cm(xr, lab, pw, nw, 21, valid)
+    loss.backward()
+    counts = kernels.launch_counts()
+    assert (counts["parity_tail_fwd"], counts["parity_tail_bwd"]) == (1, 1)
+    xc = x.cpu().requires_grad_()
+    ref, ref_cm = parity_tail.tail_loss_cm(xc, lab.cpu(), pw, nw, 21, valid.cpu())
+    ref.backward()
+    assert abs(loss.item() - ref.item()) <= 1e-5 * abs(ref.item())
+    assert torch.equal(cm.cpu(), ref_cm)
+    assert float((xr.grad.cpu() - xc.grad).abs().max()) <= 1e-5 * float(xc.grad.abs().max())
+    assert isinstance(pt.launches["parity_tail_fwd"], int)
+
+
+@pytest.mark.cuda
+def test_parity_tail_kernels_refuse_what_they_do_not_take(card):
+    from deeplabv3plus_keras_tpu_torch.kernels import parity_tail as pt
+
+    x = torch.zeros(1, 4, 4, 3, device="cuda")
+    ok = torch.zeros(1, 8, 8, dtype=torch.long, device="cuda")
+    w = torch.ones(3).numpy()
+    with pytest.raises(ValueError, match=r"\(1, 8, 6\)"):  # not the ×2 map
+        pt.parity_tail_forward(x, torch.zeros(1, 8, 6, dtype=torch.long, device="cuda"), w, w)
+    with pytest.raises(ValueError, match="float64"):
+        pt.parity_tail_forward(x.double(), ok, w, w)
+    with pytest.raises(ValueError, match="one-hot"):  # an integer one-hot
+        pt.parity_tail_backward(x, torch.zeros(1, 8, 8, 3, dtype=torch.long, device="cuda"), w, w,
+                                torch.ones(1, device="cuda"))
+    with pytest.raises(ValueError, match="C=3000"):
+        pt.parity_tail_forward(torch.zeros(1, 2, 2, 3000, device="cuda"),
+                               torch.zeros(1, 4, 4, dtype=torch.long, device="cuda"),
+                               torch.ones(3000).numpy(), torch.ones(3000).numpy())
+    with pytest.raises(ValueError, match="class weights"):
+        pt.parity_tail_forward(x, ok, torch.ones(4).numpy(), torch.ones(4).numpy())

@@ -341,10 +341,25 @@ def test_facade_trains_evaluates_and_serves():
     assert seg.optimizer.iterations == 2
 
 
-@pytest.mark.parametrize("key,item", [("fused_tail", "item 16")])
-def test_unported_step_options_name_the_roadmap_item(key, item):
-    with pytest.raises(NotImplementedError, match=item):
-        SemanticSegmentation(conf_dict(32, **{key: True}), device="cpu")
+def test_facade_with_fused_tail_trains_and_evaluates():
+    """``fused_tail: true`` through the facade on the CPU: train steps and
+    the probability-free eval step end in the parity-decomposed tail and
+    equal the facade without the key (same seed, same weights): the loss
+    to 2e-6 relative, the confusion matrices exactly; with probabilities
+    the eval step keeps the unfused tail."""
+    rng = np.random.default_rng(9)
+    x = rng.uniform(-1, 1, (2, 32, 32, 3)).astype(np.float32)
+    y = np.eye(21, dtype=np.float32)[rng.integers(0, 21, (2, 32, 32))]
+    out = {}
+    for fused in (True, False):
+        seg = SemanticSegmentation(conf_dict(32, fused_tail=fused), device="cpu")
+        steps = [seg.train_step({"image": x, "label": y}) for _ in range(2)]
+        ev = seg.eval_step({"image": x, "label": y, "valid": np.array([1, 0])})
+        out[fused] = steps, ev
+    for a, b in zip(out[True][0] + [out[True][1]], out[False][0] + [out[False][1]]):
+        assert abs(float(a["loss"]) - float(b["loss"])) <= 2e-6 * abs(float(b["loss"]))
+        assert torch.equal(a["cm"], b["cm"])
+    assert int(out[True][1]["cm"].sum()) == 32 * 32 and "probs" not in out[True][1]
 
 
 def test_jax_variables_round_trip_through_the_port():

@@ -23,8 +23,8 @@ from torch_helpers import FLAGSHIP_MIDDLE, conf_dict, port_model
 SIZE, BATCH = 32, 8
 
 
-def tiny_conf(dtype: str = "float64", **extra) -> dict:
-    conf = conf_dict(SIZE, refine=False, **extra)
+def tiny_conf(dtype: str = "float64", refine: bool = False, **extra) -> dict:
+    conf = conf_dict(SIZE, refine=refine, **extra)
     conf["nn_arch"].update(reduction_size=16, concat_channels=16, dropout_rate=0.0,
                            encoder_middle_conf=[{"op": "conv", "kernel": 1, "input": -1}])
     conf["hps"].update(dtype=dtype, batch_size=BATCH, lr=1e-4, decay=0.0)
@@ -39,6 +39,9 @@ STEP_CASES = {
     "augment": (tiny_conf(augment=True), 3),
     "bfloat16": (tiny_conf("bfloat16"), 1),
     "unreached": ({**tiny_conf("float32"), "base_model": "nasnetmobile"}, 1),
+    # the parity-decomposed tail (it needs the ×2 of boundary refinement):
+    # the global valid-pixel count and the summed confusion matrix
+    "fused_tail": (tiny_conf(refine=True, fused_tail=True), 3),
 }
 
 
@@ -60,17 +63,18 @@ def global_batches(steps: int, dtype=np.float64, seed: int = 11) -> list[dict]:
 
 def case_model(case: str, variables):
     """The case's model on the CPU: the tiny configuration's weights from
-    ``variables`` (float64 where the case computes in float64), or
-    NASNet-Mobile from a seed."""
+    ``variables`` (float64 where the case computes in float64), or, for
+    NASNet-Mobile and the refined decoder of ``fused_tail``, from a seed."""
     from deeplabv3plus_keras_tpu_torch.config import Config
     from deeplabv3plus_keras_tpu_torch.models import DeepLabV3Plus
 
     conf, _ = STEP_CASES[case]
-    if case == "unreached":
+    if case in ("unreached", "fused_tail"):
         model = DeepLabV3Plus(Config.from_dict(conf))
         model.init_weights(torch.Generator().manual_seed(5))
-        return model.to(memory_format=torch.channels_last)
-    model = port_model(conf, variables)
+        model = model.to(memory_format=torch.channels_last)
+    else:
+        model = port_model(conf, variables)
     return model.to(torch.float64) if conf["hps"]["dtype"] == "float64" else model
 
 
