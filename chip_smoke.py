@@ -78,6 +78,8 @@ BN statistics of its float32 phases:
   ``test()``, images/s and a profiled epoch's idle share; and
   ``int8_infer``'s ``evaluate()`` on the two ranks against one process;
 - ``fused_tail`` (after ``ddp``): the parity-decomposed training tail.
+  Each T1/T2 instantiation's registers and spills; every instantiation
+  (C = 8, 16, 32, 33, 150 at 4 × 64² logits) against the plain version;
   T1/T2 (``csrc/parity_tail.cu``) at the flagship's tail (logits
   16 × 256² × 21, labels at 512², one padded sample) in float32 and
   bfloat16, one-hot and integer labels, against the plain version (the
@@ -127,6 +129,11 @@ path, the new phases' paths (``segment_int8``,
 ``xception_segment_int8``, ``evaluate_int8``, ``test_int8``,
 ``export_program_int8``) and the ddp phase's rank 0 included), the card's
 name and power limit, and as its last line ``{"ok": true, "device": {...}}``.
+
+``python3 chip_smoke.py --parity-tail`` builds ``csrc/parity_tail.cu``
+alone and runs only the ``fused_tail`` phase's kernel checks and times
+(the three lines before its steps), then times T1/T2 against C at the
+flagship's map (``parity_tail_by_c``), in about a minute.
 
 Any failed check exits non-zero.  Long outputs (the per-site table
 ``kernel_sites.json``, the profiles ``[xception_]segment_profile.txt`` and
@@ -2799,6 +2806,21 @@ TAIL_BF16_PLAIN_REL = 1e-2
 # float32) and the matrix to 1 % of the pixels
 TAIL_STEP_LOSS_REL, TAIL_STEP_GRAD_REL, TAIL_BF16_LOSS_REL = 2e-6, 1e-4, 1e-2
 TAIL_STEPS = 6
+# the instantiation sweep: every class bound of csrc/parity_tail.cu (8, 16,
+# 24 at the flagship's 21, 32) and the multi-pass kernels past it (33; 150,
+# ADE20K's classes, its matrix in device memory), at (4, 64², C) logits of
+# scale 2 (the on-card tests'); dlogits held against the plain version in
+# float64 on the same values with TAIL_DX_REL: float32 evaluations of this
+# gradient spread by ~1e-5 of its largest where a pixel's p of a wrong class
+# nears 1 (1 − p + ε rounds at 2⁻²⁴/(1 − p) relative), so the float32 plain
+# version is reported beside it, not held to it
+TAIL_CLASSES = (8, 16, 32, 33, 150)
+# --parity-tail also times T1/T2 against C at the flagship's map
+# (16 × 256² logits): the slope is the per-class cost, the intercept the
+# per-pixel one
+TAIL_BY_C = (8, 16, 21, 32)
+# what ptxas made of each csrc/*.cu (main() fills it beside the build)
+PTXAS: dict[str, list] = {}
 
 
 def event_ms(fn, reps: int = 5) -> float:
@@ -2815,6 +2837,108 @@ def event_ms(fn, reps: int = 5) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def parity_tail_instantiations(card: str) -> list:
+    """Print the registers and spills ptxas gave each T1/T2 instantiation,
+    beside the class counts the plan sends to it.  Returns the failures (a
+    spill, or no report), which the caller raises after its checks."""
+    from deeplabv3plus_keras_tpu_torch.kernels import parity_tail as pt
+
+    rows = [r for r in PTXAS.get("parity_tail", []) if "tail_" in r["kernel"]]
+    bounds = getattr(pt, "_CLASS_BOUNDS", ())
+    classes = {f"C<={k}": k for k in bounds}
+    classes[f"C>{bounds[-1]}" if bounds else "any C"] = 0
+    print(json.dumps({"parity_tail_instantiations": rows, "cmax_by_classes": classes, "card": card}))
+    spilled = [r["kernel"] for r in rows if r.get("spill_stores") or r.get("spill_loads")]
+    return [f"ptxas: spills in {spilled}"] if spilled else [] if rows else ["ptxas: no report"]
+
+
+def check_parity_tail_classes(card: str) -> dict:
+    """T1 and T2 at (4, 64, 64, C) logits for every C of ``TAIL_CLASSES``
+    (each instantiation the plan can pick), float32 and bfloat16 logits,
+    one-hot labels in the logits' dtype and integer labels, one padded
+    sample: the sums and matrix against the plain version on the same
+    float32 values with the flagship rows' bounds, dlogits against it in
+    float64 (and reported against it in float32), twice for bit equality,
+    and timed.  Prints the ``parity_tail_classes`` line; fails on a miss."""
+    import dataclasses
+
+    import torch
+
+    from deeplabv3plus_keras_tpu_torch.kernels import parity_tail as pt
+
+    t0 = time.perf_counter()
+    B, h = 4, 64
+    rows, failures = {}, []
+    for C in TAIL_CLASSES:
+        g = torch.Generator(device="cuda").manual_seed(C)
+        x32 = torch.randn(B, h, h, C, device="cuda", generator=g) * 2
+        ids = torch.randint(0, C, (B, 2 * h, 2 * h), device="cuda", generator=g)
+        pw = torch.linspace(0.3, 0.99, C).numpy()
+        nw = 1.0 - pw
+        valid = torch.ones(B, dtype=torch.int32, device="cuda")
+        valid[-1] = 0
+        scale = torch.rand(B, device="cuda", generator=g) * valid
+        plan = pt._parity_tail_plan(B, h, h, C)
+        for dtype in ("float32", "bfloat16"):
+            x = x32.to(getattr(torch, dtype))
+            for layout in ("one_hot", "integer"):
+                lab = torch.nn.functional.one_hot(ids, C).to(x.dtype) if layout == "one_hot" else ids
+                runs = [(*pt.parity_tail_forward(x, lab, pw, nw, valid),
+                         pt.parity_tail_backward(x, lab, pw, nw, scale)) for _ in range(2)]
+                sums, cm, dx = runs[0]
+                bits = all(torch.equal(a, b) for a, b in zip(*runs))
+                ref_lab = lab.float() if layout == "one_hot" else lab
+                ref_sums, ref_cm = pt.parity_tail_forward_plain(x.float(), ref_lab, pw, nw, valid)
+                ref_dx = pt.parity_tail_backward_plain(x.double(), ref_lab, pw, nw, scale.double())
+                dx32 = pt.parity_tail_backward_plain(x.float(), ref_lab, pw, nw, scale)
+                row = {"sums_max_rel_err": ((sums - ref_sums).abs() / ref_sums.abs()).max().item(),
+                       "cm_differing": int((cm - ref_cm).abs().sum()),
+                       "dx_max_abs_err": (dx.double() - ref_dx).abs().max().item(),
+                       "dx_max_abs_err_vs_plain_float32": (dx.float() - dx32).abs().max().item(),
+                       "dx_max_abs": ref_dx.abs().max().item(), "bit_equal_runs": bits,
+                       "fwd_ms": cuda_ms(lambda: pt.parity_tail_forward(x, lab, pw, nw, valid)),
+                       "bwd_ms": cuda_ms(lambda: pt.parity_tail_backward(x, lab, pw, nw, scale))}
+                if not (row["sums_max_rel_err"] <= TAIL_SUM_REL and row["cm_differing"] == 0
+                        and row["dx_max_abs_err"] <= TAIL_DX_REL[dtype] * row["dx_max_abs"] and bits
+                        and int(cm.sum()) == (B - 1) * 4 * h * h):
+                    failures.append(f"C={C} {dtype} {layout}: {row}")
+                rows[f"C{C}_{dtype}_{layout}"] = row
+        rows[f"C{C}_plan"] = dataclasses.asdict(plan)
+    print(json.dumps({"parity_tail_classes": {"logits": [B, h, h, "C"], "rows": rows,
+                                              "s": time.perf_counter() - t0, "card": card}}))
+    if failures:
+        raise SystemExit("parity_tail instantiations: " + "; ".join(failures))
+    return rows
+
+
+def time_parity_tail_by_c(card: str) -> dict:
+    """T1/T2 device time at the flagship's map (16 × 256² logits, 512²
+    labels, float32) for every C of ``TAIL_BY_C``, integer and one-hot
+    float32 labels: the ``parity_tail_by_c`` line."""
+    import torch
+
+    from deeplabv3plus_keras_tpu_torch.kernels import parity_tail as pt
+
+    out = {}
+    for C in TAIL_BY_C:
+        g = torch.Generator(device="cuda").manual_seed(C)
+        x = torch.randn(BATCH, SIZE // 2, SIZE // 2, C, device="cuda", generator=g) * 3
+        ids = torch.randint(0, C, (BATCH, SIZE, SIZE), device="cuda", generator=g)
+        pw = torch.linspace(0.3, 0.99, C).numpy()
+        valid = torch.ones(BATCH, dtype=torch.int32, device="cuda")
+        scale = valid.float() / (BATCH * SIZE * SIZE)
+        for layout in ("integer", "one_hot"):
+            lab = ids if layout == "integer" else torch.nn.functional.one_hot(ids, C).float()
+            out[f"C{C}_{layout}"] = {
+                "fwd_ms": cuda_ms(lambda: pt.parity_tail_forward(x, lab, pw, 1 - pw, valid)),
+                "bwd_ms": cuda_ms(lambda: pt.parity_tail_backward(x, lab, pw, 1 - pw, scale))}
+            del lab
+        del x, ids
+        torch.cuda.empty_cache()
+    print(json.dumps({"parity_tail_by_c": out, "logits": [BATCH, SIZE // 2, SIZE // 2, "C"], "card": card}))
+    return out
 
 
 def check_parity_tail(card: str) -> dict:
@@ -2834,6 +2958,8 @@ def check_parity_tail(card: str) -> dict:
     from deeplabv3plus_keras_tpu_torch.train.loss import (SS_NW, SS_PW, class_balanced_loss,
                                                           class_balanced_loss_sparse)
 
+    ptxas_failures = parity_tail_instantiations(card)
+    check_parity_tail_classes(card)
     t0 = time.perf_counter()
     B, h, C = BATCH, SIZE // 2, CLASSES
     g = torch.Generator(device="cuda").manual_seed(11)
@@ -2913,13 +3039,15 @@ def check_parity_tail(card: str) -> dict:
             rows[f"{dtype}_{layout}"] = row
             del xr
             torch.cuda.empty_cache()
+    plan = pt._parity_tail_plan(B, h, h, C)
     print(json.dumps({"parity_tail_kernels": {
         "logits": [B, h, h, C], "labels": SIZE, "padded_samples": 1, "rows": rows,
+        "plan": {k: getattr(plan, k) for k in plan.__dataclass_fields__},
         "note": ("ms: CUDA graphs of 20 calls; plain and unfused: CUDA events over 5 calls; a "
                  "backward's plain_ms and library_ms are forward + backward less the forward"),
         "s": time.perf_counter() - t0, "card": card}}))
-    if failures:
-        raise SystemExit("parity_tail kernels: " + "; ".join(failures))
+    if failures or ptxas_failures:
+        raise SystemExit("parity_tail kernels: " + "; ".join(ptxas_failures + failures))
 
     def entry(which: str) -> dict:
         main = rows["float32_one_hot"]
@@ -3117,6 +3245,55 @@ def run_fused_tail(kernels, card: str, state: dict) -> tuple[dict, dict]:
     return agg, by_path
 
 
+def import_port():
+    """The port beside this script, or exit."""
+    try:
+        import deeplabv3plus_keras_tpu_torch as port
+    except ImportError as e:
+        raise SystemExit(f"chip_smoke: the port's package is not beside this script: {e}")
+    if Path(port.__file__).resolve().parent.parent != Path(__file__).resolve().parent:
+        raise SystemExit(f"chip_smoke: imported the port from {port.__file__}, not from this checkout")
+    return port
+
+
+def ok_line() -> str:
+    import torch
+
+    return json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                              "count": torch.cuda.device_count()}})
+
+
+def parity_tail_only() -> int:
+    """``--parity-tail``: build ``csrc/parity_tail.cu`` alone and run the
+    ``fused_tail`` phase's kernel checks and times (the instantiations'
+    registers, the class sweep, T1/T2 at the flagship's tail) and
+    :func:`time_parity_tail_by_c`, TF32 off.
+    Run beside another tree's copy of this script, in one call, it times
+    two versions of the kernels on one card."""
+    import torch
+
+    import_port()
+    from deeplabv3plus_keras_tpu_torch.kernels import _build
+
+    OUT.mkdir(exist_ok=True)
+    card = gpu_line()
+    print(card)
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(2) as pool:
+        report = pool.submit(_build.ptxas_report, "parity_tail")
+        _build.load("parity_tail")
+        PTXAS["parity_tail"] = report.result()
+    print(json.dumps({"kernel_build_s": time.perf_counter() - t0, "sources": ["parity_tail"]}))
+    print(json.dumps({"ptxas_parity_tail": PTXAS["parity_tail"]}))
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    check_parity_tail(card)
+    time_parity_tail_by_c(card)
+    print(card)
+    print(ok_line())
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -3124,13 +3301,12 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is false; this test needs an NVIDIA card",
               file=sys.stderr)
         return 2
+    if sys.argv[1:] == ["--parity-tail"]:
+        return parity_tail_only()
+    if sys.argv[1:]:
+        raise SystemExit(f"chip_smoke: unknown arguments {sys.argv[1:]}; none, or --parity-tail")
 
-    try:
-        import deeplabv3plus_keras_tpu_torch as port
-    except ImportError as e:
-        raise SystemExit(f"chip_smoke: the port's package is not beside this script: {e}")
-    if Path(port.__file__).resolve().parent.parent != Path(__file__).resolve().parent:
-        raise SystemExit(f"chip_smoke: imported the port from {port.__file__}, not from this checkout")
+    import_port()
     from deeplabv3plus_keras_tpu_torch import kernels
     from deeplabv3plus_keras_tpu_torch.kernels import _build
 
@@ -3147,7 +3323,7 @@ def main() -> int:
         _build.build_all()
         print(json.dumps({"kernel_build_s": time.perf_counter() - t0, "sources": _build.sources()}))
         for name, report in reports.items():
-            ptxas = report.result()
+            ptxas = PTXAS[name] = report.result()
             print(json.dumps({f"ptxas_{name}": ptxas}))
             spilled = [r["kernel"] for r in ptxas if r.get("spill_stores") or r.get("spill_loads")]
             if spilled or not ptxas:
@@ -3267,9 +3443,7 @@ def main() -> int:
         out.append(entry)
     print(json.dumps({"kernels": out}))
     print(card)
-    print(json.dumps({"ok": True, "device": {"platform": "gpu",
-                                             "kind": torch.cuda.get_device_name(0),
-                                             "count": torch.cuda.device_count()}}))
+    print(ok_line())
     return 0
 
 

@@ -20,7 +20,10 @@ half-resolution logits (B, H, W, C) and the full-resolution labels:
 Nothing but the logits, the labels, dlogits, the (B,) sums and scales, the
 (C, C) matrix and a (B, blocks) buffer of T1's block sums is read or
 written: no plane, probability or gradient of the full resolution.  Both
-are deterministic (fixed-order sums; integer atomics for the matrix).
+are deterministic (fixed-order sums; integer atomics for the matrix).  For
+C ≤ 32 a thread keeps its pixel's C values in registers and makes one pass
+over them; the plan picks that instantiation, or the multi-pass one for
+larger C, from C alone.
 
 ``csrc/parity_tail.cu`` is laid out by :func:`_parity_tail_plan`; its
 tiles are walked on the CPU by :func:`parity_tail_forward_emulation` and
@@ -51,56 +54,116 @@ _LABEL_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2,
 _SMEM_SOFT = 96 * 1024   # a block's shared memory, where C allows
 _SMEM_MAX = 227 * 1024   # the most a block may take on the H100
 _HIST_MAX = 32 * 1024    # T1's block confusion matrix in shared memory up to this
+_CLASS_BOUNDS = (8, 16, 24, 32)  # the register instantiations' class bounds
+_WALK = 4                # tiles a block walks down the rows
 
 
 @dataclasses.dataclass(frozen=True)
 class ParityTailPlan:
-    """How ``csrc/parity_tail.cu`` cuts one call: a block owns ``tr`` × ``tw``
-    half-resolution sites of one image (``grid`` = (column tiles, row
-    tiles, B)) and runs ``threads`` = 4·tr·tw threads.  Both kernels stage
-    the logits of the tile with a one-site clamped halo, (tr + 2) × (tw + 2)
-    × ``cp`` float32 (``cp`` = C rounded up to odd, so that neighbouring
-    threads reading one class hit distinct banks).  T1: a thread per
-    full-resolution pixel of the tile; ``hist``: its block's confusion
-    matrix counted in shared memory (else straight into the output).  T2
-    also holds the gradient of every full-resolution pixel its tile's
-    logits reach, (2·tr + 2) × (2·tw + 2) × ``cp``."""
+    """How ``csrc/parity_tail.cu`` cuts one call.  A tile is ``tr`` × ``tw``
+    half-resolution sites of one image; a block of either kernel walks
+    ``walk`` tiles down the rows (``grid`` = (column tiles, row-tile groups,
+    B); ``rows`` row tiles in all).  The next tile's logits window (a
+    one-site clamped halo) and one-hot label rows are copied as they are,
+    by 16-byte asynchronous copies, into raw rows of shared memory while the
+    current tile is computed; the window is then converted to (tr + 2) ×
+    (tw + 2) × ``cp`` float32, ``cp`` odd so that neighbouring threads
+    reading one class hit distinct banks.
+
+    ``cmax`` is the instantiation: the least of 8, 16, 24, 32 that holds C,
+    whose threads keep a pixel's C parity values in registers and make one
+    branch-free pass over all ``cmax`` classes (``cp`` = cmax + 1, the
+    classes past C padded; T1's probabilities then through a row a pixel of
+    shared memory, for a rolled pass of logs), or 0 for C > 32 (``cp`` = C
+    rounded up to odd, one tile a block): the values recomputed from the
+    window in three (T1) or four (T2) passes, the labels read from device
+    memory.  What bounds them is the per-class arithmetic of every
+    full-resolution pixel, above the bytes even with one-hot labels.
+
+    T1: a thread per full-resolution pixel of a tile (``fwd_threads``), its
+    losses summed into one partial value a block and its matrix counted in
+    shared memory (``hist``, else straight into the output) across the
+    walk.  T2: a thread per pixel of the (2·tr + 2) × (2·tw + 2) region a
+    tile's gradient reaches (``bwd_threads``), then a thread per (site
+    column, class) down the tile's rows.  Float32 one-hot labels at an odd C
+    are read from their raw rows in place (the stride C odd: no bank
+    conflicts; double-buffered along the walk), other one-hot labels
+    converted to the stride ``cp``.  A block's shared memory: ``*_smem``
+    with one-hot labels converted, ``*_smem_direct`` read in place,
+    ``*_smem_int`` with integer labels."""
 
     tr: int
     tw: int
     cp: int
-    threads: int
+    cmax: int
+    walk: int
+    fwd_threads: int
+    bwd_threads: int
     hist: bool
     fwd_smem: int
+    fwd_smem_int: int
+    fwd_smem_direct: int
     bwd_smem: int
+    bwd_smem_int: int
+    bwd_smem_direct: int
     grid: tuple[int, int, int]
+    rows: int  # row tiles of the map
 
     def blocks(self):
-        """(b, first row, first column) of every block, in T1's partial-sum
-        order within an image."""
+        """(b, [(first row, first column) of each tile it walks]) of every
+        block, in T1's partial-sum order within an image."""
         gx, gy, B = self.grid
         for b in range(B):
             for y in range(gy):
                 for x in range(gx):
-                    yield b, y * self.tr, x * self.tw
+                    yield b, [(t * self.tr, x * self.tw)
+                              for t in range(y * self.walk, min((y + 1) * self.walk, self.rows))]
 
 
-def _parity_tail_make(B: int, H: int, W: int, C: int, tr: int, tw: int) -> ParityTailPlan:
-    cp = C | 1
-    threads = 4 * tr * tw
+def _round_threads(n: int) -> int:
+    return -(-n // 32) * 32
+
+
+def _parity_tail_make(B: int, H: int, W: int, C: int, tr: int, tw: int,
+                      walk: int | None = None) -> ParityTailPlan:
+    cmax = next((k for k in _CLASS_BOUNDS if C <= k), 0)
+    cp = cmax + 1 if cmax else C | 1
     win = (tr + 2) * (tw + 2) * cp * 4
-    hist = C * C * 4 <= _HIST_MAX
-    fwd = win + threads * 4 + (C * C * 4 if hist else 0)
-    bwd = win + (2 * tr + 2) * (2 * tw + 2) * cp * 4
-    return ParityTailPlan(tr, tw, cp, threads, hist, fwd, bwd, (-(-W // tw), -(-H // tr), B))
+    region = (2 * tr + 2) * (2 * tw + 2) * cp * 4
+    rows = -(-H // tr)
+    def raw(n_rows, n):  # raw rows of n elements: 16-byte chunks at any alignment, 4-byte elements
+        return 16 * n_rows * ((n * 4 + 15) // 16 + 1)
+
+    fwd_int = raw(tr + 2, (tw + 2) * C) + 4 * 32 + win
+    bwd_int = raw(tr + 2, (tw + 2) * C) + win + region
+    if cmax:
+        hist, walk = True, walk or min(_WALK, rows)
+        fwd_int += 4 * tr * tw * cp * 4  # the probabilities, a row a pixel
+        # and the one-hot labels, raw and staged
+        fwd = fwd_int + raw(2 * tr, 2 * tw * C) + 4 * tr * tw * cp * 4
+        direct = fwd_int + 2 * raw(2 * tr, 2 * tw * C)
+        bwd = bwd_int + raw(2 * tr + 2, (2 * tw + 2) * C)
+        bwd_direct = bwd_int + 2 * raw(2 * tr + 2, (2 * tw + 2) * C)
+    else:  # C > 32: the multi-pass kernels, one tile a block, the labels from device memory
+        hist, walk = C * C * 4 <= _HIST_MAX, 1
+        fwd = direct = fwd_int
+        bwd = bwd_direct = bwd_int
+    hist_bytes = C * C * 4 if hist else 0
+    return ParityTailPlan(tr, tw, cp, cmax, walk, _round_threads(4 * tr * tw),
+                          _round_threads((2 * tr + 2) * (2 * tw + 2)), hist, fwd + hist_bytes,
+                          fwd_int + hist_bytes, direct + hist_bytes, bwd, bwd_int, bwd_direct,
+                          (-(-W // tw), -(-rows // walk), B), rows)
 
 
 @functools.lru_cache(maxsize=256)
 def _parity_tail_plan(B: int, H: int, W: int, C: int) -> ParityTailPlan:
     """The plan of one call, from the shape alone: tiles of 4 × 16 sites
-    (256 threads; at the flagship's C = 21, 38 KB for T2), halving the
-    columns and then the rows while T2's shared memory passes 96 KB.
-    Raises ``ValueError`` where even one site a block passes 227 KB."""
+    walked 4 at a time (T1 256 threads, T2 352; at the flagship's C = 21 the
+    C ≤ 24 instantiation: T1 91 KB and T2 112 KB with float32 one-hot
+    labels, 48 KB and 54 KB with integer ones), halving the columns and then
+    the rows while a kernel's shared memory with converted one-hot labels
+    passes 96 KB.  Raises ``ValueError`` where even one site a block passes
+    227 KB."""
     tr, tw = 4, 16
     plan = _parity_tail_make(B, H, W, C, tr, tw)
     while max(plan.fwd_smem, plan.bwd_smem) > _SMEM_SOFT and (tr, tw) != (1, 1):
@@ -176,19 +239,32 @@ def _tile_values(win: torch.Tensor, r: torch.Tensor, s: torch.Tensor, i0: int, j
     return top * wca.to(dt)[None, :, None] + bot * wcb.to(dt)[None, :, None]
 
 
-def _pixel_terms(u, y, pw, nw, eps):
+def _pixel_terms(u, y, pw, nw, eps, one_pass: bool):
     """(per-pixel loss, dℓ/du) of parity values ``u`` (..., C) and label
     values ``y`` (..., C) as the kernels compute them: a term whose label
-    weight y or 1 − y is 0 is left out."""
+    weight y or 1 − y is 0 is left out.  ``one_pass`` (the C ≤ 32
+    instantiations): p from one reciprocal of the exponentials' sum, and one
+    log or division a class, of p + ε where y ≠ 0, else of 1 − p + ε, plus
+    the other term for a soft label; else (C > 32) both terms as written."""
     m = u.amax(-1, keepdim=True)
     e = torch.exp(u - m)
-    p = e / e.sum(-1, keepdim=True)
     zero = torch.zeros((), dtype=u.dtype)
     pos, neg = y != 0, y != 1
-    loss = -(torch.where(pos, pw * y * torch.log(p + eps), zero)
-             + torch.where(neg, nw * (1 - y) * torch.log(1 - p + eps), zero)).sum(-1)
-    a = (torch.where(pos, -pw * y / (p + eps), zero)
-         + torch.where(neg, nw * (1 - y) / (1 - p + eps), zero))
+    if one_pass:
+        p = e * (1 / e.sum(-1, keepdim=True))
+        soft = pos & neg
+        w = torch.where(pos, pw * y, nw * (1 - y))
+        arg = torch.where(pos, p + eps, 1 - p + eps)
+        loss = -(w * torch.log(arg)
+                 + torch.where(soft, nw * (1 - y) * torch.log(1 - p + eps), zero)).sum(-1)
+        a = (torch.where(pos, -pw * y, nw * (1 - y)) / arg
+             + torch.where(soft, nw * (1 - y) / (1 - p + eps), zero))
+    else:
+        p = e / e.sum(-1, keepdim=True)
+        loss = -(torch.where(pos, pw * y * torch.log(p + eps), zero)
+                 + torch.where(neg, nw * (1 - y) * torch.log(1 - p + eps), zero)).sum(-1)
+        a = (torch.where(pos, -pw * y / (p + eps), zero)
+             + torch.where(neg, nw * (1 - y) / (1 - p + eps), zero))
     return loss, p * (a - (a * p).sum(-1, keepdim=True))
 
 
@@ -218,28 +294,34 @@ def _emulation_inputs(logits, pos_weights, neg_weights):
 
 def parity_tail_forward_emulation(logits, label, pos_weights, neg_weights, valid=None,
                                   epsilon: float = 1e-7, plan: ParityTailPlan | None = None):
-    """T1's decomposition in PyTorch, for tests: each block's pixels from its
-    clamped window alone, its loss sum written to the (B, blocks) buffer in
-    the plan's block order, then summed per sample in float64; the matrix
-    counted per block.  Returns (sums (B,) float32, cm)."""
+    """T1's decomposition in PyTorch, for tests: each block walks its tiles,
+    each tile's pixels from its clamped window alone, every thread's pixel
+    losses summed across the tiles (the tile's pixel grid), then over the
+    block, written to the (B, blocks) buffer in the plan's block order and
+    summed per sample in float64; the matrix counted per block.  Returns
+    (sums (B,) float32, cm)."""
     B, H, W, C = logits.shape
     plan = plan or _parity_tail_plan(B, H, W, C)
     x, pw, nw = _emulation_inputs(logits, pos_weights, neg_weights)
     partial = torch.zeros(B, plan.grid[0] * plan.grid[1], dtype=x.dtype)
     cm = torch.zeros(C * C + 1, dtype=torch.int64)
     n = [0] * B
-    for b, i0, j0 in plan.blocks():
-        win = _window(x[b], i0 - 1, j0 - 1, plan.tr + 2, plan.tw + 2)
-        r = torch.arange(2 * i0, min(2 * (i0 + plan.tr), 2 * H))
-        s = torch.arange(2 * j0, min(2 * (j0 + plan.tw), 2 * W))
-        u = _tile_values(win, r, s, i0, j0)
-        loss, _ = _pixel_terms(u, _label_values(label, b, r, s, C, u.dtype), pw, nw, epsilon)
-        partial[b, n[b]] = loss.sum()
+    for b, tiles in plan.blocks():
+        per_thread = torch.zeros(2 * plan.tr, 2 * plan.tw, dtype=x.dtype)
+        for i0, j0 in tiles:
+            win = _window(x[b], i0 - 1, j0 - 1, plan.tr + 2, plan.tw + 2)
+            r = torch.arange(2 * i0, min(2 * (i0 + plan.tr), 2 * H))
+            s = torch.arange(2 * j0, min(2 * (j0 + plan.tw), 2 * W))
+            u = _tile_values(win, r, s, i0, j0)
+            loss, _ = _pixel_terms(u, _label_values(label, b, r, s, C, u.dtype), pw, nw, epsilon,
+                                   plan.cmax > 0)
+            per_thread[:len(r), :len(s)] += loss
+            if valid is None or int(valid[b]) != 0:
+                t = _true_class(label, b, r, s)
+                idx = torch.where((t >= 0) & (t < C), t * C + u.argmax(-1), C * C)
+                cm += torch.bincount(idx.reshape(-1), minlength=C * C + 1)
+        partial[b, n[b]] = per_thread.sum()
         n[b] += 1
-        if valid is None or int(valid[b]) != 0:
-            t = _true_class(label, b, r, s)
-            idx = torch.where((t >= 0) & (t < C), t * C + u.argmax(-1), C * C)
-            cm += torch.bincount(idx.reshape(-1), minlength=C * C + 1)
     return partial.double().sum(1).to(x.dtype), cm[:C * C].reshape(C, C).to(torch.int32)
 
 
@@ -261,15 +343,17 @@ def _row_weights(n0: int, nt: int, n: int) -> torch.Tensor:
 
 def parity_tail_backward_emulation(logits, label, pos_weights, neg_weights, scale,
                                    epsilon: float = 1e-7, plan: ParityTailPlan | None = None):
-    """T2's decomposition in PyTorch, for tests: per block, the gradient of
-    every full-resolution pixel in rows 2·i0 − 1 .. 2·(i0 + tr) and columns
-    likewise (zero outside the image) from the block's clamped window, then
-    each site's dlogits as the transposed lerp of its 4 × 4 pixels."""
+    """T2's decomposition in PyTorch, for tests: per block, each tile of its
+    walk in turn: the gradient of every full-resolution pixel in rows
+    2·i0 − 1 .. 2·(i0 + tr) and columns likewise (zero outside the image)
+    from the tile's clamped window, then each site's dlogits as the
+    transposed lerp of its 4 × 4 pixels: each pixel row's pass over a site
+    column's 4 pixels, weighted into the two sites it reaches."""
     B, H, W, C = logits.shape
     plan = plan or _parity_tail_plan(B, H, W, C)
     x, pw, nw = _emulation_inputs(logits, pos_weights, neg_weights)
     dx = torch.zeros(B, H, W, C, dtype=x.dtype)
-    for b, i0, j0 in plan.blocks():
+    for b, i0, j0 in ((b, i0, j0) for b, tiles in plan.blocks() for i0, j0 in tiles):
         sc = float(scale[b])
         if sc == 0.0:
             continue
@@ -280,11 +364,13 @@ def parity_tail_backward_emulation(logits, label, pos_weights, neg_weights, scal
         g = torch.zeros(len(r), len(s), C, dtype=x.dtype)
         rv, sv = r[rin], s[sin]
         u = _tile_values(win, rv, sv, i0, j0)
-        _, grad = _pixel_terms(u, _label_values(label, b, rv, sv, C, u.dtype), pw, nw, epsilon)
+        _, grad = _pixel_terms(u, _label_values(label, b, rv, sv, C, u.dtype), pw, nw, epsilon,
+                               plan.cmax > 0)
         g[rin.nonzero()[:, 0][:, None], sin.nonzero()[:, 0][None, :]] = grad * sc
         mr = _row_weights(i0, plan.tr, H).to(x.dtype)
         mc = _row_weights(j0, plan.tw, W).to(x.dtype)
-        tile = torch.einsum("ia,jb,abc->ijc", mr, mc, g)
+        h = torch.einsum("jb,abc->ajc", mc, g)  # each pixel row's column pass
+        tile = torch.einsum("ia,ajc->ijc", mr, h)
         hi, wi = min(plan.tr, H - i0), min(plan.tw, W - j0)
         dx[b, i0:i0 + hi, j0:j0 + wi] = tile[:hi, :wi]
     return dx.to(logits.dtype)
@@ -300,14 +386,15 @@ def _weights_on(pw: bytes, nw: bytes, device: torch.device) -> torch.Tensor:
                                       np.frombuffer(nw, np.float32)])).to(device)
 
 
-def _device_weights(pos_weights, neg_weights, C: int, device) -> torch.Tensor:
+def _device_weights(pos_weights, neg_weights, C: int, device) -> tuple[torch.Tensor, np.ndarray]:
     """(2, C) float32 [pw; nw] on ``device``, made once per weights and
-    device (no host copy a step)."""
+    device (no host copy a step), and the same on the host (the register
+    instantiations take it as a kernel parameter)."""
     pw = np.asarray(pos_weights.cpu() if torch.is_tensor(pos_weights) else pos_weights, np.float32)
     nw = np.asarray(neg_weights.cpu() if torch.is_tensor(neg_weights) else neg_weights, np.float32)
     if pw.shape != (C,) or nw.shape != (C,):
         raise ValueError(f"parity_tail: class weights {pw.shape}, {nw.shape} for C={C}")
-    return _weights_on(pw.tobytes(), nw.tobytes(), torch.device(device))
+    return _weights_on(pw.tobytes(), nw.tobytes(), torch.device(device)), np.concatenate([pw, nw])
 
 
 def _check(logits: torch.Tensor, label: torch.Tensor) -> None:
@@ -327,6 +414,15 @@ def _check(logits: torch.Tensor, label: torch.Tensor) -> None:
         raise ValueError(f"parity_tail: shape {tuple(logits.shape)} too large for the kernels")
 
 
+def _smem(plan: ParityTailPlan, label: torch.Tensor, kernel: str) -> int:
+    """A block's shared memory for this label layout (the kernels read
+    float32 one-hot labels at an odd C from their raw rows)."""
+    if label.dim() != 4:
+        return getattr(plan, f"{kernel}_smem_int")
+    direct = label.shape[-1] % 2 and label.dtype == torch.float32
+    return getattr(plan, f"{kernel}_smem_direct" if direct else f"{kernel}_smem")
+
+
 def _stream(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
@@ -343,7 +439,7 @@ def parity_tail_forward(logits, label, pos_weights, neg_weights, valid=None,
     logits, label = logits.contiguous(), label.contiguous()
     B, H, W, C = logits.shape
     plan = _parity_tail_plan(B, H, W, C)
-    wts = _device_weights(pos_weights, neg_weights, C, logits.device)
+    wts, host = _device_weights(pos_weights, neg_weights, C, logits.device)
     v = None if valid is None else valid.to(device=logits.device, dtype=torch.int32).contiguous()
     if v is not None and v.shape != (B,):
         raise ValueError(f"parity_tail: valid {tuple(v.shape)} for B={B}")
@@ -352,14 +448,16 @@ def parity_tail_forward(logits, label, pos_weights, neg_weights, valid=None,
     cm = torch.zeros(C, C, dtype=torch.int32, device=logits.device)
     fn = _build.function("parity_tail", "parity_tail_fwd",
                          [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int]
-                         + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 10
+                         + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 12
                          + [ctypes.c_float, ctypes.c_void_p])
     with torch.cuda.device(logits.device):
         rc = fn(logits.data_ptr(), _LOGIT_CODE[logits.dtype], label.data_ptr(),
-                _LABEL_CODE[label.dtype], wts.data_ptr(), 0 if v is None else v.data_ptr(),
+                _LABEL_CODE[label.dtype], wts.data_ptr(), host.ctypes.data,
+                0 if v is None else v.data_ptr(),
                 partial.data_ptr(), sums.data_ptr(), cm.data_ptr(),
-                B, H, W, C, plan.cp, plan.tr, plan.tw, plan.threads, plan.fwd_smem,
-                int(plan.hist), float(epsilon), _stream(logits.device))
+                B, H, W, C, plan.cp, plan.tr, plan.tw, plan.walk, plan.cmax, plan.fwd_threads,
+                _smem(plan, label, "fwd"), int(plan.hist),
+                float(epsilon), _stream(logits.device))
     if rc != 0:
         raise RuntimeError(f"parity_tail_fwd launch failed: CUDA error {rc}")
     launches["parity_tail_fwd"] += 1
@@ -376,19 +474,20 @@ def parity_tail_backward(logits, label, pos_weights, neg_weights, scale, epsilon
     logits, label = logits.contiguous(), label.contiguous()
     B, H, W, C = logits.shape
     plan = _parity_tail_plan(B, H, W, C)
-    wts = _device_weights(pos_weights, neg_weights, C, logits.device)
+    wts, host = _device_weights(pos_weights, neg_weights, C, logits.device)
     scale = scale.to(device=logits.device, dtype=torch.float32).contiguous()
     if scale.shape != (B,):
         raise ValueError(f"parity_tail: scale {tuple(scale.shape)} for B={B}")
     dx = torch.empty_like(logits)
     fn = _build.function("parity_tail", "parity_tail_bwd",
                          [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int]
-                         + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 9
+                         + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 11
                          + [ctypes.c_float, ctypes.c_void_p])
     with torch.cuda.device(logits.device):
         rc = fn(logits.data_ptr(), _LOGIT_CODE[logits.dtype], label.data_ptr(),
-                _LABEL_CODE[label.dtype], wts.data_ptr(), scale.data_ptr(), dx.data_ptr(),
-                B, H, W, C, plan.cp, plan.tr, plan.tw, plan.threads, plan.bwd_smem,
+                _LABEL_CODE[label.dtype], wts.data_ptr(), host.ctypes.data, scale.data_ptr(),
+                dx.data_ptr(), B, H, W, C, plan.cp, plan.tr, plan.tw, plan.walk, plan.cmax,
+                plan.bwd_threads, _smem(plan, label, "bwd"),
                 float(epsilon), _stream(logits.device))
     if rc != 0:
         raise RuntimeError(f"parity_tail_bwd launch failed: CUDA error {rc}")

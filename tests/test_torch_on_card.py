@@ -629,9 +629,12 @@ def test_int8_site_that_int_mm_cannot_take_raises(card):
 
 
 # T1/T2 (csrc/parity_tail.cu): (B, H, W, C) of the flagship's tail at a
-# small map, a ragged one with C even, and one whose C = 150 takes smaller
-# tiles and counts the matrix in device memory
-PARITY_TAIL_CASES = [(2, 16, 32, 21), (3, 7, 9, 8), (2, 10, 12, 150)]
+# small map (the C ≤ 24 instantiation), a ragged one with C even (C ≤ 8),
+# the C ≤ 16 and C ≤ 32 instantiations at their bounds, and the multi-pass
+# kernels past them: C = 33, and C = 150, which takes smaller tiles and
+# counts the matrix in device memory
+PARITY_TAIL_CASES = [(2, 16, 32, 21), (3, 7, 9, 8), (2, 9, 11, 16), (2, 8, 12, 32), (2, 5, 6, 33),
+                     (2, 10, 12, 150)]
 
 
 def _parity_tail_inputs(shape, dtype, dense, seed=0):

@@ -18,6 +18,8 @@ the plain version.  Tolerances:
   pixels (a bfloat16 tie broken by one rounding flips a pixel).
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -146,24 +148,36 @@ def test_masked_pixel_mean_total_pixels_matches_jax():
 # the kernels' decomposition, emulated
 
 
-# (B, H, W, C), (tr, tw): the flagship's plan at a small map, tiles cut on
-# both axes and ragged at the edges, C even (the odd class stride), one row,
-# one site a block
+# (B, H, W, C), (tr, tw[, walk]): the flagship's plan at a small map, tiles
+# cut on both axes and ragged at the edges, C even (the odd class stride),
+# one row, one site a block, a ragged walk; then the default plan at each
+# instantiation's class bound and past it (C = 8, 16, 21 in the C ≤ 24
+# one, 32, and 33 and 150 in the multi-pass one, whose matrix is counted in
+# device memory at 150)
 PLAN_CASES = [
     ((2, 8, 8, 21), None),
     ((2, 5, 9, 4), (2, 4)),
     ((3, 7, 6, 8), (1, 2)),
     ((1, 1, 3, 5), (1, 1)),
     ((2, 6, 10, 21), (4, 4)),
+    ((2, 7, 6, 8), (1, 2, 3)),
+    ((2, 9, 5, 8), None),
+    ((2, 5, 7, 16), None),
+    ((1, 10, 18, 21), None),
+    ((2, 6, 9, 32), None),
+    ((2, 5, 6, 33), None),
+    ((1, 3, 5, 150), None),
 ]
 
 
 @pytest.mark.parametrize("shape,tile", PLAN_CASES)
 @pytest.mark.parametrize("dense", [True, False])
 def test_kernel_decomposition_matches_plain(shape, tile, dense):
-    """T1's blocks (window, pixels, block sums, matrix) and T2's (pixel
-    gradients of the tile and its halo, transposed lerp) walked in float64
-    against the plain version and its autograd: 1e-12."""
+    """T1's blocks (their tiles' windows, pixels, per-thread sums across the
+    walk, block sums, matrix) and T2's (pixel gradients of the tile and its
+    halo, column then row pass) walked in float64, in the formulas of the
+    plan's instantiation, against the plain version and its autograd:
+    1e-12."""
     B, H, W, C = shape
     g = torch.Generator().manual_seed(sum(shape))
     x = torch.randn(shape, generator=g, dtype=torch.float64) * 2
@@ -185,17 +199,55 @@ def test_kernel_decomposition_matches_plain(shape, tile, dense):
         assert not d0[-1].any()  # a scale of 0 (a padded sample): no gradient
 
 
+def test_soft_labels_take_both_terms_in_either_instantiation():
+    """A one-hot label that is not 0 or 1 (a soft label) takes both loss
+    terms in the one-pass formulas as in the multi-pass ones: the emulation
+    of each against the plain version in float64, 1e-12."""
+    B, H, W, C = 1, 3, 4, 6
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn(B, H, W, C, generator=g, dtype=torch.float64)
+    lab = torch.softmax(torch.randn(B, 2 * H, 2 * W, C, generator=g, dtype=torch.float64), -1)
+    pw, nw = np.linspace(0.3, 0.99, C), np.linspace(0.7, 0.01, C)
+    scale = torch.tensor([0.7], dtype=torch.float64)
+    s0, _ = kernel.parity_tail_forward_plain(x, lab, pw, nw)
+    d0 = kernel.parity_tail_backward_plain(x, lab, pw, nw, scale)
+    one_pass = kernel._parity_tail_plan(B, H, W, C)
+    multi = dataclasses.replace(one_pass, cmax=0)
+    for plan in (one_pass, multi):
+        s1, _ = kernel.parity_tail_forward_emulation(x, lab, pw, nw, plan=plan)
+        d1 = kernel.parity_tail_backward_emulation(x, lab, pw, nw, scale, plan=plan)
+        torch.testing.assert_close(s1, s0, rtol=1e-12, atol=0)
+        torch.testing.assert_close(d1, d0, rtol=0, atol=1e-12 * float(d0.abs().max()))
+
+
 def test_kernel_plan_fits_the_card_and_covers_the_map():
+    """The flagship's tail takes the C ≤ 24 instantiation: tiles of 4 × 16
+    sites, a block walking 4 of them (16 row-tile groups), T1 256 threads,
+    T2 352 (its 10 × 34-pixel region in one round), the class stride 25;
+    C picks the instantiation alone; ADE20K's 150 classes take the
+    multi-pass kernels at smaller tiles, one a block, with the matrix in
+    device memory; every site is covered once."""
     plan = kernel._parity_tail_plan(16, 256, 256, 21)
-    assert (plan.tr, plan.tw, plan.threads, plan.cp, plan.hist) == (4, 16, 256, 21, True)
-    assert plan.grid == (16, 64, 16) and plan.bwd_smem <= 96 * 1024
+    assert (plan.tr, plan.tw, plan.cp, plan.cmax, plan.walk, plan.hist) == (4, 16, 25, 24, 4, True)
+    assert (plan.fwd_threads, plan.bwd_threads) == (256, 352)
+    assert plan.grid == (16, 16, 16) and plan.rows == 64
+    assert max(plan.fwd_smem, plan.bwd_smem) <= 96 * 1024
+    assert plan.fwd_smem_int < plan.fwd_smem and plan.bwd_smem_int < plan.bwd_smem
+    # float32 one-hot labels at an odd C: read in place, double-buffered; two blocks an SM
+    assert 2 * (max(plan.fwd_smem_direct, plan.bwd_smem_direct) + 1024) <= 228 * 1024
+    assert [kernel._parity_tail_plan(2, 16, 16, C).cmax for C in (1, 8, 9, 16, 17, 24, 25, 32, 33)] == [
+        8, 8, 16, 16, 24, 24, 32, 32, 0]
     wide = kernel._parity_tail_plan(2, 64, 64, 150)  # ADE20K's classes: smaller tiles
-    assert wide.tw < 16 and max(wide.fwd_smem, wide.bwd_smem) <= 96 * 1024 and not wide.hist
-    for B, H, W, C in ((1, 5, 9, 4), (2, 33, 17, 21), (1, 1, 1, 1)):
+    assert wide.cmax == 0 and wide.walk == 1 and wide.tw < 16 and not wide.hist
+    assert max(wide.fwd_smem, wide.bwd_smem) <= 96 * 1024
+    for B, H, W, C in ((1, 5, 9, 4), (2, 33, 17, 21), (1, 1, 1, 1), (2, 13, 40, 33)):
         p = kernel._parity_tail_plan(B, H, W, C)
-        sites = {(b, i, j) for b, i0, j0 in p.blocks() for i in range(i0, min(i0 + p.tr, H))
-                 for j in range(j0, min(j0 + p.tw, W))}
-        assert len(sites) == B * H * W and len(list(p.blocks())) == p.grid[0] * p.grid[1] * B
+        sites = [(b, i, j) for b, tiles in p.blocks() for i0, j0 in tiles
+                 for i in range(i0, min(i0 + p.tr, H)) for j in range(j0, min(j0 + p.tw, W))]
+        assert sorted(sites) == sorted(set(sites)) and len(sites) == B * H * W
+        assert len(list(p.blocks())) == p.grid[0] * p.grid[1] * B
+        assert p.fwd_threads == -(-4 * p.tr * p.tw // 32) * 32 <= 256  # a thread a pixel
+        assert p.bwd_threads == -(-(2 * p.tr + 2) * (2 * p.tw + 2) // 32) * 32 <= 352
     with pytest.raises(ValueError, match="C=3000"):
         kernel._parity_tail_plan(1, 8, 8, 3000)
 
