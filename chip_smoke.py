@@ -26,7 +26,9 @@ For each model it
    backward kernels' dk also bit for bit across two runs), and times
    kernel, plain version and the nearest PyTorch library call with CUDA
    events (K6/K7 also as the whole channels-first route with its two
-   layout copies, and beside K2/K4 at the same site, K4 checked there too);
+   layout copies, and beside K2/K4 at the same site, K4 checked there too;
+   K6's and K7's site lines carry their plans, and K6's output must be the
+   same bits in two runs);
 2. serves it through ``SemanticSegmentation(conf, device="cuda").segment()``
    on 4 batches, checks the labels, the kernels' launch counts per call,
    and one image against the same weights served on the CPU, and reports
@@ -39,6 +41,11 @@ For each model it
    weights, whose losses must agree with float64's, and whose gradients
    and module outputs with a float64 step taken at the card's own ReLU
    masks and max-pool choices (:func:`check_training_against_cpu`).
+
+After Xception's phases under ``bhcw``, its ``segment()`` and
+``train_step()`` run again under ``nhwc`` (K2/K4 at the 33 sites, no
+layout copies; the same checks), and the ``xception_route`` line sets the
+two layouts' device times and images/s side by side.
 
 After the flagship's phases, under ``nhwc``, the ``data_path`` phase drives
 the JSON-config entry points on a VOC-layout tree it writes (64 train, 32
@@ -134,6 +141,13 @@ name and power limit, and as its last line ``{"ok": true, "device": {...}}``.
 alone and runs only the ``fused_tail`` phase's kernel checks and times
 (the three lines before its steps), then times T1/T2 against C at the
 flagship's map (``parity_tail_by_c``), in about a minute.
+
+``python3 chip_smoke.py --cf`` builds ``csrc/depthwise_cf.cu`` alone and
+runs K6 and K7 at Xception's eight sites in float32 and bfloat16 (each
+against its plain version, timed beside it, cuDNN and the byte bound),
+then their sums over a forward and a train step, in about a minute.  Copied
+into an unpacked older tree and run there beside this tree in one call, it
+times two versions of the kernels on one card.
 
 Any failed check exits non-zero.  Long outputs (the per-site table
 ``kernel_sites.json``, the profiles ``[xception_]segment_profile.txt`` and
@@ -535,15 +549,30 @@ def check_depthwise_backward(sites, g, rows, dtype="float32"):
     return agg
 
 
-def check_cf(sites, g, rows):
+# Xception's 8 distinct K6/K7 sites at B=16, 512², output stride 16, with
+# their calls a forward (K6) and a train step (K7)
+XCEPTION_CF_SITES = {
+    (16, 64, 253, 253): 1, (16, 128, 253, 253): 1, (16, 128, 127, 127): 1, (16, 256, 127, 127): 1,
+    (16, 256, 64, 64): 1, (16, 728, 64, 64): 1, (16, 728, 32, 32): 26, (16, 1024, 32, 32): 1,
+}
+
+
+def plan_fields(p) -> dict:
+    """A K6 plan as the site lines show it."""
+    return {"mode": p.mode, "block": [p.ncx, p.nry], "r": p.r, "tile_rows": p.th, "planes": p.planes,
+            "tiles": p.tiles, "walk": p.walk, "grid": list(p.grid), "smem": p.smem}
+
+
+def cf_site_rows(shape, mult: int, w, g, alone: bool) -> list:
     """K6/K7 (the channels-first kernels) vs the plain forward and backward
-    at each distinct k3 stride-1 undilated site of ``sites``, NCHW-contiguous
-    inputs; dk of two runs must agree bit for bit.  Each site is also timed
+    at one k3 stride-1 undilated site in float32, NCHW-contiguous inputs;
+    y, dx and dk of two runs must agree bit for bit.  Timed beside the
+    plain versions and cuDNN's grouped conv and ``convolution_backward``
+    on the NCHW-contiguous input; in a model's phase (not ``alone``), also
     as the whole route (``depthwise_conv`` under ``bhcw``: x and g made
-    NCHW-contiguous, dx and y returned to ``channels_last``), as K2/K4 on the
-    same site in ``channels_last``, and as cuDNN's grouped conv and its
-    ``convolution_backward`` on the NCHW-contiguous input.  Returns per-kernel
-    sums over one pass (a forward for K6, a train step for K7)."""
+    NCHW-contiguous, dx and y returned to ``channels_last``) and as K2/K4
+    on the same site in ``channels_last`` (K4 checked there too).  Returns
+    the (K6, K7) rows."""
     import torch
     import torch.nn.functional as F
 
@@ -555,126 +584,154 @@ def check_cf(sites, g, rows):
         depthwise_conv_backward_plain,
         depthwise_conv_plain,
     )
-    from deeplabv3plus_keras_tpu_torch.kernels.depthwise import _cf_bwd_plan, _ptr_align
+    from deeplabv3plus_keras_tpu_torch.kernels.depthwise import _cf_bwd_plan, _cf_fwd_plan, _ptr_align
 
     cl = torch.channels_last
-    distinct = {}
-    for shape, stride, dil, mod in sites:
-        if (mod.weight.shape[-1], stride, tuple(dil)) == (3, 1, (1, 1)):
-            distinct.setdefault(shape, [mod, 0])[1] += 1
-    agg = {}
-    for shape, (mod, mult) in distinct.items():
-        B, C, H, W = shape
-        w = mod.weight.detach()
-        x = torch.randn(shape, device="cuda", generator=g)
-        gout = torch.randn(shape, device="cuda", generator=g)
+    B, C, H, W = shape
+    x = torch.randn(shape, device="cuda", generator=g)
+    gout = torch.randn(shape, device="cuda", generator=g)
+    y = depthwise_cf(x, w)
+    y2 = depthwise_cf(x, w)
+    ref = depthwise_conv_plain(x, w)
+    dx, dk = depthwise_cf_backward(x, w, gout)
+    dx2, dk2 = depthwise_cf_backward(x, w, gout)
+    rdx, rdk = depthwise_conv_backward_plain(x, w, gout)
+    _, dk_abs = depthwise_conv_backward_plain(x.abs(), w, gout.abs())
+    torch.cuda.synchronize()
+    y_err, y_scale = (y - ref).abs().max().item(), ref.abs().max().item()
+    dx_err, dx_scale = (dx - rdx).abs().max().item(), rdx.abs().max().item()
+    dk_err = (dk - rdk).abs().max().item()
+    same_bits = torch.equal(dk, dk2) and torch.equal(dx, dx2)
+    y_same = torch.equal(y, y2)
+    # forward as K2, dx as K4: float32 rounding of 9-term sums; dk 1e-4
+    # of Σ|x·g| per tap and channel, the float32 sum's scale
+    fwd_ok = y_err <= 1e-5 * y_scale and y_same
+    bwd_ok = dx_err <= 1e-5 * dx_scale and bool(((dk - rdk).abs() <= 1e-4 * dk_abs).all())
+    k4_ok = None
+    if not alone:
         x_cl, g_cl = x.contiguous(memory_format=cl), gout.contiguous(memory_format=cl)
-        y = depthwise_cf(x, w)
-        ref = depthwise_conv_plain(x, w)
-        dx, dk = depthwise_cf_backward(x, w, gout)
-        dx2, dk2 = depthwise_cf_backward(x, w, gout)
-        rdx, rdk = depthwise_conv_backward_plain(x, w, gout)
-        _, dk_abs = depthwise_conv_backward_plain(x.abs(), w, gout.abs())
-        torch.cuda.synchronize()
-        y_err, y_scale = (y - ref).abs().max().item(), ref.abs().max().item()
-        dx_err, dx_scale = (dx - rdx).abs().max().item(), rdx.abs().max().item()
-        dk_err = (dk - rdk).abs().max().item()
-        same_bits = torch.equal(dk, dk2) and torch.equal(dx, dx2)
-        # forward as K2, dx as K4: float32 rounding of 9-term sums; dk 1e-4
-        # of Σ|x·g| per tap and channel, the float32 sum's scale
-        fwd_ok = y_err <= 1e-5 * y_scale
-        bwd_ok = dx_err <= 1e-5 * dx_scale and bool(((dk - rdk).abs() <= 1e-4 * dk_abs).all())
         with dw_layout("nhwc"):  # K4 at the same site, by the same rule, two runs
             ndx, ndk = depthwise_conv_backward(x_cl, w, g_cl)
             ndx2, ndk2 = depthwise_conv_backward(x_cl, w, g_cl)
         k4_ok = ((ndx - rdx).abs().max().item() <= 1e-5 * dx_scale
                  and bool(((ndk - rdk).abs() <= 1e-4 * dk_abs).all())
                  and torch.equal(ndk, ndk2) and torch.equal(ndx, ndx2))
-        del y, ref, dx, dx2, dk2, rdx, dk_abs, ndx, ndk, ndx2, ndk2
+        del ndx, ndk, ndx2, ndk2
+    del y, y2, ref, dx, dx2, dk2, rdx, dk_abs
+    common = {"shape_nchw": list(shape), "k": 3, "stride": 1, "dilation": [1, 1], "model": "xception"}
+    fwd = dict(
+        common, kernel="depthwise_fwd_cf", per_forward=mult, max_abs_err=y_err,
+        max_abs_ref=y_scale, y_bit_reproducible=y_same, ok=fwd_ok,
+        ms=cuda_ms(lambda: depthwise_cf(x, w)),
+        plain_ms=cuda_ms(lambda: depthwise_conv_plain(x, w)),
+        library_ms=cuda_ms(lambda: F.conv2d(x, w, padding=1, groups=C)))
+    b_ms, b_by = bound((x.numel() * 2 + w.numel()) * 4, 2 * 9 * x.numel())
+    fwd.update(bound_ms=b_ms, bound_by=b_by,
+               plan=plan_fields(_cf_fwd_plan(B, C, H, W, x.dtype, _ptr_align(x))))
+    lib = lambda: torch.ops.aten.convolution_backward(  # noqa: E731
+        gout, x, w, None, [1, 1], [1, 1], [1, 1], False, [0, 0], C, [True, True, False])
+    bwd = dict(
+        common, kernel="depthwise_bwd_cf", per_step=mult, max_abs_err=max(dx_err, dk_err),
+        dx_max_abs_err=dx_err, dx_max_abs_ref=dx_scale, dk_max_abs_err=dk_err,
+        dk_max_abs_ref=rdk.abs().max().item(), dk_bit_reproducible=same_bits,
+        ok=bwd_ok and same_bits,
+        ms=cuda_ms(lambda: depthwise_cf_backward(x, w, gout)),
+        plain_ms=cuda_ms(lambda: depthwise_conv_backward_plain(x, w, gout)),
+        library_ms=cuda_ms(lib))
+    # x and g read once, dx written once; 9 multiply-adds per element
+    # for dx and again for dk
+    b_ms, b_by = bound((x.numel() * 3 + 2 * w.numel()) * 4, 4 * 9 * x.numel())
+    plan = _cf_bwd_plan(B, C, H, W, x.dtype, _ptr_align(x, gout))
+    bwd.update(bound_ms=b_ms, bound_by=b_by, plan={
+        "mode": plan.mode, "block": [plan.ncx, plan.nry], "r": plan.r,
+        "tile_rows": plan.th, "tiles": plan.tiles, "walk": plan.walk,
+        "groups": plan.groups, "grid": list(plan.grid), "smem": plan.smem})
+    if not alone:
+        bwd["nhwc_kernel_ok"] = k4_ok
         with dw_layout("bhcw"):
-            route_f = cuda_ms(lambda: depthwise_conv(x_cl, w))
-            route_b = cuda_ms(lambda: depthwise_conv_backward(x_cl, w, g_cl))
+            fwd["route_ms"] = cuda_ms(lambda: depthwise_conv(x_cl, w))
+            bwd["route_ms"] = cuda_ms(lambda: depthwise_conv_backward(x_cl, w, g_cl))
         with dw_layout("nhwc"):
-            k2_ms = cuda_ms(lambda: depthwise_conv(x_cl, w))
-            k4_ms = cuda_ms(lambda: depthwise_conv_backward(x_cl, w, g_cl))
-        common = {"shape_nchw": list(shape), "k": 3, "stride": 1, "dilation": [1, 1],
-                  "model": "xception"}
-        fwd = dict(
-            common, kernel="depthwise_fwd_cf", per_forward=mult, max_abs_err=y_err,
-            max_abs_ref=y_scale, ok=fwd_ok,
-            ms=cuda_ms(lambda: depthwise_cf(x, w)), route_ms=route_f,
-            plain_ms=cuda_ms(lambda: depthwise_conv_plain(x, w)),
-            library_ms=cuda_ms(lambda: F.conv2d(x, w, padding=1, groups=C)),
-            nhwc_kernel="depthwise_fwd_s1", nhwc_kernel_ms=k2_ms)
-        b_ms, b_by = bound((x.numel() * 2 + w.numel()) * 4, 2 * 9 * x.numel())
-        fwd.update(bound_ms=b_ms, bound_by=b_by)
-        lib = lambda: torch.ops.aten.convolution_backward(  # noqa: E731
-            gout, x, w, None, [1, 1], [1, 1], [1, 1], False, [0, 0], C, [True, True, False])
-        bwd = dict(
-            common, kernel="depthwise_bwd_cf", per_step=mult, max_abs_err=max(dx_err, dk_err),
-            dx_max_abs_err=dx_err, dx_max_abs_ref=dx_scale, dk_max_abs_err=dk_err,
-            dk_max_abs_ref=rdk.abs().max().item(), dk_bit_reproducible=same_bits,
-            ok=bwd_ok and same_bits,
-            ms=cuda_ms(lambda: depthwise_cf_backward(x, w, gout)), route_ms=route_b,
-            plain_ms=cuda_ms(lambda: depthwise_conv_backward_plain(x, w, gout)),
-            library_ms=cuda_ms(lib), nhwc_kernel="depthwise_bwd_s1", nhwc_kernel_ms=k4_ms,
-            nhwc_kernel_ok=k4_ok)
-        # x and g read once, dx written once; 9 multiply-adds per element
-        # for dx and again for dk
-        b_ms, b_by = bound((x.numel() * 3 + 2 * w.numel()) * 4, 4 * 9 * x.numel())
-        plan = _cf_bwd_plan(B, C, H, W, x.dtype, _ptr_align(x, gout))
-        bwd.update(bound_ms=b_ms, bound_by=b_by, plan={
-            "mode": plan.mode, "block": [plan.ncx, plan.nry], "r": plan.r,
-            "tile_rows": plan.th, "tiles": plan.tiles, "walk": plan.walk,
-            "groups": plan.groups, "grid": list(plan.grid), "smem": plan.smem})
-        for row in (fwd, bwd):
-            rows.append(row)
-            print(json.dumps({"site": row}))
-            if not row["ok"] or not row.get("nhwc_kernel_ok", True):
-                raise SystemExit(f"channels-first kernel (or K4 beside it) disagrees with plain at {row}")
-            _add_site(agg, row, mult)
-    # bfloat16 (not on the float32 paths) at the same sites, against the
-    # plain version in float64 on the same values; times beside cuDNN's in
-    # bfloat16 and the 16-bit byte bound
-    low = {}
-    for shape, (mod, mult) in distinct.items():
-        B, C, H, W = shape
-        x = torch.randn(shape, device="cuda", generator=g).bfloat16()
-        gout = torch.randn(shape, device="cuda", generator=g).bfloat16()
-        w = mod.weight.detach().bfloat16().float()
-        wr, wt = w.double(), w.bfloat16()
-        y = depthwise_cf(x, w)
-        dx, dk = depthwise_cf_backward(x, w, gout)
-        ref = depthwise_conv_plain(x.double(), wr)
-        rdx, rdk = depthwise_conv_backward_plain(x.double(), wr, gout.double())
-        _, dk_abs = depthwise_conv_backward_plain(x.double().abs(), wr, gout.double().abs())
-        y_err = (y.double() - ref).abs().max().item()
-        dx_err = (dx.double() - rdx).abs().max().item()
-        ok = (y_err <= 1e-2 * ref.abs().max().item() and dx_err <= 1e-2 * rdx.abs().max().item()
-              and bool(((dk.double() - rdk).abs() <= 1e-4 * dk_abs).all()))
-        del y, dx, dk, ref, rdx, rdk, dk_abs
-        common = {"shape_nchw": list(shape), "k": 3, "stride": 1, "dilation": [1, 1],
-                  "model": "xception_bfloat16", "dtype": "bfloat16", "ok": ok}
-        lib_b = lambda: torch.ops.aten.convolution_backward(  # noqa: E731
-            gout, x, wt, None, [1, 1], [1, 1], [1, 1], False, [0, 0], C, [True, True, False])
-        fwd = dict(common, kernel="depthwise_fwd_cf", per_forward=mult, max_abs_err=y_err,
-                   ms=cuda_ms(lambda: depthwise_cf(x, w)),
-                   plain_ms=cuda_ms(lambda: depthwise_conv_plain(x, w)),
-                   library_ms=cuda_ms(lambda: F.conv2d(x, wt, padding=1, groups=C)))
-        fwd.update(zip(("bound_ms", "bound_by"), bound(x.numel() * 2 * 2 + w.numel() * 4,
-                                                       2 * 9 * x.numel())))
-        bwd = dict(common, kernel="depthwise_bwd_cf", per_step=mult, max_abs_err=dx_err,
-                   ms=cuda_ms(lambda: depthwise_cf_backward(x, w, gout)),
-                   plain_ms=cuda_ms(lambda: depthwise_conv_backward_plain(x, wt, gout)),
-                   library_ms=cuda_ms(lib_b))
-        bwd.update(zip(("bound_ms", "bound_by"), bound(x.numel() * 3 * 2 + 2 * w.numel() * 4,
-                                                       4 * 9 * x.numel())))
-        for row in (fwd, bwd):
-            rows.append(row)
-            print(json.dumps({"site": row}))
-            if not ok:
-                raise SystemExit(f"bfloat16 channels-first depthwise disagrees with plain at {row}")
-            _add_site(low, row, mult)
+            fwd["nhwc_kernel_ms"] = cuda_ms(lambda: depthwise_conv(x_cl, w))
+            bwd["nhwc_kernel_ms"] = cuda_ms(lambda: depthwise_conv_backward(x_cl, w, g_cl))
+        fwd["nhwc_kernel"], bwd["nhwc_kernel"] = "depthwise_fwd_s1", "depthwise_bwd_s1"
+    return [fwd, bwd]
+
+
+def cf_site_rows_bf16(shape, mult: int, w, g) -> list:
+    """K6/K7 in bfloat16 (not on the float32 paths) at one site, against
+    the plain version in float64 on the same values (1e-2 of the largest
+    output); y the same bits in two runs; times beside cuDNN's in bfloat16
+    and the 16-bit byte bound.  Returns the (K6, K7) rows."""
+    import torch
+    import torch.nn.functional as F
+
+    from deeplabv3plus_keras_tpu_torch.kernels import (
+        depthwise_cf,
+        depthwise_cf_backward,
+        depthwise_conv_backward_plain,
+        depthwise_conv_plain,
+    )
+    from deeplabv3plus_keras_tpu_torch.kernels.depthwise import _cf_fwd_plan, _ptr_align
+
+    B, C, H, W = shape
+    x = torch.randn(shape, device="cuda", generator=g).bfloat16()
+    gout = torch.randn(shape, device="cuda", generator=g).bfloat16()
+    w = w.bfloat16().float()
+    wr, wt = w.double(), w.bfloat16()
+    y = depthwise_cf(x, w)
+    y2 = depthwise_cf(x, w)
+    dx, dk = depthwise_cf_backward(x, w, gout)
+    ref = depthwise_conv_plain(x.double(), wr)
+    rdx, rdk = depthwise_conv_backward_plain(x.double(), wr, gout.double())
+    _, dk_abs = depthwise_conv_backward_plain(x.double().abs(), wr, gout.double().abs())
+    y_err = (y.double() - ref).abs().max().item()
+    dx_err = (dx.double() - rdx).abs().max().item()
+    ok = (y_err <= 1e-2 * ref.abs().max().item() and dx_err <= 1e-2 * rdx.abs().max().item()
+          and bool(((dk.double() - rdk).abs() <= 1e-4 * dk_abs).all()) and torch.equal(y, y2))
+    del y, y2, dx, dk, ref, rdx, rdk, dk_abs
+    common = {"shape_nchw": list(shape), "k": 3, "stride": 1, "dilation": [1, 1],
+              "model": "xception_bfloat16", "dtype": "bfloat16", "ok": ok}
+    lib_b = lambda: torch.ops.aten.convolution_backward(  # noqa: E731
+        gout, x, wt, None, [1, 1], [1, 1], [1, 1], False, [0, 0], C, [True, True, False])
+    fwd = dict(common, kernel="depthwise_fwd_cf", per_forward=mult, max_abs_err=y_err,
+               ms=cuda_ms(lambda: depthwise_cf(x, w)),
+               plain_ms=cuda_ms(lambda: depthwise_conv_plain(x, w)),
+               library_ms=cuda_ms(lambda: F.conv2d(x, wt, padding=1, groups=C)))
+    fwd.update(zip(("bound_ms", "bound_by"), bound(x.numel() * 2 * 2 + w.numel() * 4,
+                                                   2 * 9 * x.numel())))
+    fwd["plan"] = plan_fields(_cf_fwd_plan(B, C, H, W, x.dtype, _ptr_align(x)))
+    bwd = dict(common, kernel="depthwise_bwd_cf", per_step=mult, max_abs_err=dx_err,
+               ms=cuda_ms(lambda: depthwise_cf_backward(x, w, gout)),
+               plain_ms=cuda_ms(lambda: depthwise_conv_backward_plain(x, wt, gout)),
+               library_ms=cuda_ms(lib_b))
+    bwd.update(zip(("bound_ms", "bound_by"), bound(x.numel() * 3 * 2 + 2 * w.numel() * 4,
+                                                   4 * 9 * x.numel())))
+    return [fwd, bwd]
+
+
+def check_cf(sites, g, rows):
+    """K6/K7 at each distinct k3 stride-1 undilated site of ``sites``: in
+    float32 by :func:`cf_site_rows` (beside the route and K2/K4), then in
+    bfloat16 by :func:`cf_site_rows_bf16`.  Returns per-kernel sums over
+    one pass (a forward for K6, a train step for K7), the bfloat16 sums
+    under ``"bfloat16"``."""
+    distinct = {}
+    for shape, stride, dil, mod in sites:
+        if (mod.weight.shape[-1], stride, tuple(dil)) == (3, 1, (1, 1)):
+            distinct.setdefault(shape, [mod, 0])[1] += 1
+    agg, low = {}, {}
+    for dtype, sums in (("float32", agg), ("bfloat16", low)):
+        for shape, (mod, mult) in distinct.items():
+            w = mod.weight.detach()
+            site = (cf_site_rows(shape, mult, w, g, alone=False) if dtype == "float32"
+                    else cf_site_rows_bf16(shape, mult, w, g))
+            for row in site:
+                rows.append(row)
+                print(json.dumps({"site": row}))
+                if not row["ok"] or not row.get("nhwc_kernel_ok", True):
+                    raise SystemExit(f"channels-first kernel (or K4 beside it) disagrees with plain at {row}")
+                _add_site(sums, row, mult)
     for name, sums in low.items():
         agg[name]["bfloat16"] = sums
     return agg
@@ -762,6 +819,11 @@ def profile_device(fn, path: Path, header: str, rows: int) -> dict:
             "top_kernels_ms": [[k[:60], v / 1e3] for k, v in top]}
 
 
+# "<prefix>segment" / "<prefix>train_step": a profiled call's device ms and
+# images/s with TF32 off, as run_serving and run_training measured them
+PATH_TIMES: dict[str, dict] = {}
+
+
 def run_serving(seg, kernels, card: str, batches, expect: dict, name: str) -> dict:
     """The serving path: ``segment()`` on each of ``batches`` with TF32 off;
     checks the labels and the launches of every call, then the labels of
@@ -808,6 +870,7 @@ def run_serving(seg, kernels, card: str, batches, expect: dict, name: str) -> di
                           f"{card}\n{name}, TF32 off, B={BATCH}, {SIZE}^2", 25)
     print(json.dumps({"model": name, "segment_device_ms": prof["device_ms"],
                       "top_kernels_ms": prof["top_kernels_ms"]}))
+    PATH_TIMES[f"{prefix}segment"] = {"device_ms": prof["device_ms"], "img_per_s": img_s}
 
     # one image against the same weights served on the CPU
     from deeplabv3plus_keras_tpu_torch import SemanticSegmentation
@@ -882,6 +945,7 @@ def run_training(seg, kernels, card: str, expect: dict, name: str,
                           f"{card}\n{name}, TF32 off, B={BATCH}, {SIZE}^2, one train_step", 30)
     print(json.dumps({"model": name, "train_step_device_ms": prof["device_ms"],
                       "top_kernels_ms": prof["top_kernels_ms"]}))
+    PATH_TIMES[f"{prefix}train_step"] = {"device_ms": prof["device_ms"], "img_per_s": BATCH / step_s}
     print(json.dumps({"train_step": {
         "model": name, "batch": BATCH, "image": SIZE, "dtype": "float32", "steps": TRAIN_STEPS,
         "losses": losses, "step_s_tf32_off": times, "median_step_s_2_on": step_s,
@@ -1121,6 +1185,22 @@ def cf_backward_summary(rows) -> dict:
                       "mode": r["plan"]["mode"], "groups": r["plan"]["groups"]})
     return {"ms": ms, "bound_ms": bnd, "library_ms": lib, "x_bound": ms / bnd, "x_library": ms / lib,
             "one_tile_ms": K7_ONE_TILE_STEP_MS, "x_one_tile": ms / K7_ONE_TILE_STEP_MS, "sites": sites}
+
+
+def cf_forward_summary(rows) -> dict:
+    """K6 summed over one Xception forward, float32 and bfloat16, against
+    the byte bound and cuDNN's grouped conv, with each site's plan and
+    ratios."""
+    out = {}
+    for dtype, model in (("float32", "xception"), ("bfloat16", "xception_bfloat16")):
+        cf = [r for r in rows if r["kernel"] == "depthwise_fwd_cf" and r["model"] == model]
+        ms, lib, bnd = (sum(r["per_forward"] * r[f] for r in cf) for f in ("ms", "library_ms", "bound_ms"))
+        sites = [{"shape_nchw": r["shape_nchw"], "per_forward": r["per_forward"], "ms": r["ms"],
+                  "bound_ms": r["bound_ms"], "library_ms": r["library_ms"], "x_bound": r["ms"] / r["bound_ms"],
+                  "route_ms": r.get("route_ms"), "plan": r["plan"]} for r in cf]
+        out[dtype] = {"ms": ms, "bound_ms": bnd, "library_ms": lib, "x_bound": ms / bnd, "x_library": ms / lib,
+                      "bound_share": bnd / ms, "sites": sites}
+    return out
 
 
 def stats_only_cell(model):
@@ -3245,6 +3325,41 @@ def run_fused_tail(kernels, card: str, state: dict) -> tuple[dict, dict]:
     return agg, by_path
 
 
+def run_xception_nhwc(kernels, card: str) -> dict:
+    """Xception's ``segment()`` and ``train_step()`` under ``nhwc`` (K2 at
+    its 33 undilated sites, K4 in training), with the checks and times of
+    the ``bhcw`` phase, from the same seed; then the ``xception_route``
+    line, the two layouts' device times and images/s side by side.
+    Returns the launches by path."""
+    import torch
+
+    from deeplabv3plus_keras_tpu_torch import SemanticSegmentation
+
+    t0 = time.perf_counter()
+    seg = SemanticSegmentation(xception_conf(), device="cuda")
+    batches = serving_batches()
+    first = torch.from_numpy(batches[0]).cuda()
+    calibrate_bn(seg.model, first)
+    sites = depthwise_sites(seg.model, first)
+    del first
+    prefix, stats_only = stats_only_cell(seg.model)
+    unreached = {n for n, _ in seg.model.named_parameters() if prefix and n.startswith(prefix)}
+    name = "xception_nhwc"
+    by_path = {f"{name}_segment": run_serving(seg, kernels, card, batches, depthwise_expect(sites), name)}
+    by_path[f"{name}_train_step"], _ = run_training(seg, kernels, card,
+                                                    depthwise_expect(sites, True, stats_only), name, unreached)
+    del seg
+    torch.cuda.empty_cache()
+    route = {layout: {path: PATH_TIMES[f"{key}{path}"] for path in ("segment", "train_step")}
+             for layout, key in (("bhcw", "xception_"), ("nhwc", f"{name}_"))}
+    route["nhwc_over_bhcw_device_ms"] = {
+        path: route["nhwc"][path]["device_ms"] / route["bhcw"][path]["device_ms"]
+        for path in ("segment", "train_step")}
+    print(json.dumps({"xception_route": route, "card": card}))
+    print(json.dumps({"model": name, "phase": "segment_train_step", "s": time.perf_counter() - t0}))
+    return by_path
+
+
 def import_port():
     """The port beside this script, or exit."""
     try:
@@ -3294,6 +3409,57 @@ def parity_tail_only() -> int:
     return 0
 
 
+def cf_only() -> int:
+    """``--cf``: build ``csrc/depthwise_cf.cu`` alone and run K6 and K7 at
+    Xception's eight sites (:data:`XCEPTION_CF_SITES`, taps from a seed)
+    in float32 and bfloat16: each against its plain version, timed beside
+    it, cuDNN and the byte bound; then the sums over a forward (K6) and a
+    train step (K7), TF32 off.  Run from another tree's copy of the port
+    beside this one, in one call, it times two versions of the kernels on
+    one card."""
+    import torch
+
+    import_port()
+    from deeplabv3plus_keras_tpu_torch.kernels import _build
+
+    OUT.mkdir(exist_ok=True)
+    card = gpu_line()
+    print(card)
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(2) as pool:
+        report = pool.submit(_build.ptxas_report, "depthwise_cf")
+        _build.load("depthwise_cf")
+        ptxas = PTXAS["depthwise_cf"] = report.result()
+    print(json.dumps({"kernel_build_s": time.perf_counter() - t0, "sources": ["depthwise_cf"]}))
+    print(json.dumps({"ptxas_depthwise_cf": ptxas}))
+    spilled = [r["kernel"] for r in ptxas if r.get("spill_stores") or r.get("spill_loads")]
+    if spilled or not ptxas:
+        raise SystemExit(f"depthwise_cf.cu: ptxas reports spills in {spilled} (or no kernels)")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device="cuda").manual_seed(0)
+    rows, sums = [], {}
+    for dtype in ("float32", "bfloat16"):
+        for shape, mult in XCEPTION_CF_SITES.items():
+            w = torch.randn(shape[1], 1, 3, 3, device="cuda", generator=g) * 0.3
+            site = (cf_site_rows(shape, mult, w, g, alone=True) if dtype == "float32"
+                    else cf_site_rows_bf16(shape, mult, w, g))
+            for row in site:
+                rows.append(row)
+                print(json.dumps({"site": row}))
+                if not row["ok"]:
+                    raise SystemExit(f"channels-first kernel disagrees with plain at {row}")
+                _add_site(sums.setdefault(dtype, {}), row, mult)
+    (OUT / "cf_sites.json").write_text(json.dumps({"card": card, "sites": rows}, indent=1))
+    print(json.dumps({"depthwise_cf_sums": {
+        dtype: {name: dict(a, x_bound=a["ms"] / a["bound_ms"], x_library=a["ms"] / a["library_ms"])
+                for name, a in by_kernel.items()} for dtype, by_kernel in sums.items()},
+        "per": {"depthwise_fwd_cf": "forward", "depthwise_bwd_cf": "train step"}, "card": card}))
+    print(card)
+    print(ok_line())
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -3303,8 +3469,10 @@ def main() -> int:
         return 2
     if sys.argv[1:] == ["--parity-tail"]:
         return parity_tail_only()
+    if sys.argv[1:] == ["--cf"]:
+        return cf_only()
     if sys.argv[1:]:
-        raise SystemExit(f"chip_smoke: unknown arguments {sys.argv[1:]}; none, or --parity-tail")
+        raise SystemExit(f"chip_smoke: unknown arguments {sys.argv[1:]}; none, --parity-tail or --cf")
 
     import_port()
     from deeplabv3plus_keras_tpu_torch import kernels
@@ -3358,6 +3526,9 @@ def main() -> int:
                               {"depthwise_fwd_cf": 33, "depthwise_fwd_s1": 3})
     agg.update(a)
     by_path.update(p)
+    # the same two paths under nhwc: K2/K4 at those 33 sites, no layout copies
+    with dw_layout("nhwc"):
+        by_path.update(run_xception_nhwc(kernels, card))
     # the flagship in bfloat16 and float16, remat, the device-resident
     # dataset and export, under nhwc
     with dw_layout("nhwc"):
@@ -3408,6 +3579,7 @@ def main() -> int:
     (OUT / "kernel_sites.json").write_text(json.dumps({"card": card, "sites": rows}, indent=1))
     print(json.dumps({"depthwise_forward_summary": forward_summary(rows), "card": card}))
     print(json.dumps({"depthwise_backward_summary": backward_summary(rows), "card": card}))
+    print(json.dumps({"depthwise_cf_forward_summary": cf_forward_summary(rows), "card": card}))
     print(json.dumps({"depthwise_cf_backward_summary": cf_backward_summary(rows), "card": card}))
     print(json.dumps({"depthwise_by_k": depthwise_by_k(rows, [
         *NEW_MODELS, *(f"{m}_bfloat16" for m in NEW_MODELS),

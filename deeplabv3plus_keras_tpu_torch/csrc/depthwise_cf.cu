@@ -4,52 +4,69 @@
 // backward (K7: the input gradient dx and the weight gradient dk).
 //
 // Replaces the Pallas TPU kernels _dw_fwd_padded
-// (deeplabv3plus_keras_tpu/kernels/depthwise3.py:105) and _dw_bwd_padded
-// (depthwise3.py:185), which the JAX package runs under
+// (deeplabv3plus_keras_tpu/kernels/depthwise3.py:105, body _fwd_kernel :66)
+// and _dw_bwd_padded (depthwise3.py:185), which the JAX package runs under
 // DLV3_DW_LAYOUT=bhcw on a (B, H, C, W) layout with W on the TPU's lanes.
 // The TPU DMA'd an H-halo slab per grid step and shifted it along the
 // lanes; dk lived in one output block carried across its sequential grid.
-// Here:
-//
-// - K6, the forward: one block per (32 x 32 output tile, channel, image):
-//   it loads the 34 x 34 halo tile of its plane into shared memory (zero
-//   outside the image, which is the padding), keeps the nine taps in
-//   registers, and each thread computes 4 rows of one column, sliding a
-//   3 x 3 window of registers down the column.  Every tap is bounds-checked
-//   by the tile load, so odd H and W (253, 127) work.  Bound: x read and y
-//   written once over the device memory rate; it reaches about half of it.
-// - K7, the backward (dx and dk), is laid out by kernels/depthwise.py
-//   _cf_bwd_plan.  A block owns one channel and walks `walk` tiles of the
-//   flattened (image, tile) index, as the TPU's sequential grid walked its
-//   (b, row) tiles.  A tile is whole rows: the whole plane at 32^2, half a
-//   plane at 64^2, 16 rows of the odd 127^2 and 253^2 planes.  While it
-//   computes on one tile's x and g windows in shared memory, the copies of
-//   the next tile are in flight (two buffers, cp.async), so a block's loads
-//   overlap its compute, and no block pays a launch, a tile load and a
-//   reduction for 12 KB.  Every copy is 16 bytes: each row into a padded
-//   shared row where W and the pointers allow (LOAD_VEC; a thread then
-//   computes a strip of 4 adjacent outputs, one 16-byte window read and
-//   one vector store a row), else the window's rows as the one contiguous
-//   run of the plane that they are (LOAD_FLAT, for W = 253 or 127, whose
-//   rows are not 16-byte aligned; neighbouring threads then take
-//   neighbouring columns and the halo is masked).  A
-//   thread slides a window of 3 rows in registers down its rows.  dx is the
-//   stencil over g with the taps reversed (the JAX _bwd_kernel's
-//   decomposition, depthwise3.py:151-160).  dk's nine sums stay in
-//   registers across the walk; the block adds them in a fixed order (a
-//   tree over the thread index) and writes dk[c], or, where the plan splits
-//   a channel's positions among `groups` blocks to fill the card evenly,
-//   one row of a (groups, 9, C) buffer that a second kernel adds in a fixed
-//   order.  No atomics, and the plan depends on the shape alone, so dk is
-//   the same bit for bit from run to run.
 //
 // Bound: memory.  The forward does 9 multiply-adds per output for 8 bytes
 // moved (float32), the backward 18 for 12: far below the card's
 // operations-per-byte balance.  The least time is x read and y written
-// (forward: 2 tensors), or x and g read and dx written (backward: 3), over
-// the device memory rate.  A tile's halo rows are read again by its
-// neighbour, mostly from L2.  Accumulation is float32 for float32,
-// bfloat16 and float16.
+// once (forward: 2 tensors), or x and g read and dx written (backward: 3),
+// over the device memory rate, 3.35 TB/s on the H100.  Accumulation is
+// float32 for float32, bfloat16 and float16.
+//
+// Both are laid out by a plan from the shape alone (kernels/depthwise.py
+// _cf_fwd_plan, _cf_bwd_plan), so the output is the same bit for bit from
+// run to run.  Both take a tile as whole rows and copy its window (the
+// tile and a one-row halo above and below) into shared memory by 16-byte
+// cp.async while the block computes on the previous tile (two buffers): a
+// block's loads overlap its compute, and no block pays a launch and a
+// barrier for a few KB.  Every copy is 16 bytes: each row into a padded
+// shared row where W and the pointers allow (LOAD_VEC; a thread then
+// computes a strip of 16 bytes of adjacent outputs, one 16-byte window read
+// and one vector store a row), else the window's rows as the one contiguous
+// run of the plane that they are (LOAD_FLAT, for W = 253 or 127, whose rows
+// are not 16-byte aligned, or a misaligned view; the halo is masked).  A
+// chunk that crosses either end of the tensor is copied element by
+// element, so nothing outside the tensor is read.  A thread slides a window
+// of 3 rows in registers down its rows.
+//
+// - K6, the forward.  The B * C planes are one tall image of B * C * H
+//   rows in memory, so a tile of whole rows is one contiguous run.  On
+//   small planes (eight 32^2 planes, two 64^2 ones) a tile is several
+//   whole consecutive planes of the flattened (b, c) index, one window
+//   copy for all of them; the rows of a neighbouring plane above and below
+//   each plane are masked to zero, and each strip of rows (within one
+//   plane) takes its channel's taps, rounded to the dtype as the plain
+//   conv's weight is.  Larger planes are cut into tiles of whole rows.  A
+//   block walks `walk` consecutive tiles (about 64 KB of input in LOAD_VEC
+//   mode, 2 tiles in LOAD_FLAT), leaving at least two blocks for each of
+//   the 132 SMs.  The one-block-a-32x32-tile design it replaces loaded
+//   element by element (a division and four bounds checks an element, the
+//   same instructions for 2-byte elements as for 4), stored 128 bytes a
+//   warp, re-read 13 % of the bytes through its 34 x 34 halo tiles,
+//   started every tile row unaligned on the odd planes, and overlapped
+//   nothing inside a block.  Here 16-bit tensors move half
+//   the bytes with the same copies.  Outputs leave by 16-byte stores: in
+//   LOAD_VEC mode one a strip row; in LOAD_FLAT mode a tile's output is one
+//   contiguous run of y, which the threads compute by columns as K7 does
+//   into a shared copy of the run that is then copied out 16 bytes at a
+//   time, ragged ends element by element.  (Each thread computing and
+//   storing its own 16-byte chunks of the run took 1.4-2.2x that time on
+//   the H100.)
+// - K7, the backward.  A block owns one channel and walks `walk` tiles of
+//   the flattened (image, tile) index, as the TPU's sequential grid walked
+//   its (b, row) tiles: the whole plane at 32^2, half a plane at 64^2, 16
+//   rows of the odd 127^2 and 253^2 planes.  dx is the stencil over g with
+//   the taps reversed (the JAX _bwd_kernel's decomposition,
+//   depthwise3.py:151-160).  dk's nine sums stay in registers across the
+//   walk; the block adds them in a fixed order (a tree over the thread
+//   index) and writes dk[c], or, where the plan splits a channel's
+//   positions among `groups` blocks to fill the card evenly, one row of a
+//   (groups, 9, C) buffer that a second kernel adds in a fixed order.  No
+//   atomics.
 //
 // C interface: dw_cf_fwd(...) and dw_cf_bwd(...) return cudaGetLastError()
 // after their launches.
@@ -63,13 +80,6 @@
 
 namespace {
 
-constexpr int TW = 32;       // tile columns = threadIdx.x
-constexpr int TY = 8;        // threadIdx.y
-constexpr int R = 4;         // output rows per thread
-constexpr int TH = TY * R;   // tile rows
-constexpr int SW = TW + 2;   // shared tile: one halo column on each side
-constexpr int SH = TH + 2;   // and one halo row above and below
-constexpr int THREADS = TW * TY;
 constexpr int DK_CH = 32;    // channels of a dk_final block (threadIdx.x)
 constexpr int DK_LANES = 8;  // partial lanes of a dk_final block (threadIdx.y)
 
@@ -94,84 +104,6 @@ __device__ __forceinline__ uint32_t pack2(float a, float b, __nv_bfloat16) {
 __device__ __forceinline__ uint32_t pack2(float a, float b, __half) {
     const __half2 h = __floats2half2_rn(a, b);
     return *reinterpret_cast<const uint32_t*>(&h);
-}
-
-// The halo tile of one plane whose first output is (h0, w0): s[r][j] =
-// plane[h0 + r - 1][w0 + j - 1], zero outside the image.
-template <typename T>
-__device__ __forceinline__ void load_tile(float (*s)[SW], const T* __restrict__ plane,
-                                          int H, int W, int h0, int w0) {
-    const int tid = threadIdx.y * TW + threadIdx.x;
-    for (int i = tid; i < SH * SW; i += THREADS) {
-        const int r = i / SW;
-        const int j = i - r * SW;
-        const int h = h0 + r - 1;
-        const int w = w0 + j - 1;
-        s[r][j] = (h >= 0 && h < H && w >= 0 && w < W) ? to_f(plane[(size_t)h * W + w]) : 0.f;
-    }
-}
-
-// out[i] = sum over (dy, dx) of s[r0 + i + dy][tx + dx] * k[dy * 3 + dx]
-// (or k[8 - that] with REV: the taps reversed, for dx), r0 = 4 * threadIdx.y.
-template <bool REV>
-__device__ __forceinline__ void stencil(const float (*s)[SW], const float* k, float* out) {
-    const int tx = threadIdx.x;
-    const int r0 = threadIdx.y * R;
-    float kk[9];
-#pragma unroll
-    for (int t = 0; t < 9; ++t) kk[t] = k[REV ? 8 - t : t];
-    float a0 = s[r0][tx], a1 = s[r0][tx + 1], a2 = s[r0][tx + 2];
-    float b0 = s[r0 + 1][tx], b1 = s[r0 + 1][tx + 1], b2 = s[r0 + 1][tx + 2];
-#pragma unroll
-    for (int i = 0; i < R; ++i) {
-        const float c0 = s[r0 + i + 2][tx], c1 = s[r0 + i + 2][tx + 1], c2 = s[r0 + i + 2][tx + 2];
-        float acc = 0.f;
-        acc = fmaf(a0, kk[0], acc);
-        acc = fmaf(a1, kk[1], acc);
-        acc = fmaf(a2, kk[2], acc);
-        acc = fmaf(b0, kk[3], acc);
-        acc = fmaf(b1, kk[4], acc);
-        acc = fmaf(b2, kk[5], acc);
-        acc = fmaf(c0, kk[6], acc);
-        acc = fmaf(c1, kk[7], acc);
-        acc = fmaf(c2, kk[8], acc);
-        out[i] = acc;
-        a0 = b0; a1 = b1; a2 = b2;
-        b0 = c0; b1 = c1; b2 = c2;
-    }
-}
-
-template <typename T>
-__device__ __forceinline__ void store_tile(T* __restrict__ plane, const float* out,
-                                           int H, int W, int h0, int w0) {
-    const int w = w0 + threadIdx.x;
-    if (w >= W) return;
-#pragma unroll
-    for (int i = 0; i < R; ++i) {
-        const int h = h0 + threadIdx.y * R + i;
-        if (h < H) store(plane + (size_t)h * W + w, out[i]);
-    }
-}
-
-// grid: (tiles of the plane, C, B); block (TW, TY).
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-dw_cf_fwd_kernel(const T* __restrict__ x, const float* __restrict__ taps,
-                 T* __restrict__ y, int C, int H, int W, int tiles_w) {
-    __shared__ float s[SH][SW];
-    const int c = blockIdx.y;
-    const int b = blockIdx.z;
-    const int h0 = (blockIdx.x / tiles_w) * TH;
-    const int w0 = (blockIdx.x % tiles_w) * TW;
-    const size_t plane = ((size_t)b * C + c) * H * W;
-    load_tile(s, x + plane, H, W, h0, w0);
-    float k[9];
-#pragma unroll
-    for (int t = 0; t < 9; ++t) k[t] = taps[t * C + c];
-    __syncthreads();
-    float out[R];
-    stencil<false>(s, k, out);
-    store_tile(y + plane, out, H, W, h0, w0);
 }
 
 // ---- K7: the backward, as kernels/depthwise.py _cf_bwd_plan lays it out ----
@@ -529,33 +461,312 @@ __global__ void dw_cf_dk_final(const float* __restrict__ partial, float* __restr
     }
 }
 
+// ---- K6: the forward, as kernels/depthwise.py _cf_fwd_plan lays it out ----
+
+// How a tile's outputs reach y.  LOAD_VEC: thread (tx, ty) computes the
+// strip of columns V tx .. V tx + V - 1 (V = 16 bytes of elements) of its
+// rows, one 16-byte window read and one 16-byte store a row.  LOAD_FLAT:
+// thread tx computes columns tx, tx + ncx, ... of its rows, as K7 does,
+// into a shared copy of the tile's output run, which the block then copies
+// out 16 bytes at a time.
+
+struct CfFwdGeom {
+    CfGeom g;    // the window loaders' view: the B * C planes as one image of g.H = B * C * H rows,
+                 // tiles of g.th rows, g.positions tiles in all, g.walk a block
+    int H;       // rows of a plane
+    int planes;  // whole planes a tile (g.th = planes * H), or 1: g.tiles tiles of g.th rows a plane
+};
+
+// Columns j0 - 1 .. j0 + V of a window row into v, p pointing at column j0
+// (16-byte aligned: one vector load and two element loads).
+template <typename T, int N>
+__device__ __forceinline__ void read_strip(const T* p, float (&v)[N]) {
+    constexpr int V = 16 / (int)sizeof(T);
+    static_assert(N == V + 2, "a strip is 16 bytes and one column on each side");
+    if constexpr (sizeof(T) == 4) {
+        const float4 f = *reinterpret_cast<const float4*>(p);
+        v[1] = f.x; v[2] = f.y; v[3] = f.z; v[4] = f.w;
+    } else {
+        const uint4 u = *reinterpret_cast<const uint4*>(p);
+        const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+            const float2 f = unpack2(w[e], T{});
+            v[1 + 2 * e] = f.x;
+            v[2 + 2 * e] = f.y;
+        }
+    }
+    v[0] = to_f(p[-1]);
+    v[V + 1] = to_f(p[V]);
+}
+
+// 16 bytes of outputs at p (16-byte aligned): one vector store.
+template <typename T, int N>
+__device__ __forceinline__ void store_strip(T* p, const float (&o)[N]) {
+    static_assert(N == 16 / sizeof(T), "a strip is 16 bytes");
+    if constexpr (sizeof(T) == 4) {
+        *reinterpret_cast<float4*>(p) = make_float4(o[0], o[1], o[2], o[3]);
+    } else {
+        *reinterpret_cast<uint4*>(p) = make_uint4(pack2(o[0], o[1], T{}), pack2(o[2], o[3], T{}),
+                                                  pack2(o[4], o[5], T{}), pack2(o[6], o[7], T{}));
+    }
+}
+
+// v rounded to T's precision, as a float.
+template <typename T>
+__device__ __forceinline__ float round_to(float v) {
+    if constexpr (sizeof(T) == 4) return v;
+    else if constexpr (std::is_same<T, __nv_bfloat16>::value) return __bfloat162float(__float2bfloat16(v));
+    else return __half2float(__float2half(v));
+}
+
+// A row outside the output's plane is zero (a select: the masked values
+// may be another plane's, or bytes no copy wrote).
+template <int N>
+__device__ __forceinline__ void zero_if(bool z, float (&v)[N]) {
+#pragma unroll
+    for (int e = 0; e < N; ++e) v[e] = z ? 0.f : v[e];
+}
+
+// o[e] = the 3 x 3 stencil at column e + 1 of rows a (above), b and c
+// (below), taps in order t = 3 dy + dx, accumulated in float32.
+template <int N>
+__device__ __forceinline__ void stencil_rows(const float (&a)[N], const float (&b)[N], const float (&c)[N],
+                                             const float (&k)[9], float (&o)[N - 2]) {
+#pragma unroll
+    for (int e = 0; e < N - 2; ++e) {
+        float s = 0.f;
+#pragma unroll
+        for (int d = 0; d < 3; ++d) s = fmaf(a[e + d], k[d], s);
+#pragma unroll
+        for (int d = 0; d < 3; ++d) s = fmaf(b[e + d], k[3 + d], s);
+#pragma unroll
+        for (int d = 0; d < 3; ++d) s = fmaf(c[e + d], k[6 + d], s);
+        o[e] = s;
+    }
+}
+
+// LOAD_VEC: thread (tx, ty)'s strip over rows q0 .. q0 + nr - 1 of the
+// tile whose first row is image row T0; h0 is row q0's row in its plane.
+// Window row k (image row T0 - 1 + k) sits at s + k * stride + V.
+template <typename T>
+__device__ __forceinline__ void fwd_strip_vec(const T* s, T* __restrict__ y, const CfFwdGeom& geo, int T0,
+                                              int q0, int nr, int h0, const float (&k)[9]) {
+    constexpr int V = 16 / (int)sizeof(T);
+    const int W = geo.g.W, S = geo.g.stride;
+    const int j0 = V * threadIdx.x;
+    const T* sp = s + V + j0 + q0 * S;  // the row above row q0, column j0
+    T* yp = y + (size_t)(T0 + q0) * W + j0;
+    float a[V + 2], b[V + 2], c[V + 2], o[V];
+    read_strip(sp, a);
+    zero_if(h0 == 0, a);
+    read_strip(sp + S, b);
+    for (int rr = 0; rr < nr; ++rr) {
+        read_strip(sp + (rr + 2) * S, c);
+        zero_if(h0 + rr + 1 == geo.H, c);
+        stencil_rows(a, b, c, k, o);
+        store_strip(yp + (size_t)rr * W, o);
+        shift_rows(a, b, c);
+    }
+}
+
+// LOAD_FLAT: thread tx's columns over rows q0 .. q0 + nr - 1, from the
+// window sp (element (kk, j) at sp[kk * W + j]) into the shared
+// run op (tile output (q, j) at op[q * W + j]).
+template <typename T>
+__device__ __forceinline__ void fwd_cols_flat(const T* sp, T* op, const CfFwdGeom& geo, int q0, int nr, int h0,
+                                              const float (&k)[9]) {
+    const int W = geo.g.W;
+    for (int j = threadIdx.x; j < W; j += blockDim.x) {
+        const bool cl = j > 0, cr = j + 1 < W;
+        float a[3], b[3], c[3], o[1];
+        read3(sp + q0 * W + j, h0 > 0, cl, cr, a);
+        read3(sp + (q0 + 1) * W + j, true, cl, cr, b);
+        for (int rr = 0; rr < nr; ++rr) {
+            read3(sp + (q0 + rr + 2) * W + j, h0 + rr + 1 < geo.H, cl, cr, c);
+            stencil_rows(a, b, c, k, o);
+            store(op + (q0 + rr) * W + j, o[0]);
+            shift_rows(a, b, c);
+        }
+    }
+}
+
+// LOAD_FLAT: the n outputs from yt, out of the shared run ob (whose
+// byte 0 stands for the address yt & ~15) by 16-byte chunks, a chunk that
+// holds bytes outside the run element by element (they are a
+// neighbouring tile's, or outside the tensor).
+template <typename T>
+__device__ __forceinline__ void copy_out(const T* ob, T* yt, int n, int tid, int nthreads) {
+    using U = typename std::conditional<sizeof(T) == 4, uint32_t, uint16_t>::type;
+    const uintptr_t ys = (uintptr_t)yt, ye = ys + (uintptr_t)n * sizeof(T), a = ys & ~(uintptr_t)15;
+    const unsigned char* src = reinterpret_cast<const unsigned char*>(ob);
+    const int chunks = (int)((ye - a + 15) >> 4);
+    for (int i = tid; i < chunks; i += nthreads) {
+        const uintptr_t d = a + 16 * (uintptr_t)i;
+        if (d >= ys && d + 16 <= ye) {
+            *reinterpret_cast<uint4*>(d) = *reinterpret_cast<const uint4*>(src + 16 * i);
+        } else {
+            for (int b = 0; b < 16; b += (int)sizeof(T))
+                if (d + b >= ys && d + b + sizeof(T) <= ye)
+                    *reinterpret_cast<U*>(d + b) = *reinterpret_cast<const U*>(src + 16 * i + b);
+        }
+    }
+}
+
+// grid: (ceil(positions / walk)); block (ncx, nry).  Block b walks tiles
+// b * walk ... of the flattened tile index (planes whole planes a tile, or
+// tiles a plane) through STAGES windows: the next tile's copies are in
+// flight while it computes on the current one.  Each thread's rows of a
+// tile lie in one plane, whose channel's taps it loads while the window
+// lands.
+template <typename T, int MODE>
+__global__ void __launch_bounds__(256, 3)
+dw_cf_fwd_kernel(const T* __restrict__ x, const float* __restrict__ taps, T* __restrict__ y, const CfFwdGeom geo) {
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    T* sm = reinterpret_cast<T*>(smem_raw);
+    constexpr int PAD = 16 / (int)sizeof(T);
+    const CfGeom& g = geo.g;
+    const int n0 = blockIdx.x * g.walk;
+    const int n1 = min(n0 + g.walk, g.positions);
+    const int nthreads = blockDim.x * blockDim.y;
+    const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+    if constexpr (MODE == LOAD_VEC) {
+        // the pad columns before each window row and after the last, which
+        // no copy writes: th + 3 chunks of 16 bytes a window
+        const int pads = g.th + 3;
+        for (int i = tid; i < STAGES * pads; i += nthreads) {
+            const int st = i / pads;
+            *reinterpret_cast<uint4*>(sm + st * g.buf + (i - st * pads) * g.stride) = make_uint4(0, 0, 0, 0);
+        }
+        __syncthreads();
+    }
+    const size_t total = (size_t)g.H * g.W;  // the tensor's ends, which a LOAD_FLAT chunk may cross
+    // image row (of the B * C * H) that starts tile n, and the tile's rows
+    auto locate = [&](int n, int& T0, int& rows) {
+        if (geo.planes > 1) {
+            T0 = n * g.th;
+            rows = min(g.th, g.H - T0);
+        } else {
+            const int p = n / g.tiles;
+            const int t = n - p * g.tiles;
+            T0 = p * geo.H + t * g.th;
+            rows = min(g.th, geo.H - t * g.th);
+        }
+    };
+    auto issue = [&](int n, int stage) {
+        int T0, rows;
+        locate(n, T0, rows);
+        T* s = sm + stage * g.buf;
+        if constexpr (MODE == LOAD_VEC) load_window_vec<T>(s, x, g, T0);
+        else load_window_flat<T>(s, x, g, T0, (uintptr_t)x, (uintptr_t)(x + total), tid, nthreads);
+    };
+    // one commit group a tile, in walk order (empty past the walk's end);
+    // tile n0 + i sits in slot i % STAGES
+    issue(n0, 0);
+    cp_async_commit();
+
+    const int q0 = threadIdx.y * g.r;  // this thread's first row of a tile
+    for (int n = n0; n < n1; ++n) {
+        const int i = n - n0;
+        const int stage = i % STAGES;
+        // the slot of tile n - 1, which every thread has finished with
+        if (n + 1 < n1) issue(n + 1, (i + 1) % STAGES);
+        cp_async_commit();
+        int T0, rows;
+        locate(n, T0, rows);
+        const int nr = min(g.r, rows - q0);
+        const int R0 = T0 + (nr <= 0 ? 0 : q0);
+        const int pl = R0 / geo.H;
+        const int h0 = R0 - pl * geo.H;
+        const int ch = pl % g.C;
+        float k[9];  // rounded to T, as the plain conv sees them
+#pragma unroll
+        for (int t = 0; t < 9; ++t) k[t] = round_to<T>(__ldg(taps + (size_t)t * g.C + ch));
+        cp_async_wait_all_but_newest();  // tile n + 1 may fly: tile n has landed
+        __syncthreads();
+        const T* s = sm + stage * g.buf;
+        if constexpr (MODE == LOAD_VEC) {
+            if (PAD * (int)threadIdx.x < g.W && nr > 0) fwd_strip_vec<T>(s, y, geo, T0, q0, nr, h0, k);
+        } else {
+            const T* sp = s + PAD + (int)(flat_first(x, T0, g.W) & 15) / (int)sizeof(T);
+            T* yt = y + (size_t)T0 * g.W;
+            T* ob = sm + STAGES * g.buf;
+            if (nr > 0)
+                fwd_cols_flat<T>(sp, ob + (int)((uintptr_t)yt & 15) / (int)sizeof(T), geo, q0, nr, h0, k);
+            __syncthreads();
+            copy_out<T>(ob, yt, rows * g.W, tid, nthreads);
+        }
+        __syncthreads();  // before a later copy overwrites this slot (and, flat, the run)
+    }
+}
+
 bool bad_shape(int dtype, int B, int C, int H, int W) {
     if (dtype < 0 || dtype > 2) return true;
     if (B < 1 || C < 1 || H < 1 || W < 1 || B > 65535 || C > 65535) return true;
-    const long long tiles = (long long)((H + TH - 1) / TH) * ((W + TW - 1) / TW);
-    return tiles > 0x7fffffffLL;
+    return (long long)B * C * H * W >= 0x80000000LL;  // 32-bit row and element indices
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16, 2 = float16.  x, y (B, C, H, W) NCHW-contiguous;
-// taps (9, C) float32, tap t = 3 * dy + dx.
-extern "C" int dw_cf_fwd(const void* x, const void* taps, void* y, int dtype,
-                         int B, int C, int H, int W, void* stream) {
-    if (bad_shape(dtype, B, C, H, W)) return (int)cudaErrorInvalidValue;
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16.  x, y (B, C, H, W)
+// NCHW-contiguous; taps (9, C) float32, tap t = 3 * dy + dx, which the
+// kernel rounds to the dtype (the plain conv's weight).  The rest is
+// the plan of kernels/depthwise.py _cf_fwd_plan: mode (LOAD_VEC,
+// LOAD_FLAT), block (ncx, nry), r rows a thread, tiles of th = nry * r
+// rows (planes whole planes, or tiles a plane), walk tiles a block, smem
+// bytes.
+extern "C" int dw_cf_fwd(const void* x, const void* taps, void* y, int dtype, int B, int C, int H, int W,
+                         int mode, int ncx, int nry, int r, int planes, int tiles, int walk, int smem,
+                         void* stream) {
+    if (bad_shape(dtype, B, C, H, W) || !x || !taps || !y) return (int)cudaErrorInvalidValue;
+    if ((mode != LOAD_VEC && mode != LOAD_FLAT) || ncx < 1 || ncx > 256 || nry < 1 || nry > 256 || r < 1
+        || ncx * nry > 256 || planes < 1 || tiles < 1 || walk < 1)
+        return (int)cudaErrorInvalidValue;
+    const int isz = dtype == 0 ? 4 : 2, pad = 16 / isz;
+    if (mode == LOAD_VEC && ((W * isz) % 16 || ((uintptr_t)x | (uintptr_t)y) % 16))
+        return (int)cudaErrorMisalignedAddress;
+    const long long N = (long long)B * C, th = (long long)nry * r;
+    const long long positions = planes > 1 ? (N + planes - 1) / planes : N * tiles;
+    const bool covers = planes > 1 ? mode == LOAD_VEC && th == (long long)planes * H && H % r == 0 && tiles == 1
+                                   : (long long)tiles * th >= H && (long long)(tiles - 1) * th < H;
+    if (!covers || (mode == LOAD_VEC && (long long)ncx * pad < W) || th > N * H
+        || positions > 0x7fffffffLL || (positions + walk - 1) / walk > 0x7fffffffLL)
+        return (int)cudaErrorInvalidValue;
+    CfFwdGeom geo;
+    CfGeom& g = geo.g;
+    g.C = C; g.H = (int)(N * H); g.W = W;
+    g.th = (int)th; g.r = r;
+    g.stride = W + pad;
+    g.buf = mode == LOAD_VEC ? (g.th + 2) * g.stride + pad : ((g.th + 2) * W + 3 * pad + pad - 1) / pad * pad;
+    g.tiles = tiles;
+    g.walk = walk; g.positions = (int)positions;
+    g.np2 = 0;
+    geo.H = H;
+    geo.planes = planes;
+    const long long out = mode == LOAD_FLAT ? (th * W + 2 * pad - 1) / pad * pad : 0;
+    const long long need = ((long long)STAGES * g.buf + out) * isz;
+    if ((long long)smem < need || smem > 227 * 1024) return (int)cudaErrorInvalidValue;
     cudaStream_t st = (cudaStream_t)stream;
-    const int tiles_w = (W + TW - 1) / TW;
-    const int tiles = ((H + TH - 1) / TH) * tiles_w;
-    const dim3 grid(tiles, C, B), block(TW, TY);
-    if (dtype == 0)
-        dw_cf_fwd_kernel<float><<<grid, block, 0, st>>>(
-            (const float*)x, (const float*)taps, (float*)y, C, H, W, tiles_w);
-    else if (dtype == 1)
-        dw_cf_fwd_kernel<__nv_bfloat16><<<grid, block, 0, st>>>(
-            (const __nv_bfloat16*)x, (const float*)taps, (__nv_bfloat16*)y, C, H, W, tiles_w);
-    else
-        dw_cf_fwd_kernel<__half><<<grid, block, 0, st>>>(
-            (const __half*)x, (const float*)taps, (__half*)y, C, H, W, tiles_w);
+    const dim3 grid((unsigned)((positions + walk - 1) / walk)), block(ncx, nry);
+#define CF_FWD_LAUNCH(T, S)                                                                                 \
+    do {                                                                                                    \
+        if (smem > 48 * 1024) {                                                                             \
+            const cudaError_t e = cudaFuncSetAttribute(dw_cf_fwd_kernel<T, S>,                              \
+                                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);  \
+            if (e != cudaSuccess) return (int)e;                                                            \
+        }                                                                                                   \
+        dw_cf_fwd_kernel<T, S><<<grid, block, smem, st>>>((const T*)x, (const float*)taps, (T*)y, geo);     \
+    } while (0)
+#define CF_FWD_MODES(T)                                                   \
+    do {                                                                  \
+        if (mode == LOAD_VEC) CF_FWD_LAUNCH(T, LOAD_VEC);                 \
+        else CF_FWD_LAUNCH(T, LOAD_FLAT);                                 \
+    } while (0)
+    if (dtype == 0) CF_FWD_MODES(float);
+    else if (dtype == 1) CF_FWD_MODES(__nv_bfloat16);
+    else CF_FWD_MODES(__half);
+#undef CF_FWD_MODES
+#undef CF_FWD_LAUNCH
     return (int)cudaGetLastError();
 }
 

@@ -44,10 +44,11 @@ The channels-first route (port of ``depthwise3.py:465-521`` and
 ``_to_bhcw_padded`` :216): with ``DLV3_DW_LAYOUT=bhcw``, read on every call
 as the JAX package reads it at trace time, a site with k = 3, stride 1 and
 dilation (1, 1) makes x NCHW-contiguous, runs ``csrc/depthwise_cf.cu``
-(K6 forward, ``_dw_fwd_padded`` :105; K7 backward, ``_dw_bwd_padded``
-:185, laid out by :func:`_cf_bwd_plan`, emulated on the CPU by
-:func:`depthwise_cf_backward_emulation`) on it, and returns the result to
-``channels_last`` memory.  Every
+(K6 forward, ``_dw_fwd_padded`` :105, laid out by :func:`_cf_fwd_plan`,
+emulated on the CPU by :func:`depthwise_cf_forward_emulation`; K7
+backward, ``_dw_bwd_padded`` :185, laid out by :func:`_cf_bwd_plan`,
+emulated by :func:`depthwise_cf_backward_emulation`) on it, and returns
+the result to ``channels_last`` memory.  Every
 other site, and every site under ``nhwc`` (the default), keeps the NHWC
 kernels.  :func:`depthwise_route` names the route a site takes.
 """
@@ -747,22 +748,236 @@ def _check_cf(x: torch.Tensor, weight: torch.Tensor) -> None:
         raise ValueError(f"depthwise_cf: shape {tuple(x.shape)} too large for the kernel's grid")
 
 
+# K6's plan constants, each the best, or within the spread of the best,
+# of the rows a thread and walks timed at Xception's sites on an H100
+# (PERF.md §6)
+_CF_FWD_THREADS = 256     # threads a block at most
+_CF_FWD_VEC_ELEMS = 32    # outputs a vec thread computes a tile: 8 rows of 4 float32, 4 of 8 16-bit
+_CF_FWD_FLAT_BYTES = 64   # bytes of a flat thread's column a tile: 16 float32 rows, 32 16-bit
+_CF_FWD_VEC_WALK_BYTES = 65536  # input bytes a vec block walks
+_CF_FWD_FLAT_WALK = 2     # tiles a flat block walks
+_CF_FWD_WALK = 8          # most tiles a block walks
+_SMS = 132                # the H100's streaming multiprocessors
+
+
+@dataclasses.dataclass(frozen=True)
+class CfFwdPlan:
+    """How ``csrc/depthwise_cf.cu`` ``dw_cf_fwd`` (K6) computes one call.
+
+    The B·C planes are one image of B·C·H rows in memory.  A tile is ``th``
+    whole rows of it: ``planes`` whole planes (``th`` = planes·H), or with
+    ``planes`` 1, ``tiles`` tiles of one plane.  ``mode`` says how a window
+    (the tile and one row above and below) reaches shared memory: ``vec``
+    (each row by 16-byte copies into a padded row) or ``flat`` (the window's
+    rows as the one contiguous run they are, whatever W and the alignment),
+    and how outputs leave: ``vec``, thread (tx, ty) computes the 16-byte
+    strip at column V·tx of rows ty·r … ty·r + r − 1, one vector store a
+    row; ``flat``, thread tx computes columns tx, tx + ncx, … into a shared
+    copy of the tile's output run, copied out by 16-byte chunks.  A block of
+    ``ncx`` × ``nry`` threads walks ``walk`` consecutive tiles, the next
+    tile's window copied while it computes on the current one."""
+
+    mode: str
+    ncx: int
+    nry: int
+    r: int
+    planes: int
+    tiles: int
+    walk: int
+    smem: int
+    batch: int
+    channels: int
+    height: int
+
+    @property
+    def th(self) -> int:
+        return self.nry * self.r
+
+    @property
+    def threads(self) -> int:
+        return self.ncx * self.nry
+
+    @property
+    def positions(self) -> int:
+        n = self.batch * self.channels
+        return -(-n // self.planes) if self.planes > 1 else n * self.tiles
+
+    @property
+    def grid(self) -> tuple[int]:
+        return (-(-self.positions // self.walk),)
+
+    def tile(self, n: int) -> tuple[int, int]:
+        """(first row of the B·C·H, rows) of tile n."""
+        H = self.height
+        if self.planes > 1:
+            t0 = n * self.th
+            return t0, min(self.th, self.batch * self.channels * H - t0)
+        p, t = divmod(n, self.tiles)
+        return p * H + t * self.th, min(self.th, H - t * self.th)
+
+    def blocks(self):
+        """(block, [(first row, rows), ...] of its walk), in the kernel's
+        order."""
+        for blk in range(self.grid[0]):
+            yield blk, [self.tile(n) for n in range(blk * self.walk,
+                                                     min((blk + 1) * self.walk, self.positions))]
+
+
+def _cf_fwd_smem(mode: str, W: int, th: int, itemsize: int) -> int:
+    """``dw_cf_fwd``'s shared bytes: two windows, and for ``flat`` the
+    tile's output run with a 16-byte chunk of slack."""
+    pad = 16 // itemsize
+    if mode == "vec":  # the next row's pad columns are a row's right halo
+        buf = (th + 2) * (W + pad) + pad
+    else:  # a 16-byte chunk of slack on each side of the run, 16-byte aligned
+        buf = -(-((th + 2) * W + 3 * pad) // pad) * pad
+    out = (th * W + 2 * pad - 1) // pad * pad if mode == "flat" else 0
+    return (_CF_STAGES * buf + out) * itemsize
+
+
+def _cf_fwd_make(mode: str, B: int, C: int, H: int, W: int, itemsize: int, ncx: int,
+                 nry: int, r: int, planes: int) -> CfFwdPlan | None:
+    """The plan of that block and tile, a ``vec`` block walking
+    ``_CF_FWD_VEC_WALK_BYTES`` of input (at most ``_CF_FWD_WALK`` tiles), a
+    ``flat`` one ``_CF_FWD_FLAT_WALK`` tiles, fewer where the grid would
+    keep less than two blocks for each of the 132 SMs; None where its
+    shared memory passes the H100's 227 KB a block."""
+    th = nry * r
+    tiles = 1 if planes > 1 else -(-H // th)
+    smem = _cf_fwd_smem(mode, W, th, itemsize)
+    if smem > 227 * 1024:
+        return None
+    plan = CfFwdPlan(mode, ncx, nry, r, planes, tiles, 1, smem, B, C, H)
+    walk = (_CF_FWD_VEC_WALK_BYTES // (min(th, H * planes) * W * itemsize) if mode == "vec"
+            else _CF_FWD_FLAT_WALK)
+    walk = min(_CF_FWD_WALK, walk, plan.positions // (2 * _SMS))
+    return dataclasses.replace(plan, walk=max(1, walk))
+
+
+@functools.lru_cache(maxsize=512)
+def _cf_fwd_plan(B: int, C: int, H: int, W: int, dtype: torch.dtype, ptr_align: int) -> CfFwdPlan:
+    """K6's plan for one call, from the shape alone.
+
+    - Mode: ``vec`` where W is a multiple of 16 bytes, x and y are 16-byte
+      aligned (``ptr_align``) and a row fits one block's strips (W ≤ 256
+      vectors); else ``flat`` (W = 253 and 127, a misaligned view).
+    - ``vec``: ⌈W/V⌉ strips of V = 16 bytes of outputs × up to 256 threads,
+      r rows a thread (``_CF_FWD_VEC_ELEMS`` outputs: 8 rows in float32, 4
+      in 16 bits).  Where two or more planes fit those rows and r divides H,
+      a tile is that many whole planes (a 32² plane is 32 rows of 8 float32
+      or 4 16-bit strips: 8 planes a tile), so every thread's rows lie in
+      one plane; else the plane is cut into tiles of those rows.
+    - ``flat``: the row's columns rounded up to a warp (at most 256
+      threads) × one row of threads, ``_CF_FWD_FLAT_BYTES`` of a column a
+      thread (16 float32 rows, 32 16-bit): tiles of those rows of one
+      plane, shorter where the windows and the output run would pass
+      227 KB.
+    - Walk: ``_CF_FWD_VEC_WALK_BYTES`` of input a ``vec`` block,
+      ``_CF_FWD_FLAT_WALK`` tiles a ``flat`` one, fewer where the grid
+      would keep less than two blocks for each of the 132 SMs."""
+    itemsize = dtype.itemsize
+    V = 16 // itemsize
+    if W % V == 0 and ptr_align % 16 == 0 and W <= V * _CF_FWD_THREADS:
+        plan = _cf_fwd_vec(B, C, H, W, itemsize, _CF_FWD_VEC_ELEMS // V)
+        if plan is not None:
+            return plan
+    r = min(_CF_FWD_FLAT_BYTES // itemsize, H)
+    while True:
+        plan = _cf_fwd_flat(B, C, H, W, itemsize, r)
+        if plan is not None:
+            return plan
+        if r == 1:
+            raise ValueError(f"depthwise_cf forward plan: W={W} fits no block's shared memory")
+        r //= 2
+
+
+def _cf_fwd_vec(B: int, C: int, H: int, W: int, itemsize: int, r: int) -> CfFwdPlan | None:
+    """The ``vec`` plan with r rows a thread: W/V strips × as many rows of
+    threads as 256 threads allow; whole planes a tile where two or more
+    fit and r divides H, else tiles of those rows."""
+    ncx = W // (16 // itemsize)
+    rows = _CF_FWD_THREADS // ncx * r
+    planes = min(rows // H, B * C) if H % r == 0 else 1
+    if planes > 1:
+        nry = planes * H // r
+    else:
+        planes, nry = 1, max(1, min(_CF_FWD_THREADS // ncx, -(-H // r)))
+    return _cf_fwd_make("vec", B, C, H, W, itemsize, ncx, nry, r, planes)
+
+
+def _cf_fwd_flat(B: int, C: int, H: int, W: int, itemsize: int, r: int) -> CfFwdPlan | None:
+    """The ``flat`` plan of r-row tiles, a block of the row's columns
+    rounded up to a warp (at most 256) × one row of threads."""
+    ncx = min(_CF_FWD_THREADS, -(-W // 32) * 32)
+    return _cf_fwd_make("flat", B, C, H, W, itemsize, ncx, 1, r, 1)
+
+
+def depthwise_cf_forward_emulation(x: torch.Tensor, weight: torch.Tensor, plan: CfFwdPlan) -> torch.Tensor:
+    """K6's decomposition in PyTorch, for tests: walks the plan's blocks and
+    tiles in the kernel's order over the B·C·H-row image and computes each
+    tile from its window alone (its rows and one row above and below, zero
+    outside the tensor and at the columns' ends).  The row above an output
+    counts only where the output is not its plane's first row, the row
+    below only where it is not its plane's last, so the rows of a
+    neighbouring plane in the window are masked.  Each thread's rows take
+    the taps of the plane of its first row (rows ty·r …), as the kernel
+    loads them.
+    Rows past a tile's end are computed and dropped, as the kernel masks
+    its stores."""
+    B, C, H, W = x.shape
+    th = plan.th
+    img = F.pad(x.reshape(B * C * H, W), (1, 1, 1, th + 1))  # image row i at i + 1
+    taps = weight.reshape(C, 9).to(x.dtype)
+    y = torch.full_like(img[1:1 + B * C * H, 1:1 + W], float("nan"))
+    q = torch.arange(th)
+    first = q // plan.r * plan.r
+    for _, walk in plan.blocks():
+        for t0, rows in walk:
+            win = img[t0:t0 + th + 2]  # window row k: image row t0 - 1 + k
+            h = (t0 + q) % H
+            tap = taps[(t0 + first) // H % C]  # (th, 9): each row's thread's plane's taps
+            keep = (h > 0, torch.ones_like(h, dtype=torch.bool), h < H - 1)
+            out = 0
+            for dy in range(3):
+                for dx in range(3):
+                    v = torch.where(keep[dy][:, None], win[dy:dy + th, dx:dx + W], 0)
+                    out = out + v * tap[:, 3 * dy + dx, None]
+            y[t0:t0 + rows] = out[:rows]
+    return y.reshape(B, C, H, W)
+
+
 def depthwise_cf(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
     """K6 alone: the 3×3 stride-1 SAME depthwise conv of an NCHW-contiguous
-    x, NCHW-contiguous out.  The plain version on a CPU tensor."""
+    x, NCHW-contiguous out, by :func:`_cf_fwd_plan`'s plan (one launch).
+    The plain version on a CPU tensor."""
     if x.device.type == "cpu":
         return depthwise_conv_plain(x, weight)
     _check_cf(x, weight)
     B, C, H, W = x.shape
-    taps = _taps(weight, x.dtype)
     y = torch.empty_like(x, memory_format=torch.contiguous_format)
+    return _cf_fwd_launch(x, _cf_fwd_taps(weight), y, _cf_fwd_plan(B, C, H, W, x.dtype, _ptr_align(x, y)))
+
+
+def _cf_fwd_taps(weight: torch.Tensor) -> torch.Tensor:
+    """(C, 1, 3, 3) → the (9, C) float32 tap table, tap t = 3·dy + dx, in
+    one copy; K6 rounds the taps to the activations' dtype itself."""
+    C = weight.shape[0]
+    return torch.empty((9, C), dtype=torch.float32, device=weight.device).copy_(
+        weight.detach().reshape(C, 9).t())
+
+
+def _cf_fwd_launch(x: torch.Tensor, taps: torch.Tensor, y: torch.Tensor, plan: CfFwdPlan) -> torch.Tensor:
+    """One launch of K6 by ``plan`` into ``y``; raises where the kernel
+    refuses the plan or the launch fails."""
+    B, C, H, W = x.shape
     fn = _build.function("depthwise_cf", "dw_cf_fwd",
-                         [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+                         [ctypes.c_void_p] * 3 + [ctypes.c_int] * 13 + [ctypes.c_void_p])
     with torch.cuda.device(x.device):
-        rc = fn(x.data_ptr(), taps.data_ptr(), y.data_ptr(), _DTYPE_CODE[x.dtype],
-                B, C, H, W, _stream(x))
+        rc = fn(x.data_ptr(), taps.data_ptr(), y.data_ptr(), _DTYPE_CODE[x.dtype], B, C, H, W,
+                _CF_MODE[plan.mode], plan.ncx, plan.nry, plan.r, plan.planes, plan.tiles,
+                plan.walk, plan.smem, _stream(x))
     if rc != 0:
-        raise RuntimeError(f"depthwise_cf launch failed: CUDA error {rc}")
+        raise RuntimeError(f"depthwise_cf launch failed: CUDA error {rc} (plan {plan})")
     _count("depthwise_fwd_cf", x.dtype)
     return y
 

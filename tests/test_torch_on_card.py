@@ -7,6 +7,7 @@ but no JAX it runs without the suite's ``conftest.py``:
     python -m pytest tests/test_torch_on_card.py --noconftest -m cuda -q
 """
 
+import dataclasses
 import math
 
 import pytest
@@ -416,6 +417,84 @@ def test_cf_backward_plan_variants_match_plain(card, shape, dtype, offset, mode)
     none2, dk_only = depthwise_cf_backward(x, w, g, want_dx=False)
     assert none is None and none2 is None
     assert torch.equal(dx_only, dx) and torch.equal(dk_only, dw)
+
+
+# (B, C, H, W), dtype, storage offset in elements, plan mode, for K6's plan
+# (kernels/depthwise.py _cf_fwd_plan): whole 32² planes four a tile (the
+# last tile two), a 64² plane a tile, an odd H in vec mode (one tile of 34
+# rows, 33 in the plane), a plane cut into three tiles of rows, W = 253 and
+# 127 (flat, odd H too), misaligned views (a storage offset of one element:
+# x's first and last chunks cross the tensor's ends), tiny planes many a
+# tile, and a plane of one pixel; float32, bfloat16 and float16.
+CF_FWD_CASES = [
+    ((3, 50, 32, 32), torch.float32, 0, "vec"),
+    ((2, 24, 64, 64), torch.bfloat16, 0, "vec"),
+    ((2, 24, 64, 64), torch.float32, 0, "vec"),
+    ((2, 5, 33, 32), torch.float16, 0, "vec"),
+    ((2, 3, 300, 32), torch.float32, 0, "vec"),
+    ((2, 16, 253, 253), torch.float32, 0, "flat"),
+    ((3, 8, 127, 127), torch.bfloat16, 0, "flat"),
+    ((2, 8, 127, 127), torch.float16, 0, "flat"),
+    ((3, 24, 32, 32), torch.float32, 1, "flat"),
+    ((2, 10, 37, 45), torch.bfloat16, 1, "flat"),
+    ((2, 6, 31, 31), torch.float16, 1, "flat"),
+    ((2, 600, 8, 8), torch.float32, 0, "vec"),
+    ((1, 3, 1, 1), torch.float32, 0, "flat"),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,dtype,offset,mode", CF_FWD_CASES)
+def test_cf_forward_plan_variants_match_plain(card, shape, dtype, offset, mode):
+    """K6 by each mode of its plan against the plain forward in float64 on
+    the same (rounded) inputs and taps (1e-5 of the largest output in
+    float32, 1e-2 in bfloat16, 1e-3 in float16); one launch a call; y the
+    same bits in three runs and by plans of half and twice the rows a
+    thread, each walking 1 and 4 tiles (the same float32 operations in the
+    same order)."""
+    from deeplabv3plus_keras_tpu_torch.kernels.depthwise import (
+        _cf_fwd_flat,
+        _cf_fwd_launch,
+        _cf_fwd_plan,
+        _cf_fwd_taps,
+        _cf_fwd_vec,
+        _ptr_align,
+    )
+
+    n = math.prod(shape)
+    x = torch.randn(n + offset, device="cuda", generator=card).to(dtype)[offset:].view(shape)
+    w = torch.randn(shape[1], 1, 3, 3, device="cuda", generator=card)
+    assert (x.data_ptr() % 16 != 0) == (offset != 0)
+    plan = _cf_fwd_plan(*shape, dtype, _ptr_align(x))
+    assert plan.mode == mode
+    before = kernels.launch_counts()["depthwise_fwd_cf"]
+    ys = [depthwise_cf(x, w) for _ in range(3)]
+    assert kernels.launch_counts()["depthwise_fwd_cf"] == before + 3
+    y = ys[0]
+    assert y.dtype == dtype and y.is_contiguous()
+    ref = depthwise_conv_plain(x.double(), w.to(dtype).double())
+    assert (y.double() - ref).abs().max() <= _REL[dtype] * ref.abs().max()
+    assert all(torch.equal(other, y) for other in ys[1:])
+    taps = _cf_fwd_taps(w)
+    for r in (max(1, plan.r // 2), plan.r * 2):
+        other = (_cf_fwd_flat(*shape, dtype.itemsize, r) if mode == "flat"
+                 else _cf_fwd_vec(*shape, dtype.itemsize, r))
+        for walk in (1, 4):
+            ya = torch.full_like(y, float("nan"))
+            _cf_fwd_launch(x, taps, ya, dataclasses.replace(other, walk=walk))
+            assert torch.equal(ya, y), (r, walk)
+
+
+@pytest.mark.cuda
+def test_cf_forward_raises_where_the_kernel_refuses_the_plan(card):
+    """A vec plan on a misaligned x: the kernel refuses it and the wrapper
+    raises, with nothing computed in the plain version instead."""
+    from deeplabv3plus_keras_tpu_torch.kernels.depthwise import _cf_fwd_launch, _cf_fwd_taps, _cf_fwd_vec
+
+    x = torch.randn(4 * 32 * 32 + 1, device="cuda", generator=card)[1:].view(1, 4, 32, 32)
+    w = torch.randn(4, 1, 3, 3, device="cuda", generator=card)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        _cf_fwd_launch(x, _cf_fwd_taps(w), torch.empty_like(x), _cf_fwd_vec(1, 4, 32, 32, 4, 8))
 
 
 @pytest.mark.cuda
