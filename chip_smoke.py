@@ -97,6 +97,20 @@ BN statistics of its float32 phases:
   step: T1 1, T2 1, K2 15, K3 3, K4 15, K5 3) and the probability-free
   ``eval_step()`` (T1 once a call), the same in bfloat16, and one step on
   two ranks (the ``ddp`` layout) against one process;
+- ``spatial`` (after ``fused_tail``): ``mesh_space`` 2. K2–K5 on row
+  windows (each rank's output rows and the rows they read) against their
+  plain versions at the flagship's sites at 1024² × 4 and at Xception's
+  odd heights (253, 127, 509, 255, 128; stride 1 and 2, and the K6/K7
+  route's symmetric halo under ``bhcw``); then two ranks as a 1 × 2 grid
+  (the ``ddp`` layout) against one process from the same weights (seed
+  1024) and batches: the flagship at 1024² × 4 (3 ``train_step()``s,
+  each loss and each parameter's update, the latter beside one process
+  taking the batch rows reversed; ``segment()``'s labels where one
+  process's top two logits are clearly apart; an eval step's confusion
+  matrix), Xception at 1024² × 2 (one step and ``segment()`` under
+  ``nhwc`` and ``bhcw``: K6/K7 on every rank); per rank and per one
+  process peak memory, a profiled step's and call's device time, the
+  halo exchanges and their bytes a step, K1–K7's launches;
 - ``int8`` (before ``ddp``): ``int8_infer`` on the flagship and on
   Xception (under ``nhwc``) calibrated on the serving batches: the
   quantized sites against the CPU's for the same config, ``segment()``
@@ -134,7 +148,9 @@ which port a jnp function and no Pallas call; K2-K7 also in bfloat16,
 K2-K5 in float16, T1/T2 in bfloat16 and with integer labels; launches by
 path, the new phases' paths (``segment_int8``,
 ``xception_segment_int8``, ``evaluate_int8``, ``test_int8``,
-``export_program_int8``) and the ddp phase's rank 0 included), the card's
+``export_program_int8``), the ddp phase's rank 0 and the spatial phase's
+(``spatial_train``, ``spatial_segment``, ``spatial_xception_bhcw``)
+included), the card's
 name and power limit, and as its last line ``{"ok": true, "device": {...}}``.
 
 ``python3 chip_smoke.py --parity-tail`` builds ``csrc/parity_tail.cu``
@@ -1170,9 +1186,11 @@ K7_ONE_TILE_STEP_MS = 6.097
 
 
 def cf_backward_summary(rows) -> dict:
-    """K7 summed over one Xception train step against the byte bound,
-    cuDNN's ``convolution_backward`` and the one-tile-a-block design, with
-    each site's plan mode and ratios."""
+    """K7 summed over one Xception train step against the byte bound and
+    cuDNN's ``convolution_backward``, with each site's plan mode and
+    ratios, and beside the one-tile-a-block design's times as recorded
+    (``K7_ONE_TILE_MS``, constants of an earlier run, not measured here:
+    the ``*_recorded`` fields)."""
     cf = [r for r in rows if r["kernel"] == "depthwise_bwd_cf" and "dtype" not in r]
     ms, lib, bnd = (sum(r["per_step"] * r[f] for r in cf) for f in ("ms", "library_ms", "bound_ms"))
     sites = []
@@ -1180,11 +1198,12 @@ def cf_backward_summary(rows) -> dict:
         before = K7_ONE_TILE_MS.get(tuple(r["shape_nchw"]))
         sites.append({"shape_nchw": r["shape_nchw"], "per_step": r["per_step"], "ms": r["ms"],
                       "bound_ms": r["bound_ms"], "x_bound": r["ms"] / r["bound_ms"],
-                      "x_library": r["ms"] / r["library_ms"], "one_tile_ms": before,
-                      "x_one_tile": None if before is None else r["ms"] / before,
+                      "x_library": r["ms"] / r["library_ms"], "one_tile_ms_recorded": before,
+                      "x_one_tile_recorded": None if before is None else r["ms"] / before,
                       "mode": r["plan"]["mode"], "groups": r["plan"]["groups"]})
     return {"ms": ms, "bound_ms": bnd, "library_ms": lib, "x_bound": ms / bnd, "x_library": ms / lib,
-            "one_tile_ms": K7_ONE_TILE_STEP_MS, "x_one_tile": ms / K7_ONE_TILE_STEP_MS, "sites": sites}
+            "one_tile_ms_recorded": K7_ONE_TILE_STEP_MS,
+            "x_one_tile_recorded": ms / K7_ONE_TILE_STEP_MS, "sites": sites}
 
 
 def cf_forward_summary(rows) -> dict:
@@ -2854,6 +2873,371 @@ def run_ddp(kernels, card: str, state: dict) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# spatial: mesh_space 2, each rank some rows of every image
+
+SPATIAL_SIZE, SPATIAL_BATCH, SPATIAL_STEPS = 1024, 4, 3
+SPATIAL_XCEPTION_BATCH = 2
+# two ranks (1 data × 2 space) against one process, float32, TF32 off,
+# cuDNN deterministic: each step's loss to 1e-4 relative; each parameter's
+# update after the steps to 1e-2 of one process's in relative 2-norm
+# (float32 summation order alone moved the first step's gradients by
+# 2.9e-3 across a data split, PERF.md §6), or to 10× (DDP_SPREAD)
+# the distance of one process taking the same batches with their rows
+# reversed where that is larger: a parameter whose exact gradient is zero
+# (a BN bias before a conv and another BN, which removes it) gets a
+# gradient of rounding noise, which Keras Adam turns into ±lr updates of
+# any sign in any run; segment()'s labels equal wherever one process's top
+# two upsampled logits differ by more than 1e-3 relative; the eval step's
+# confusion matrix over every pixel
+SPATIAL_LOSS_REL, SPATIAL_UPDATE_REL, SPATIAL_MARGIN_REL = 1e-4, 1e-2, 1e-3
+# the row-window kernel checks: Xception's odd heights at 512² (253, 127)
+# and 1024² (509, 255, 128), B = 2, stride 1 (its sites) and 2
+SPATIAL_XCEPTION_HEIGHTS = ((253, 128), (127, 256), (509, 64), (255, 128), (128, 256))
+
+
+def spatial_conf(conf: dict, ranks: int) -> dict:
+    """``conf`` with dropout 0 (element-wise dropout draws from each rank's
+    own stream), over ``ranks`` ranks split along the image height alone."""
+    conf = ddp_conf(conf)
+    if ranks > 1:
+        conf.update(multi_gpu=True, num_gpus=ranks, mesh_space=ranks)
+    return conf
+
+
+def spatial_batches(n: int, batch: int, seed: int = 11) -> list[dict]:
+    """Global batches of ``batch`` × 1024² made on the CPU from a seed, the
+    same in every process: images in (−1, 1), integer labels."""
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    size = SPATIAL_SIZE
+    return [{"image": torch.rand(batch, size, size, 3, generator=gen) * 2 - 1,
+             "label": torch.randint(0, CLASSES, (batch, size, size), generator=gen)}
+            for _ in range(n)]
+
+
+def spatial_run(conf: dict, device, steps: int, tag: str, evaluate: bool, margins: bool,
+                reverse: bool = False) -> dict:
+    """The facade on ``conf`` (random weights from seed 1024): ``steps``
+    ``train_step()``s on whole images (a rank takes its rows), the last
+    profiled, then ``segment()`` of the first batch (the second call
+    profiled) and, with ``evaluate``, one ``eval_step()``.  Per step the
+    loss, the kernels' launches and the halo exchanges; peak memory of the
+    steps; each parameter's update; the labels; with ``margins`` (one
+    process) where its top two upsampled logits differ by more than
+    ``SPATIAL_MARGIN_REL`` relative.  ``reverse``: the batches' rows in
+    reverse order, the steps alone (the yardstick of summation order)."""
+    import torch
+    import torch.nn.functional as F
+
+    from deeplabv3plus_keras_tpu_torch import SemanticSegmentation, kernels
+    from deeplabv3plus_keras_tpu_torch.parallel import mesh, spatial
+
+    seg = SemanticSegmentation(conf, device=device)
+    before = {n: p.detach().clone() for n, p in seg.model.named_parameters()}
+    data = spatial_batches(steps, conf["hps"]["batch_size"])
+    gpu = [{k: (v.flip(0) if reverse else v).to(device) for k, v in b.items()} for b in data]
+    out = {"losses": [], "launches": [], "exchanges": [], "step_s": []}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    for i, b in enumerate(gpu):
+        kernels.reset_launch_counts()
+        spatial.reset_counts()
+        t = time.perf_counter()
+        if i == steps - 1:  # the last step under the profiler (its wall time too)
+            res = {}
+            prof = profile_device(lambda: res.update(seg.train_step(b)),
+                                  OUT / f"spatial_{tag}_train_r{mesh.rank()}.txt",
+                                  f"{tag} train_step, rank {mesh.rank()}", 30)
+            out["step_device_ms"] = prof["device_ms"]
+        else:
+            res = seg.train_step(b)
+        out["losses"].append(res["loss"].item())
+        out["step_s"].append(time.perf_counter() - t)
+        if i == 0:  # the first step's gradients (summed over the ranks)
+            out["grads1"] = {n: p.grad.detach().cpu() for n, p in seg.model.named_parameters()}
+        out["launches"].append(kernels.launch_counts())
+        out["exchanges"].append(dict(spatial.counts))
+    out["peak_gib"] = torch.cuda.max_memory_allocated(device) / 2**30
+    out["updates"] = {n: (p.detach() - before[n]).cpu() for n, p in seg.model.named_parameters()}
+    if reverse:
+        return out
+    images = gpu[0]["image"]
+    kernels.reset_launch_counts()
+    spatial.reset_counts()
+    out["labels"] = torch.from_numpy(seg.segment(images))
+    out["segment_launches"] = kernels.launch_counts()
+    out["segment_exchanges"] = dict(spatial.counts)
+    prof = profile_device(lambda: seg.segment(images), OUT / f"spatial_{tag}_segment_r{mesh.rank()}.txt",
+                          f"{tag} segment, rank {mesh.rank()}", 30)
+    out["segment_device_ms"] = prof["device_ms"]
+    if evaluate:
+        m = seg.eval_step(gpu[0])
+        out["eval"] = {"loss": m["loss"].item(), "cm": m["cm"].cpu()}
+    if margins:
+        with torch.inference_mode():
+            seg.model.eval()
+            logits, up = seg.model(images, return_presample=True)
+            upl = F.interpolate(logits.permute(0, 3, 1, 2), scale_factor=up, mode="bilinear",
+                                align_corners=False)
+            top = upl.topk(2, dim=1).values
+            out["clear"] = ((top[:, 0] - top[:, 1]) > SPATIAL_MARGIN_REL * top[:, 0].abs()).cpu()
+    return out
+
+
+def _spatial_rank(out_dir: str) -> None:
+    """A rank of the spatial phase: the flagship (3 steps, segment(), an
+    eval step) under nhwc, then Xception (one step, segment()) under nhwc
+    and under bhcw, each over the (1 × 2) grid."""
+    import torch
+
+    from deeplabv3plus_keras_tpu_torch.parallel import mesh
+
+    ddp_numerics()
+    device = torch.device("cuda", torch.cuda.current_device())
+    world = mesh.world_size()
+    out = {}
+    with dw_layout("nhwc"):
+        out["flagship"] = spatial_run(
+            spatial_conf(flagship_conf(SPATIAL_SIZE, SPATIAL_BATCH), world), device,
+            SPATIAL_STEPS, "flagship", evaluate=True, margins=False)
+    for layout in ("nhwc", "bhcw"):
+        with dw_layout(layout):
+            out[f"xception_{layout}"] = spatial_run(
+                spatial_conf(xception_conf(SPATIAL_SIZE, SPATIAL_XCEPTION_BATCH), world), device,
+                1, f"xception_{layout}", evaluate=False, margins=False)
+    torch.save(out, os.path.join(out_dir, f"spatial_r{mesh.rank()}.pt"))
+
+
+def check_spatial_windows(card: str) -> dict:
+    """K2–K5 on row windows (``depthwise_conv(..., window=(Ho, pad_t))``),
+    each window the output rows of one of 2 ranks (``mesh.rows_of``, uneven
+    where Ho is odd) with the rows they read, against the plain versions on
+    the same window: the flagship's distinct sites at 1024² × 4, and 3×3
+    sites at Xception's odd heights at stride 1 and 2 (and stride 1 under
+    ``bhcw``, the K6/K7 route's symmetric halo).  Forward and dx to 1e-5
+    of the reference's largest value, dk to 1e-4 of Σ|x·g|."""
+    import torch
+
+    from deeplabv3plus_keras_tpu_torch import SemanticSegmentation
+    from deeplabv3plus_keras_tpu_torch.kernels import (
+        depthwise_conv,
+        depthwise_conv_backward,
+        depthwise_conv_backward_plain,
+        depthwise_conv_plain,
+        same_pads,
+    )
+    from deeplabv3plus_keras_tpu_torch.parallel import mesh
+
+    t0 = time.perf_counter()
+    g = torch.Generator(device="cuda").manual_seed(5)
+    seg = SemanticSegmentation(flagship_conf(SPATIAL_SIZE, SPATIAL_BATCH), device="cuda")
+    images = torch.rand(SPATIAL_BATCH, SPATIAL_SIZE, SPATIAL_SIZE, 3, device="cuda", generator=g)
+    sites = {(shape, stride, dil, tuple(mod.weight.shape)): mod.weight.detach()
+             for shape, stride, dil, mod in depthwise_sites(seg.model, images * 2 - 1)}
+    del seg
+    for H, C in SPATIAL_XCEPTION_HEIGHTS:
+        w = torch.randn(C, 1, 3, 3, device="cuda", generator=g)
+        for stride in (1, 2):
+            sites[((2, C, H, H), stride, (1, 1), tuple(w.shape))] = w
+    cl = torch.channels_last
+    rows, worst = [], {"forward": 0.0, "dx": 0.0, "dk": 0.0}
+    for (shape, stride, dil, _), w in sites.items():
+        B, C, H, W = shape
+        k = w.shape[-1]
+        Ho, pt, _ = same_pads(H, k, stride, dil[0])
+        x = torch.randn(shape, device="cuda", generator=g).contiguous(memory_format=cl)
+        # Xception's stride-1 sites also on the channels-first route (K6/K7)
+        cf = (k, stride, tuple(dil)) == (3, 1, (1, 1)) and B == 2
+        layouts = ("nhwc", "bhcw") if cf else ("nhwc",)
+        for layout in layouts:
+            for r in range(2):
+                o0, o1 = mesh.rows_of(Ho, 2, r)
+                lo, hi = o0 * stride - pt, (o1 - 1) * stride - pt + dil[0] * (k - 1) + 1
+                c0, c1 = max(lo, 0), min(hi, H)
+                xw = x[:, :, c0:c1].contiguous(memory_format=cl)
+                win = (o1 - o0, c0 - lo)
+                gout = torch.randn((B, C, o1 - o0, W if stride == 1 else -(-W // 2)), device="cuda",
+                                   generator=g).contiguous(memory_format=cl)
+                with dw_layout(layout):
+                    y = depthwise_conv(xw, w, stride, dil, window=win)
+                    dx, dk = depthwise_conv_backward(xw, w, gout, stride, dil, window=win)
+                ref = depthwise_conv_plain(xw, w, stride, dil, window=win)
+                rdx, rdk = depthwise_conv_backward_plain(xw, w, gout, stride, dil, window=win)
+                _, dk_abs = depthwise_conv_backward_plain(xw.abs(), w, gout.abs(), stride, dil,
+                                                          window=win)
+                torch.cuda.synchronize()
+                e_y = (y - ref).abs().max().item() / max(ref.abs().max().item(), 1e-30)
+                e_dx = (dx - rdx).abs().max().item() / max(rdx.abs().max().item(), 1e-30)
+                e_dk = ((dk - rdk).abs() / (dk_abs + 1e-30)).max().item()
+                row = {"shape_nchw": list(shape), "stride": stride, "dilation": list(dil),
+                       "layout": layout, "rank": r, "out_rows": [o0, o1], "window": list(win),
+                       "x_rows": c1 - c0, "fwd_rel": e_y, "dx_rel": e_dx, "dk_rel_abs": e_dk}
+                rows.append(row)
+                worst = {"forward": max(worst["forward"], e_y), "dx": max(worst["dx"], e_dx),
+                         "dk": max(worst["dk"], e_dk)}
+                if not (e_y <= 1e-5 and e_dx <= 1e-5 and e_dk <= 1e-4 and y.shape == ref.shape):
+                    raise SystemExit(f"spatial: a row-window kernel disagrees with plain: {row}")
+    (OUT / "spatial_windows.json").write_text(json.dumps({"card": card, "rows": rows}, indent=1))
+    result = {"windows": len(rows), "worst": worst, "s": time.perf_counter() - t0, "card": card}
+    print(json.dumps({"spatial_windows": result}))
+    return result
+
+
+def run_spatial(kernels, card: str) -> dict:
+    """``mesh_space`` 2: two ranks as a (1 data × 2 space) grid
+    (:func:`ddp_layout`: NCCL over two cards, else gloo with both on the
+    one card) against one process on the same card from the same weights
+    (seed 1024) and batches, nhwc, float32, TF32 off.  The flagship at
+    1024² × 4: 3 ``train_step()``s (each loss; the first step's gradients
+    and each parameter's update, beside one process taking the batch rows
+    reversed),
+    ``segment()`` (labels where one process's top two logits are clearly
+    apart), an eval step (the confusion matrix's pixels).  Xception at
+    1024² × 2: one step and one ``segment()`` under nhwc and under bhcw
+    (K6/K7 on every rank).  Per rank and per one process: peak memory,
+    device time of a step and a call, exchanges and bytes a step, K1–K7's
+    launches.  Returns the paths ``spatial_train``, ``spatial_segment``
+    and ``spatial_xception_bhcw`` (rank 0's launches)."""
+    import tempfile
+
+    import torch
+
+    from deeplabv3plus_keras_tpu_torch.parallel import launch
+
+    t0 = time.perf_counter()
+    check_spatial_windows(card)
+    layout = ddp_layout()
+    deterministic = torch.backends.cudnn.deterministic
+    ddp_numerics()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        launch.spawn(_spatial_rank, 2, (tmp,), devices=layout["devices"],
+                     backend=layout["backend"], timeout_s=300, group_timeout_s=180)
+        ranks = [torch.load(os.path.join(tmp, f"spatial_r{r}.pt")) for r in (0, 1)]
+    t_ranks = time.perf_counter() - t0
+    device = torch.device("cuda")
+    with dw_layout("nhwc"):
+        one = {"flagship": spatial_run(spatial_conf(flagship_conf(SPATIAL_SIZE, SPATIAL_BATCH), 1),
+                                       device, SPATIAL_STEPS, "flagship", True, True)}
+        reversed_rows = spatial_run(spatial_conf(flagship_conf(SPATIAL_SIZE, SPATIAL_BATCH), 1),
+                                    device, SPATIAL_STEPS, "flagship_reversed", False, False,
+                                    reverse=True)
+    for lay in ("nhwc", "bhcw"):
+        with dw_layout(lay):
+            one[f"xception_{lay}"] = spatial_run(
+                spatial_conf(xception_conf(SPATIAL_SIZE, SPATIAL_XCEPTION_BATCH), 1), device, 1,
+                f"xception_{lay}", False, False)
+    torch.cuda.empty_cache()
+    torch.backends.cudnn.deterministic = deterministic
+
+    failures = []
+    f1, fr = one["flagship"], [r["flagship"] for r in ranks]
+    loss_rel = [abs(a - b) / abs(b) for a, b in zip(fr[0]["losses"], f1["losses"])]
+    def update_rel(run) -> dict:
+        out = {}
+        for n, u in f1["updates"].items():
+            ref = u.double().norm().item()
+            out[n] = (run["updates"][n] - u).double().norm().item() / ref if ref else (
+                0.0 if not run["updates"][n].any() else math.inf)
+        return out
+
+    def grad_rel(run) -> float:
+        diff = sum((run["grads1"][n] - g).double().square().sum() for n, g in f1["grads1"].items())
+        return math.sqrt(diff / sum(g.double().square().sum() for g in f1["grads1"].values()))
+
+    grads = {"ranks": grad_rel(fr[0]), "reversed_rows": grad_rel(reversed_rows)}
+    grad_bound = max(1e-5, DDP_SPREAD * grads["reversed_rows"])
+    ranks_rel, spread_rel = update_rel(fr[0]), update_rel(reversed_rows)
+    update_bound = {n: max(SPATIAL_UPDATE_REL, DDP_SPREAD * spread_rel[n]) for n in ranks_rel}
+    worst_updates = sorted(((n, v, spread_rel[n]) for n, v in ranks_rel.items()),
+                           key=lambda t: -t[1])[:6]
+    over = [n for n, v in ranks_rel.items() if v > update_bound[n]]
+    past_1e2 = [n for n, v in ranks_rel.items() if v > SPATIAL_UPDATE_REL]
+    clear = f1["clear"]
+    label_diff = [int(((r["labels"] != f1["labels"]) & clear).sum()) for r in fr]
+    pixels = SPATIAL_BATCH * SPATIAL_SIZE * SPATIAL_SIZE
+    cm_pixels = [int(r["eval"]["cm"].sum()) for r in fr] + [int(f1["eval"]["cm"].sum())]
+    names = ("upsample_argmax", "depthwise_fwd_s1", "depthwise_fwd_s2", "depthwise_bwd_s1",
+             "depthwise_bwd_s2", "depthwise_fwd_cf", "depthwise_bwd_cf")
+
+    def brief(run) -> dict:
+        return {"peak_gib": run["peak_gib"], "step_device_ms": run["step_device_ms"],
+                "segment_device_ms": run["segment_device_ms"], "step_s": run["step_s"],
+                "exchanges_per_step": run["exchanges"][-1],
+                "segment_exchanges": run["segment_exchanges"],
+                "launches_per_step": {k: run["launches"][-1][k] for k in names},
+                "segment_launches": {k: run["segment_launches"][k] for k in names}}
+
+    result = {
+        **{k: layout[k] for k in ("backend", "cards", "world")}, "grid": [1, 2],
+        "note": ("two ranks on one card: a correctness check, not a speed" if layout["cards"] < 2
+                 else "a card a rank"),
+        "flagship": {"batch": SPATIAL_BATCH, "image": SPATIAL_SIZE, "loss_rel": loss_rel,
+                     "loss_bound": SPATIAL_LOSS_REL,
+                     "first_step_grad_rel_2norm": grads, "grad_bound": grad_bound,
+                     "update_rel_2norm_worst_and_reversed_rows": worst_updates,
+                     "updates_past_1e-2": len(past_1e2),
+                     "updates_past_1e-2_reversed_rows_too": sum(
+                         spread_rel[n] > SPATIAL_UPDATE_REL for n in past_1e2),
+                     "parameters": len(ranks_rel), "updates_over_bound": over,
+                     "reversed_rows_loss_rel": [abs(a - b) / abs(b) for a, b in zip(
+                         reversed_rows["losses"], f1["losses"])],
+                     "labels_differing_where_clear": label_diff,
+                     "clear_pixels": int(clear.sum()), "pixels": pixels,
+                     "eval_cm_pixels": cm_pixels,
+                     "eval_loss_rel": abs(fr[0]["eval"]["loss"] - f1["eval"]["loss"])
+                     / abs(f1["eval"]["loss"]),
+                     "ranks": [brief(r) for r in fr], "one_process": brief(f1)},
+        "s_ranks": t_ranks, "s": time.perf_counter() - t0, "card": card}
+    for lay in ("nhwc", "bhcw"):
+        xr, x1 = [r[f"xception_{lay}"] for r in ranks], one[f"xception_{lay}"]
+        result[f"xception_{lay}"] = {
+            "batch": SPATIAL_XCEPTION_BATCH, "image": SPATIAL_SIZE,
+            "loss_rel": abs(xr[0]["losses"][0] - x1["losses"][0]) / abs(x1["losses"][0]),
+            "labels_equal_across_ranks": bool(torch.equal(xr[0]["labels"], xr[1]["labels"])),
+            "ranks": [brief(r) for r in xr], "one_process": brief(x1)}
+        if not result[f"xception_{lay}"]["loss_rel"] <= SPATIAL_LOSS_REL:
+            failures.append(f"xception {lay} step loss {result[f'xception_{lay}']['loss_rel']}")
+        key = ("depthwise_fwd_cf", "depthwise_bwd_cf") if lay == "bhcw" else (
+            "depthwise_fwd_s1", "depthwise_bwd_s1")
+        if not all(r["launches"][0][k] > 0 for r in xr for k in key):
+            failures.append(f"xception {lay}: {key} not launched on every rank")
+        if tuple(xr[0]["labels"].shape) != (SPATIAL_XCEPTION_BATCH, SPATIAL_SIZE, SPATIAL_SIZE):
+            failures.append(f"xception {lay} labels {tuple(xr[0]['labels'].shape)}")
+    print(json.dumps({"spatial": result}))
+
+    if not all(d <= SPATIAL_LOSS_REL for d in loss_rel):
+        failures.append(f"flagship step losses {loss_rel}")
+    if over:
+        failures.append(f"flagship updates past their bounds: {over} (worst {worst_updates})")
+    if not grads["ranks"] <= grad_bound:
+        failures.append(f"flagship first-step gradients {grads} > {grad_bound}")
+    if any(label_diff):
+        failures.append(f"segment() labels differ at {label_diff} clear pixels")
+    if cm_pixels != [pixels] * 3:
+        failures.append(f"eval confusion matrices hold {cm_pixels} pixels, not {pixels}")
+    for r in fr:
+        if not all(r["launches"][-1][k] > 0 for k in names[1:5]):
+            failures.append(f"K2-K5 not all launched on a rank's step: {r['launches'][-1]}")
+        if not all(r["segment_launches"][k] > 0 for k in names[:3]):
+            failures.append(f"K1-K3 not all launched on a rank's segment(): {r['segment_launches']}")
+        if r["launches"][-1] != f1["launches"][-1]:
+            failures.append(f"a rank's launches {r['launches'][-1]} against one process's "
+                            f"{f1['launches'][-1]}")
+        if not r["exchanges"][-1]["exchanges"]:
+            failures.append("no halo exchange in a rank's step")
+    if not all(torch.equal(fr[0]["updates"][n], fr[1]["updates"][n]) for n in fr[0]["updates"]):
+        failures.append("the ranks' updates differ")
+    if failures:
+        raise SystemExit("spatial: " + "; ".join(failures))
+    x0 = ranks[0]["xception_bhcw"]
+    return {"spatial_train": fr[0]["launches"][-1], "spatial_segment": fr[0]["segment_launches"],
+            "spatial_xception_bhcw": {k: x0["launches"][0][k] + x0["segment_launches"][k]
+                                      for k in x0["launches"][0]}}
+
+
+# ---------------------------------------------------------------------------
 # fused_tail: the parity-decomposed training tail, T1/T2
 
 # The operations T1 and T2 need per full-resolution pixel and class, each
@@ -3562,6 +3946,10 @@ def main() -> int:
         a, p = run_fused_tail(kernels, card, state)
         agg.update(a)
         by_path.update(p)
+        # mesh_space 2: two ranks, each some rows of every image
+        t2 = time.perf_counter()
+        by_path.update(run_spatial(kernels, card))
+        print(json.dumps({"phase": "spatial", "s": time.perf_counter() - t2}))
         # EfficientNet-B0, NASNet-Mobile and DenseNet-121 at full size (K2–K5
         # at k = 3, 5, 7 and C = 11, 22; also in bfloat16 for the first two),
         # then the nine other variants at 128²

@@ -51,9 +51,18 @@ the parity-decomposed tail: no full-resolution tensor, on the card one
 fused forward and one fused backward kernel (``ops/parity_tail.py``,
 ``kernels/parity_tail.py``).  It applies under boundary refinement only.
 
-A config key that would change the result and is not ported yet
-(``mesh_space`` > 1) raises ``NotImplementedError`` naming its ROADMAP.md
-item.
+The extra key ``mesh_space`` S > 1 splits the N = ``num_gpus`` ranks into
+the JAX package's (N/S) × S ``('data', 'space')`` grid (``parallel/
+mesh.py`` ``init_grid``; a ``ValueError`` where S does not divide N): each
+rank holds its data position's rows of the global batch and its space
+position's image rows, and the model fetches the rows its spatial ops need
+from the other ranks (``parallel/spatial.py``).  ``segment()``, ``test()``
+and the predict step return whole labels and probabilities on every rank;
+the ranks of space position 0 write ``test()``'s PNGs and ``evaluate()``'s
+panels.  What is not ported under it yet (``fused_tail``, test-time
+augmentation, ``int8_infer``, ``remat``, ``augment``, the backbones other
+than MobileNetV2 and Xception) raises ``NotImplementedError`` naming
+ROADMAP.md item 13c.
 
 The environment variable ``DLV3_DW_LAYOUT=bhcw`` routes the 3×3 stride-1
 undilated depthwise sites through the channels-first kernels
@@ -81,7 +90,7 @@ from .data import pipeline as pipe
 from .data import voc
 from .models.deeplab import DeepLabV3Plus
 from .ops import quant as quant_lib
-from .parallel import mesh
+from .parallel import mesh, spatial
 from .parallel.step import (
     build_eval_step,
     build_label_step,
@@ -169,15 +178,21 @@ class SemanticSegmentation:
         self.nn_arch = self.conf.nn_arch
         self.work_dir = work_dir
         extra = self.conf.extra
-        if int(extra.get("mesh_space", 1)) > 1:
-            raise NotImplementedError(
-                f"mesh_space={extra['mesh_space']}: spatial sharding is not "
-                "ported yet (ROADMAP.md Queue A item 13b, halo exchange in every conv)"
-            )
+        n_space = max(1, int(extra.get("mesh_space", 1)))
+        if n_space > 1:
+            requested = self.conf.num_gpus if self.conf.multi_gpu else 1
+            if requested % n_space:
+                raise ValueError(f"mesh_space {n_space} must divide num devices {requested}")
+            spatial.refuse_unported(self.conf)
         # ranks: the process group (multi_gpu), else this process alone
         self.world = join_ranks(self.conf, device)
+        # the (data, space) grid under mesh_space (None: a data split alone)
+        self.grid = mesh.init_grid(n_space)
         self.device = mesh.rank_device(device) if self.world > 1 else resolve_device(device)
         self._main = mesh.rank() == 0
+        # this rank's data position: its rows of each global batch
+        self._n_data, self._data_rank = ((self.grid.n_data, self.grid.d) if self.grid is not None
+                                         else (self.world, mesh.rank()))
         self._accum = max(1, int(extra.get("grad_accum", 1)))
 
         self.model = DeepLabV3Plus(self.conf)
@@ -195,13 +210,13 @@ class SemanticSegmentation:
                                  if t.is_floating_point()])
         # extra key 'class_weights_npz': the loss's class-balance weights
         self._cw = resolve_class_weights(self.conf)
-        self._train_step = build_train_step(self.model, self.optimizer, self.conf,
-                                            class_weights=self._cw, seed=_SEED)
+        self._train_step = self._row_step(build_train_step(
+            self.model, self.optimizer, self.conf, class_weights=self._cw, seed=_SEED))
         # extra keys 'eval_scales' / 'eval_flip': test-time augmentation
         self._tta = dict(tta_scales=extra.get("eval_scales"),
                          tta_flip=bool(extra.get("eval_flip", False)))
-        self._eval_step = build_eval_step(self.model, self.conf, class_weights=self._cw,
-                                          with_probs=False, **self._tta)
+        self._eval_step = self._row_step(build_eval_step(
+            self.model, self.conf, class_weights=self._cw, with_probs=False, **self._tta))
         self._eval_step_probs = None  # built by evaluate(result_saving=True)
         self._label_step = build_label_step(self.model)
         # extra key 'int8_infer': the inference entry points with the
@@ -215,13 +230,33 @@ class SemanticSegmentation:
     # Steps on batches the caller builds
     # ------------------------------------------------------------------
 
+    def _row_step(self, step):
+        """``step`` on this rank's image rows of a batch of whole images
+        under ``mesh_space``; ``step`` itself otherwise."""
+        if self.grid is None:
+            return step
+
+        def run(batch: dict) -> dict:
+            a, b = self.grid.rows_of(batch["image"].shape[1])
+            return step({**batch, "image": batch["image"][:, a:b],
+                         "label": batch["label"][:, a:b]})
+
+        return run
+
+    def _writes_samples(self) -> bool:
+        """Whether this rank writes its samples' files: every rank, or under
+        ``mesh_space`` the ranks of space position 0 (the others hold the
+        same samples)."""
+        return self.grid is None or self.grid.s == 0
+
     def train_step(self, batch: dict) -> dict:
         """One Keras-Adam step on ``batch`` (``image`` (B,S,S,3), ``label``
         one-hot (B,S,S,C) or int (B,S,S), optional ``valid`` (B,)), BN in
         training mode.  Returns ``{"loss", "cm"}`` as device tensors, so a
         loop of steps does not wait on each one.  Over N ranks, ``batch`` is
-        this rank's rows (``mesh.row_indices``) and the results are the
-        global batch's."""
+        this rank's rows (``mesh.row_indices`` of its data position) and the
+        results are the global batch's; under ``mesh_space`` the images
+        are whole and the step takes this rank's image rows of them."""
         return self._train_step(self._batch(batch))
 
     def eval_step(self, batch: dict) -> dict:
@@ -311,7 +346,7 @@ class SemanticSegmentation:
             # extra key 'loader_backend': auto | native | pil
             backend=str(self.conf.extra.get("loader_backend", "auto")),
             # this rank's rows of each global batch (all rows on one rank)
-            rank=mesh.rank(), world=self.world, accum=accum,
+            rank=self._data_rank, world=self._n_data, accum=accum,
         )
 
     def _batches(self, loader, with_labels: bool = True):
@@ -565,8 +600,8 @@ class SemanticSegmentation:
             eval_step = self._int8_step("eval", with_probs=result_saving)
         elif result_saving:
             if self._eval_step_probs is None:
-                self._eval_step_probs = build_eval_step(
-                    self.model, self.conf, class_weights=self._cw, with_probs=True, **self._tta)
+                self._eval_step_probs = self._row_step(build_eval_step(
+                    self.model, self.conf, class_weights=self._cw, with_probs=True, **self._tta))
             eval_step = self._eval_step_probs
         else:
             eval_step = self._eval_step
@@ -580,7 +615,7 @@ class SemanticSegmentation:
             batch.pop("names")
             metrics = eval_step(batch)
             c_miou.update_from_cm(metrics["cm"])
-            if result_saving:
+            if result_saving and self._writes_samples():
                 probs = metrics["probs"].cpu().numpy()
                 images = batch["image"].cpu().numpy()
                 labels = batch["label"].cpu().numpy()
@@ -631,7 +666,7 @@ class SemanticSegmentation:
             labels = label_step(batch["image"]).cpu().numpy().astype(np.uint8)
             valid = batch["valid"].cpu().numpy()
             for i, name in enumerate(batch["names"]):
-                if valid[i]:
+                if valid[i] and self._writes_samples():
                     Image.fromarray(labels[i]).save(os.path.join(out_dir, f"{name}.png"))
 
     def convert_to_tf_lite(self, representative_images=None) -> list[str]:
@@ -676,8 +711,9 @@ class SemanticSegmentation:
         size = self.nn_arch.image_size
         self.model.eval()
         example = torch.zeros(2, size, size, 3, device=self.device)
-        with torch.no_grad(), (quant_lib.quantized(self.model, ranges) if ranges
-                               else contextlib.nullcontext()):
+        # under mesh_space the one-device forward: whole images, no exchange
+        with torch.no_grad(), spatial.local(), (quant_lib.quantized(self.model, ranges) if ranges
+                                                else contextlib.nullcontext()):
             program = torch.export.export(
                 _ProbabilityForward(self.model), (example,),
                 dynamic_shapes={"images": {0: torch.export.Dim("batch", min=1, max=4096)}})

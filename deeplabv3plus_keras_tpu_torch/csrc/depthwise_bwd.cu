@@ -52,6 +52,12 @@
 //   same strips: its loads wait on L2, and the walk leaves few blocks.
 // - A final kernel sums the partial rows of every block in a fixed order.
 //   No float atomics anywhere, so dk is the same bit for bit from run to run.
+// - Row windows (mesh_space): x may be a window of rows of a sharded map
+//   with Ho output rows and pad_t padding rows above it (the plan's), not
+//   TF SAME's.  Every formula above takes pad_t as given; at stride 1 the
+//   dx tiles then cover x's rows (more than the outputs), the gather's dx
+//   threads run over x's rows, and the tile's g tile sits K-1-pad_t rows
+//   into its window.
 //
 // Lanes take consecutive 16-byte channel vectors first (V = 4 float32 or 8
 // bfloat16/float16 channels), so every global access is a full 128-byte line
@@ -269,6 +275,10 @@ dw_bwd_tile(const T* __restrict__ x, const T* __restrict__ gy, const float* __re
     const int xr_n = (g.th - 1) * S + K, xc_n = (tw - 1) * S + K;
     const int gr_n = S == 1 ? g.th + K - 1 : g.th + P;
     const int gc_n = S == 1 ? tw + K - 1 : tw + P;
+    // the g tile's row and column in its window: P under SAME; at stride 1
+    // K-1-pad_t, as a row window (mesh_space) starts at its first halo row
+    const int gty = S == 1 ? K - 1 - g.pad_t : P;
+    const int gtx = S == 1 ? K - 1 - g.pad_l : P;
     const int xbb = buf_bytes(xr_n, xc_n, cbp, sizeof(T));
     const int gbb = buf_bytes(gr_n, gc_n, cbp, sizeof(T));
     const int threads = blockDim.x;
@@ -432,13 +442,13 @@ dw_bwd_tile(const T* __restrict__ x, const T* __restrict__ gy, const float* __re
         if (g.want_dk) {
             if constexpr (STRIP_DK<K>) {
                 dk_strip<T, K, S, V>(xw + (r * S * xc_n + s * R * S) * cbp + v * V,
-                                     gw + ((r + P) * gc_n + s * R + P) * cbp + v * V, xc_n, cbp, dks);
+                                     gw + ((r + gty) * gc_n + s * R + gtx) * cbp + v * V, xc_n, cbp, dks);
             } else {
                 for (int q = threadIdx.x; q < K * K * g.nv; q += threads) {
                     const int t = q / g.nv, vv = q - t * g.nv;
                     const int ky = t / K, kx = t - ky * K;
                     const T* xp = xw + (ky * xc_n + kx) * cbp + vv * V;
-                    const T* gp = gw + (P * gc_n + P) * cbp + vv * V;
+                    const T* gp = gw + (gty * gc_n + gtx) * cbp + vv * V;
                     float a[V];
 #pragma unroll
                     for (int e = 0; e < V; ++e) a[e] = 0.f;
@@ -495,7 +505,7 @@ dw_bwd_gather(const T* __restrict__ x, const T* __restrict__ gy, const float* __
     const int c = c0 + v * V;
     const int rt0 = blockIdx.y * g.walk;
     const int rt1 = min(rt0 + g.walk, g.B * g.nty);
-    const int pad_b = (K - 1) * g.dh - g.pad_t;  // stride 1: the pads sum to (k-1)*d
+    const int pad_b = (K - 1) * g.dh - g.pad_t;  // dx row i takes g rows i - pad_b + ky*d
     const int pad_r = (K - 1) * g.dw - g.pad_l;
     float* sent = (float*)smem;  // (k*k*nv, V) entry sums, k > 3 only
 
@@ -514,7 +524,9 @@ dw_bwd_gather(const T* __restrict__ x, const T* __restrict__ gy, const float* __
         const T* gb = gy + (size_t)b * g.Ho * g.Wo * g.C + c;
 
         if (role == 0) {
-            if (g.want_dx && mine) {  // K2's gather over g, taps reversed, pads swapped
+            // dx rows run over x's rows, which a row window (mesh_space)
+            // has more of than g's
+            if (g.want_dx && ho < g.H && c < g.C && wo_s < g.W) {  // K2's gather over g, taps reversed
                 // half a strip at a time: a whole strip's loads in flight
                 // at once outgrow the registers of two blocks an SM
 #pragma unroll 1
@@ -736,6 +748,9 @@ extern "C" int dw_bwd(const void* x, const void* g, const void* taps, void* dx, 
         || stride * tiles_w * tw - (stride - 1) * pad_l < W)
         return (int)cudaErrorInvalidValue;
     if (variant == 0 ? (dh != 1 || dw != 1) : stride != 1) return (int)cudaErrorInvalidValue;
+    // the stride-1 tile's g tile lies inside its g window
+    if (variant == 0 && stride == 1 && (pad_t < 0 || pad_t > k - 1 || pad_l < 0 || pad_l > k - 1))
+        return (int)cudaErrorInvalidValue;
     if (vec != 1) {
         if (vec * itemsize != 16 || C % vec || (((uintptr_t)x | (uintptr_t)g | (uintptr_t)dx) & 15))
             return (int)cudaErrorInvalidValue;

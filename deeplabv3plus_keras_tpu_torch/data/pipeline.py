@@ -19,7 +19,12 @@ the global batch: every rank walks the same global order (the same
 ``seed + epoch`` shuffle) and decodes only its own rows of each global
 batch (``mesh.row_indices``), so every rank takes the same number of steps
 and N ranks see the batches one process sees.  The padding of a ragged
-last batch falls on whichever rank owns those rows.
+last batch falls on whichever rank owns those rows.  Under ``mesh_space``
+the rows are those of the rank's data position (``rank``/``world`` are
+then its data position and the count of them): the ranks of one space
+group load the same whole images, and the facade's steps take each
+rank's image rows of them on the device, after the gather of a cached
+batch too (the JAX package's ``h_slice``).
 
 :class:`DeviceDataset` (config key ``cache_device``) keeps the decoded
 uint8 canvases in device memory, so epochs after the build gather their

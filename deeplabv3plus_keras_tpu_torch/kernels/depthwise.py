@@ -40,6 +40,16 @@ A CPU tensor takes :func:`depthwise_conv_plain` (``F.pad`` with the TF
 backward is :func:`depthwise_conv_backward_plain`.  A CUDA tensor launches
 the kernels or raises; nothing falls back.
 
+Row windows (``mesh_space``, ``parallel/spatial.py``): with ``window`` =
+(Ho, pad_t) x holds the rows of one rank's window of a row-sharded
+activation, and the call computes Ho output rows, output row o reading x
+rows o·S − pad_t + ky·d (zero outside x); W keeps TF ``SAME``.  This is
+not SAME recomputed on the window's height: at stride 2 a window of odd or
+extended height would shift the taps by one row.  The kernels take (Ho,
+pad_t) as they are (their geometry always carried both); the backward's
+dx covers every row of the window, its halo rows included, which the
+exchange's backward sends home.  Ho = 0 launches nothing.
+
 The channels-first route (port of ``depthwise3.py:465-521`` and
 ``_to_bhcw_padded`` :216): with ``DLV3_DW_LAYOUT=bhcw``, read on every call
 as the JAX package reads it at trace time, a site with k = 3, stride 1 and
@@ -97,48 +107,70 @@ def same_pads(n: int, k: int, stride: int, dilation: int) -> tuple[int, int, int
     return out, total // 2, total - total // 2
 
 
+def _row_pads(H: int, k: int, stride: int, dh: int, window) -> tuple[int, int, int]:
+    """(output rows, pad top, pad bottom) along H: TF ``SAME``, or the
+    ``window`` (Ho, pad_t) with as many bottom rows as its last output
+    reaches past x (rows of x past that are not read)."""
+    if window is None:
+        return same_pads(H, k, stride, dh)
+    Ho, pt = int(window[0]), int(window[1])
+    return Ho, pt, max(0, (Ho - 1) * stride - pt + (k - 1) * dh + 1 - H)
+
+
 def depthwise_conv_plain(
-    x: torch.Tensor, weight: torch.Tensor, stride: int = 1, dilation=(1, 1)
+    x: torch.Tensor, weight: torch.Tensor, stride: int = 1, dilation=(1, 1), window=None
 ) -> torch.Tensor:
-    """Plain PyTorch version: explicit TF-SAME ``F.pad`` + grouped conv."""
+    """Plain PyTorch version: explicit TF-SAME ``F.pad`` + grouped conv
+    (along H, the ``window``'s rows where one is given)."""
     k = weight.shape[-1]
     H, W = x.shape[-2:]
     dh, dw = dilation
-    _, pt, pb = same_pads(H, k, stride, dh)
+    Ho, pt, pb = _row_pads(H, k, stride, dh, window)
     _, pl, pr = same_pads(W, k, stride, dw)
+    if Ho == 0:
+        return x.new_zeros((x.shape[0], x.shape[1], 0, -(-W // stride)))
     xp = F.pad(x, (pl, pr, pt, pb))
     return F.conv2d(
         xp, weight.to(x.dtype), stride=stride, dilation=(dh, dw),
         groups=x.shape[1],
-    )
+    )[:, :, :Ho]
 
 
 def depthwise_conv_backward_plain(
     x: torch.Tensor, weight: torch.Tensor, g: torch.Tensor, stride: int = 1,
-    dilation=(1, 1),
+    dilation=(1, 1), window=None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch backward of :func:`depthwise_conv_plain`: the
     gradients (dx, dweight) for the output gradient ``g``, as the grouped
-    conv's input and weight gradients on the same ``SAME``-padded input."""
+    conv's input and weight gradients on the same ``SAME``-padded input
+    (or the ``window``'s)."""
     k = weight.shape[-1]
     C, H, W = x.shape[1:]
     dh, dw = int(dilation[0]), int(dilation[1])
-    _, pt, pb = same_pads(H, k, stride, dh)
+    Ho, pt, pb = _row_pads(H, k, stride, dh, window)
     _, pl, pr = same_pads(W, k, stride, dw)
+    if Ho == 0:
+        return torch.zeros_like(x), torch.zeros_like(weight)
     xp = F.pad(x, (pl, pr, pt, pb))
+    # the window's padded x may hold rows past the last output's taps
+    xp = xp[:, :, :(Ho - 1) * stride + (k - 1) * dh + 1]
     w = weight.to(x.dtype)
     g = g.to(x.dtype)
     dxp = torch.nn.grad.conv2d_input(xp.shape, w, g, stride, 0, (dh, dw), C)
     dweight = torch.nn.grad.conv2d_weight(xp, w.shape, g, stride, 0, (dh, dw), C)
-    return dxp[:, :, pt:pt + H, pl:pl + W], dweight.to(weight.dtype)
+    dx = dxp[:, :, pt:pt + H, pl:pl + W]
+    if dx.shape[2] < H:  # rows of x no output reads
+        dx = F.pad(dx, (0, 0, 0, H - dx.shape[2]))
+    return dx, dweight.to(weight.dtype)
 
 
-def _geometry(x: torch.Tensor, k: int, stride: int, dilation):
+def _geometry(x: torch.Tensor, k: int, stride: int, dilation, window=None):
     """(B, C, H, W, Ho, Wo, dh, dw, pad top, pad left), checked against
-    the kernels' 32-bit indexing and grid limits."""
+    the kernels' 32-bit indexing and grid limits; along H the ``window``'s
+    (Ho, pad_t) where one is given."""
     B, C, H, W = x.shape
     dh, dw = int(dilation[0]), int(dilation[1])
-    Ho, pt, _ = same_pads(H, k, stride, dh)
+    Ho, pt, _ = _row_pads(H, k, stride, dh, window)
     Wo, pl, _ = same_pads(W, k, stride, dw)
     if max(x.numel(), B * C * Ho * Wo) >= 2**31 or max(H, Ho, B) > 65535:
         raise ValueError(f"depthwise_conv: shape {tuple(x.shape)} too large for the kernel's grid")
@@ -225,7 +257,7 @@ def _lanes(C: int, Wo: int, itemsize: int, ptr_align: int):
 
 @functools.lru_cache(maxsize=512)
 def _fwd_plan(B: int, C: int, H: int, W: int, k: int, stride: int, dilation,
-              dtype: torch.dtype, ptr_align: int) -> FwdPlan:
+              dtype: torch.dtype, ptr_align: int, window=None) -> FwdPlan:
     """The forward kernel's plan for one call, from the shape alone.
 
     - Variant: ``gather`` at a dilated site (its window would be mostly
@@ -237,9 +269,11 @@ def _fwd_plan(B: int, C: int, H: int, W: int, k: int, stride: int, dilation,
     - Lanes: 8 channel vectors (one 128-byte line per pixel) or, narrow, up
       to 32 channels; 2 strips of ``r`` = 4 columns and 8 rows, the tile
       chosen from those tried at the flagship's sites on the H100
-      (PERF.md §6)."""
+      (PERF.md §6).
+    - ``window`` (Ho, pad_t): the output rows and the padding rows above x
+      of a row window (``mesh_space``), else TF ``SAME``'s."""
     dh, dw = int(dilation[0]), int(dilation[1])
-    Ho, pt, _ = same_pads(H, k, stride, dh)
+    Ho, pt, _ = _row_pads(H, k, stride, dh, window)
     Wo, pl, _ = same_pads(W, k, stride, dw)
     itemsize = dtype.itemsize
     vec, nv, cblocks, strips, th = _lanes(C, Wo, itemsize, ptr_align)
@@ -390,6 +424,16 @@ class BwdPlan:
         p = (self.k - 1) // 2
         return self.th + p, self.tw + p
 
+    @property
+    def g_tile(self) -> tuple[int, int]:
+        """(row, column) of the g tile inside its g window: (k − 1)/2 under
+        ``SAME``; at stride 1, k − 1 − pad (a row window's pad_t may be 0)."""
+        if self.stride == 1:
+            (pt, pl), k = self.pads, self.k
+            return k - 1 - pt, k - 1 - pl
+        p = (self.k - 1) // 2
+        return p, p
+
     def g_origin(self, ho0: int, wo0: int) -> tuple[int, int]:
         """Top-left g pixel of the g window of the tile at (ho0, wo0)."""
         if self.stride == 1:
@@ -428,7 +472,7 @@ class BwdPlan:
 
 @functools.lru_cache(maxsize=512)
 def _bwd_plan(B: int, C: int, H: int, W: int, k: int, stride: int, dilation,
-              dtype: torch.dtype, ptr_align: int) -> BwdPlan:
+              dtype: torch.dtype, ptr_align: int, window=None) -> BwdPlan:
     """The backward kernel's plan for one call, from the shape alone (so the
     order of dk's float sums depends on the shape alone).
 
@@ -438,9 +482,11 @@ def _bwd_plan(B: int, C: int, H: int, W: int, k: int, stride: int, dilation,
       ``gather`` runs two roles of threads over the same strips (dx and
       dk), so its tile has at most 128 threads' rows; ``ptr_align``
       covers x, g and dx.
-    - Row tiles: enough that the output tiles cover the map and, at stride
-      2, that the dx tiles (2·th rows from 2·ho0 − pad_t) reach the last
-      input row and column.
+    - Row tiles: enough that the output tiles cover the map and that the
+      dx tiles reach the last input row and column: at stride 1 they are
+      the output tiles (a row window has more input rows than output
+      rows), at stride 2 2·th rows from 2·ho0 − pad_t.
+    - ``window`` (Ho, pad_t): a row window's, as :func:`_fwd_plan`.
     - Walk: the fewest row tiles a block walks for its partial row (k²·cb
       float32) to be at most 1/64 of the x it covers (th·tw·S²·cb
       elements), at most all of them.
@@ -449,7 +495,7 @@ def _bwd_plan(B: int, C: int, H: int, W: int, k: int, stride: int, dilation,
       else one.
     - Shared memory: ``csrc/depthwise_bwd.cu`` ``bwd_smem``."""
     dh, dw = int(dilation[0]), int(dilation[1])
-    Ho, pt, _ = same_pads(H, k, stride, dh)
+    Ho, pt, _ = _row_pads(H, k, stride, dh, window)
     Wo, pl, _ = same_pads(W, k, stride, dw)
     itemsize = dtype.itemsize
     vec, nv, cblocks, strips, th = _lanes(C, Wo, itemsize, ptr_align)
@@ -457,7 +503,7 @@ def _bwd_plan(B: int, C: int, H: int, W: int, k: int, stride: int, dilation,
     if variant == "gather":  # two roles (dx, dk) of nv * strips * th threads each
         th = min(th, 128 // (nv * strips))
     tw = strips * _R
-    nty, tiles_w = -(-Ho // th), -(-Wo // tw)
+    nty, tiles_w = -(-max(Ho, H if stride == 1 else 0) // th), -(-Wo // tw)
     if stride == 2:
         nty = max(nty, -(-(H + pt) // (2 * th)))
         tiles_w = max(tiles_w, -(-(W + pl) // (2 * tw)))
@@ -551,7 +597,8 @@ def depthwise_conv_backward_tiled_emulation(
                 xr, xc = plan.x_window
                 xwin = band(xs, b, range(ho0 * s - pt, ho0 * s - pt + xr),
                             range(wo0 * s - pl, wo0 * s - pl + xc), H, W, cc, cin)
-                gt = gwin[p:p + th, p:p + tw]
+                ty, tx = plan.g_tile
+                gt = gwin[ty:ty + th, tx:tx + tw]
                 for ky in range(k):
                     for kx in range(k):
                         xsh = xwin[ky:ky + (th - 1) * s + 1:s, kx:kx + (tw - 1) * s + 1:s]
@@ -599,17 +646,20 @@ def _stream(x: torch.Tensor) -> int:
     return torch.cuda.current_stream(x.device).cuda_stream
 
 
-def _launch(x: torch.Tensor, weight: torch.Tensor, stride: int, dilation):
-    """One launch of the forward kernel, by :func:`_fwd_plan`'s plan."""
+def _launch(x: torch.Tensor, weight: torch.Tensor, stride: int, dilation, window=None):
+    """One launch of the forward kernel, by :func:`_fwd_plan`'s plan (none
+    for a window of no output rows)."""
     _check_channels_last(x)
     k = weight.shape[-1]
-    B, C, H, W, Ho, Wo, dh, dw, pt, pl = _geometry(x, k, stride, dilation)
-    taps = _taps(weight, x.dtype)
+    B, C, H, W, Ho, Wo, dh, dw, pt, pl = _geometry(x, k, stride, dilation, window)
     y = torch.empty(
         (B, C, Ho, Wo), dtype=x.dtype, device=x.device,
         memory_format=torch.channels_last,
     )
-    plan = _fwd_plan(B, C, H, W, k, stride, (dh, dw), x.dtype, _ptr_align(x, y))
+    if y.numel() == 0:
+        return y
+    taps = _taps(weight, x.dtype)
+    plan = _fwd_plan(B, C, H, W, k, stride, (dh, dw), x.dtype, _ptr_align(x, y), window)
     fn = _build.function(
         "depthwise_fwd", "dw_fwd",
         [ctypes.c_void_p] * 3 + [ctypes.c_int] * 23 + [ctypes.c_void_p],
@@ -627,25 +677,29 @@ def _launch(x: torch.Tensor, weight: torch.Tensor, stride: int, dilation):
     return y
 
 
-def _launch_backward(x, weight, g, stride: int, dilation, want_dx: bool, want_dk: bool):
+def _launch_backward(x, weight, g, stride: int, dilation, want_dx: bool, want_dk: bool,
+                     window=None):
     """(dx or None, dweight or None) from one launch of the CUDA backward,
     by :func:`_bwd_plan`'s plan; dk's final sum is a second, small kernel
-    of the same call."""
+    of the same call.  A window of no output rows launches nothing."""
     _check_channels_last(x)
     k = weight.shape[-1]
-    B, C, H, W, Ho, Wo, dh, dw, pt, pl = _geometry(x, k, stride, dilation)
+    B, C, H, W, Ho, Wo, dh, dw, pt, pl = _geometry(x, k, stride, dilation, window)
     if tuple(g.shape) != (B, C, Ho, Wo) or g.dtype != x.dtype:
         raise ValueError(f"depthwise_conv backward: g {tuple(g.shape)} {g.dtype} for x {tuple(x.shape)} {x.dtype}")
     if not g.is_contiguous(memory_format=torch.channels_last):
         raise ValueError("depthwise_conv backward: g must be contiguous in channels_last memory")
     if not (want_dx or want_dk):
         return None, None
+    if g.numel() == 0 or x.numel() == 0:
+        return (torch.zeros_like(x, memory_format=torch.channels_last) if want_dx else None,
+                torch.zeros_like(weight) if want_dk else None)
     taps = dx = dk = partial = None
     if want_dx:
         taps = _taps(weight, x.dtype)
         dx = torch.empty_like(x, memory_format=torch.channels_last)
     plan = _bwd_plan(B, C, H, W, k, stride, (dh, dw), x.dtype,
-                     _ptr_align(*(t for t in (x, g, dx) if t is not None)))
+                     _ptr_align(*(t for t in (x, g, dx) if t is not None)), window)
     if want_dk:
         f32 = dict(dtype=torch.float32, device=x.device)
         partial = torch.empty(plan.dk_buffer, **f32)
@@ -678,24 +732,30 @@ def _launch_backward(x, weight, g, stride: int, dilation, want_dx: bool, want_dk
 # process that loads an exported program imports this module first.  Their
 # gradients are the backward kernels (``register_autograd``).
 
+def _op_window(ho: int, pad_t: int):
+    """The operators' (ho, pad_t) arguments as a window (−1: TF ``SAME``)."""
+    return None if ho < 0 else (ho, pad_t)
+
+
 @torch.library.custom_op("dlv3_port::depthwise_fwd", mutates_args=())
 def _depthwise_fwd_op(x: torch.Tensor, weight: torch.Tensor, stride: int, dh: int,
-                      dw: int) -> torch.Tensor:
-    """K2/K3: one launch of the NHWC forward kernel."""
-    return _launch(x, weight, stride, (dh, dw))
+                      dw: int, ho: int = -1, pad_t: int = -1) -> torch.Tensor:
+    """K2/K3: one launch of the NHWC forward kernel; ``ho`` ≥ 0 with
+    ``pad_t``: a row window's output rows and top padding."""
+    return _launch(x, weight, stride, (dh, dw), _op_window(ho, pad_t))
 
 
 @_depthwise_fwd_op.register_fake
-def _(x, weight, stride, dh, dw):
+def _(x, weight, stride, dh, dw, ho=-1, pad_t=-1):
     B, C, H, W = x.shape
-    return torch.empty((B, C, -(-H // stride), -(-W // stride)), dtype=x.dtype, device=x.device,
-                       memory_format=torch.channels_last)
+    return torch.empty((B, C, -(-H // stride) if ho < 0 else ho, -(-W // stride)), dtype=x.dtype,
+                       device=x.device, memory_format=torch.channels_last)
 
 
 def _depthwise_fwd_setup(ctx, inputs, output):
-    x, weight, stride, dh, dw = inputs
+    x, weight, stride, dh, dw, ho, pad_t = inputs
     ctx.save_for_backward(x, weight)
-    ctx.stride, ctx.dilation = stride, (dh, dw)
+    ctx.stride, ctx.dilation, ctx.window = stride, (dh, dw), _op_window(ho, pad_t)
 
 
 def _depthwise_fwd_backward(ctx, g):
@@ -704,9 +764,9 @@ def _depthwise_fwd_backward(ctx, g):
     x, weight = ctx.saved_tensors
     g = g.to(x.dtype).contiguous(memory_format=torch.channels_last)
     dx, dweight = _launch_backward(
-        x, weight, g, ctx.stride, ctx.dilation, *ctx.needs_input_grad[:2]
+        x, weight, g, ctx.stride, ctx.dilation, *ctx.needs_input_grad[:2], window=ctx.window
     )
-    return dx, dweight, None, None, None
+    return dx, dweight, None, None, None, None, None
 
 
 torch.library.register_autograd("dlv3_port::depthwise_fwd", _depthwise_fwd_backward,
@@ -1254,8 +1314,18 @@ def _check_channels_last(x: torch.Tensor) -> None:
         raise ValueError("depthwise_conv: x must be contiguous in channels_last memory")
 
 
+def _cf_window(x: torch.Tensor, window) -> tuple[torch.Tensor, int]:
+    """A stride-1 3×3 row window (Ho, pad_t) as the symmetric one K6/K7
+    take: x cut or zero-padded to rows [−1, Ho + 1) of the window's
+    outputs (stride-1 ``SAME`` is symmetric, so ``SAME`` over them and a
+    crop of one row each side is the window's result).  Returns (that x,
+    the rows x gained at its top, negative where it lost them)."""
+    Ho, pt = int(window[0]), int(window[1])
+    return F.pad(x, (0, 0, pt, Ho + 2 - pt - x.shape[2])), pt
+
+
 def depthwise_conv(
-    x: torch.Tensor, weight: torch.Tensor, stride: int = 1, dilation=(1, 1)
+    x: torch.Tensor, weight: torch.Tensor, stride: int = 1, dilation=(1, 1), window=None
 ) -> torch.Tensor:
     """Depthwise conv, TF ``SAME`` padding.
 
@@ -1263,20 +1333,28 @@ def depthwise_conv(
     with odd k ∈ {3, 5, 7}; stride 1 (any dilation) or 2 (dilation 1).
     Returns (B, C, ⌈H/stride⌉, ⌈W/stride⌉) in ``channels_last``,
     differentiable in x and weight on both devices, through the route
-    :func:`depthwise_route` names."""
+    :func:`depthwise_route` names.  ``window`` (Ho, pad_t): x is a row
+    window and the result its Ho output rows (module docstring)."""
     card = _on_card(x, weight, stride, dilation)
     if depthwise_route(weight, stride, dilation) == "cf":
+        if window is not None:
+            if int(window[0]) == 0:
+                return depthwise_conv_plain(x, weight, stride, dilation, window)
+            xs, _ = _cf_window(x, window)
+            y = depthwise_conv(xs.contiguous(memory_format=torch.channels_last), weight)
+            return y[:, :, 1:1 + int(window[0])]
         if not card:
             return depthwise_cf(x.contiguous(), weight).contiguous(memory_format=torch.channels_last)
         return _depthwise_cf_op(x, weight)
     if not card:
-        return depthwise_conv_plain(x, weight, stride, dilation)
-    return _depthwise_fwd_op(x, weight, stride, int(dilation[0]), int(dilation[1]))
+        return depthwise_conv_plain(x, weight, stride, dilation, window)
+    ho, pad_t = (-1, -1) if window is None else (int(window[0]), int(window[1]))
+    return _depthwise_fwd_op(x, weight, stride, int(dilation[0]), int(dilation[1]), ho, pad_t)
 
 
 def depthwise_conv_backward(
     x: torch.Tensor, weight: torch.Tensor, g: torch.Tensor, stride: int = 1,
-    dilation=(1, 1),
+    dilation=(1, 1), window=None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The backward alone: (dx, dweight) of :func:`depthwise_conv` at
     (x, weight) for the output gradient ``g``, on the same route.  The
@@ -1284,9 +1362,16 @@ def depthwise_conv_backward(
     on the CPU."""
     card = _on_card(x, weight, stride, dilation)
     if depthwise_route(weight, stride, dilation) == "cf":
+        if window is not None:
+            xs, top = _cf_window(x, window)
+            gs = F.pad(g, (0, 0, 1, 1))
+            dx, dk = depthwise_conv_backward(xs.contiguous(memory_format=torch.channels_last),
+                                             weight, gs.contiguous(memory_format=torch.channels_last))
+            dx = F.pad(dx, (0, 0, -top, x.shape[2] + top - dx.shape[2]))
+            return dx.contiguous(memory_format=torch.channels_last), dk
         dx, dk = depthwise_cf_backward(x.contiguous(), weight, g.to(x.dtype).contiguous())
         return dx.contiguous(memory_format=torch.channels_last), dk
     if not card:
-        return depthwise_conv_backward_plain(x, weight, g, stride, dilation)
+        return depthwise_conv_backward_plain(x, weight, g, stride, dilation, window)
     g = g.to(x.dtype).contiguous(memory_format=torch.channels_last)
-    return _launch_backward(x, weight, g, stride, dilation, True, True)
+    return _launch_backward(x, weight, g, stride, dilation, True, True, window)

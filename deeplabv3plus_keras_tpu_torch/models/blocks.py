@@ -55,7 +55,7 @@ from torch.autograd.function import once_differentiable
 
 from ..kernels import depthwise_conv, same_pads
 from ..ops import quant
-from ..parallel import mesh
+from ..parallel import mesh, spatial
 
 _LOW_PRECISION = (torch.bfloat16, torch.float16)
 
@@ -179,7 +179,12 @@ def avg_pool_same_s1(x: torch.Tensor, kernel: int = 3) -> torch.Tensor:
 
 def avg_pool_valid(x: torch.Tensor, pool_size: int) -> torch.Tensor:
     """Keras ``AveragePooling2D(pool_size, padding='valid')``: stride equal to
-    the pool size, ragged edge dropped (sizes floor)."""
+    the pool size, ragged edge dropped (sizes floor).  Under ``mesh_space``
+    each output row's window is fetched whole: it may span every shard."""
+    if spatial.active():
+        return spatial.window_op(
+            x, lambda xw: _avg_pool(xw, pool_size, pool_size), k=pool_size, stride=pool_size,
+            pads_h=(0, 0), out_width=x.shape[-1] // pool_size, out_channels=x.shape[1])
     return _avg_pool(x, pool_size, pool_size)
 
 
@@ -196,8 +201,37 @@ def max_pool_same(x: torch.Tensor, k: int = 3, stride: int = 2) -> torch.Tensor:
     """flax ``nn.max_pool(x, (k, k), (stride, stride), padding="SAME")``:
     explicit −inf pads, then an unpadded pool.  Xception's 3×3 stride-2
     pools pad (1, 1) at 253 → 127 and 127 → 64 but (0, 1) at 64 → 32,
-    where torch's symmetric ``padding=1`` would shift every window."""
+    where torch's symmetric ``padding=1`` would shift every window.  Under
+    ``mesh_space`` the pads are the global height's, the halo fetched."""
+    if spatial.active():
+        _, pt, pb = same_pads(spatial.global_height(x), k, stride, 1)
+        Wo, pl, pr = same_pads(x.shape[-1], k, stride, 1)
+        return spatial.window_op(
+            x, lambda xw: F.max_pool2d(F.pad(xw, (pl, pr, 0, 0), value=float("-inf")), k, stride),
+            k=k, stride=stride, pads_h=(pt, pb), out_width=Wo, out_channels=x.shape[1],
+            fill=float("-inf"))
     return F.max_pool2d(tf_same_pad(x, k, stride, float("-inf")), k, stride)
+
+
+def conv_rows(x: torch.Tensor, w: torch.Tensor, stride: int, pads) -> torch.Tensor:
+    """``F.conv2d`` of a row-sharded x (``mesh_space``) with the global
+    padding ``pads`` = ((top, bottom), (left, right)): this rank's output
+    rows from its fetched input window (``parallel/spatial.py``)."""
+    (pt, pb), (pl, pr) = pads
+    k = w.shape[-1]
+    Wo = (x.shape[-1] + pl + pr - k) // stride + 1
+    return spatial.window_op(
+        x, lambda xw: F.conv2d(F.pad(xw, (pl, pr, 0, 0)), w, stride=stride), k=k, stride=stride,
+        pads_h=(pt, pb), out_width=Wo, out_channels=w.shape[0], deps=(w,))
+
+
+def conv2d_same(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Stride-1 ``SAME`` conv of an odd k×k kernel (symmetric padding), row
+    sharded under ``mesh_space``."""
+    p = w.shape[-1] // 2
+    if spatial.active():
+        return conv_rows(x, w, 1, ((p, p), (p, p)))
+    return F.conv2d(x, w, padding=p)
 
 
 class _Init:
@@ -232,6 +266,8 @@ class Conv(_Init, nn.Module):
         return y if self.bias is None else y + self.bias.to(y.dtype)[:, None, None]
 
     def _conv(self, x, w):
+        if spatial.active():
+            return conv_rows(x, w, self.strides, self._pads(spatial.global_height(x), x.shape[-1]))
         if self.padding == "VALID":
             return F.conv2d(x, w, stride=self.strides)
         if self.padding == "SAME":
@@ -242,6 +278,16 @@ class Conv(_Init, nn.Module):
         if (pt, pl) == (pb, pr):
             return F.conv2d(x, w, stride=self.strides, padding=(pt, pl))
         return F.conv2d(F.pad(x, (pl, pr, pt, pb)), w, stride=self.strides)
+
+    def _pads(self, H: int, W: int):
+        """((top, bottom), (left, right)) of an H × W input."""
+        if self.padding == "VALID":
+            return (0, 0), (0, 0)
+        if self.padding == "SAME":
+            _, pt, pb = same_pads(H, self.kernel, self.strides, 1)
+            _, pl, pr = same_pads(W, self.kernel, self.strides, 1)
+            return (pt, pb), (pl, pr)
+        return self.padding
 
 
 class QuantConv(Conv):
@@ -276,7 +322,20 @@ class DepthwiseConv(_Init, nn.Module):
 
     def forward(self, x):
         x = x.contiguous(memory_format=torch.channels_last)  # no-op in the model
-        return depthwise_conv(x, self.weight.to(x.dtype), self.strides, self.dilation)
+        w = self.weight.to(x.dtype)
+        if spatial.active():
+            # the kernel on this rank's row window: the fetched rows, the
+            # output rows and the padding rows above them (K2-K5's window)
+            k, (dh, _) = w.shape[-1], self.dilation
+            _, pt, pb = same_pads(spatial.global_height(x), k, self.strides, dh)
+            return spatial.window_op(
+                x, lambda xw, pad_t, ho: depthwise_conv(
+                    xw.contiguous(memory_format=torch.channels_last), w, self.strides,
+                    self.dilation, window=(ho, pad_t)),
+                k=k, stride=self.strides, dilation=dh, pads_h=(pt, pb),
+                out_width=-(-x.shape[-1] // self.strides), out_channels=x.shape[1], clip=True,
+                deps=(w,))
+        return depthwise_conv(x, w, self.strides, self.dilation)
 
 
 _recompute = threading.local()
@@ -386,12 +445,13 @@ class _RowBatchNorm(torch.autograd.Function):
 
     ``sync``: the statistics are those of the rows of every rank of the
     process group, as flax's over a batch sharded on a mesh.  Each rank's
-    mean and variance of its own rows cross ranks in one all-reduce (a slot
-    a rank) and combine as the parallel variance algorithm combines them
-    (the train step gives every rank as many rows): equal to flax's
-    E[x²] − E[x]² in exact arithmetic, without its loss of digits to the
-    mean, so N ranks agree with one process (torch's two-pass variance in
-    float32/float64) to rounding.  The backward all-reduces Σg and Σg·x̂
+    count, mean and variance of its own rows cross ranks in one all-reduce
+    (a float64 slot a rank) and combine as the parallel variance algorithm
+    combines them, weighted by the counts (under ``mesh_space`` ranks hold
+    unequal rows, or none): equal to flax's E[x²] − E[x]² in exact
+    arithmetic, without its loss of digits to the mean, so N ranks agree
+    with one process (torch's two-pass variance in float32/float64) to
+    rounding.  The backward all-reduces Σg and Σg·x̂
     for dx, and keeps this rank's own sums as the scale and bias gradients,
     which the train step sums over ranks with every other gradient."""
 
@@ -400,16 +460,21 @@ class _RowBatchNorm(torch.autograd.Function):
         xf = x.to(torch.promote_types(x.dtype, torch.float32))
         C = x.shape[1]
         if sync:
-            # every rank's (mean, variance) of its own rows, gathered by
-            # one all-reduce of rank slots, combined with equal counts
-            world = mesh.world_size()
-            n = x.shape[0] * world
-            var_r, mean_r = torch.var_mean(xf, 0, correction=0)
-            slots = xf.new_zeros(world, 2, C)
-            slots[mesh.rank()] = torch.stack([mean_r, var_r])
-            means, variances = mesh.all_reduce_(slots).unbind(1)
-            mean = means.mean(0)
-            var = (variances + (means - mean).square()).mean(0)
+            # every rank's (count, mean, variance) of its own rows, gathered
+            # by one all-reduce of rank slots, combined by the counts
+            slots = torch.zeros(mesh.world_size(), 1 + 2 * C, dtype=torch.float64,
+                                device=x.device)
+            slots[mesh.rank(), 0] = x.shape[0]
+            if x.shape[0]:
+                var_r, mean_r = torch.var_mean(xf, 0, correction=0)
+                slots[mesh.rank(), 1:] = torch.cat([mean_r, var_r])
+            mesh.all_reduce_(slots)
+            total = slots[:, 0].sum()
+            n = total.to(xf.dtype)  # a device scalar: no wait on the card
+            share = (slots[:, :1] / total).to(xf.dtype)
+            means, variances = slots[:, 1:].to(xf.dtype).split(C, 1)
+            mean = (share * means).sum(0)
+            var = (share * (variances + (means - mean).square())).sum(0)
         else:
             n = x.shape[0]
             mean = xf.mean(0)

@@ -20,7 +20,7 @@ from torch import nn
 
 from ..ops.fused_upconv import upsample_conv3
 from ..ops.resize import tf_resize_images, tf_resize_images_matmul
-from .blocks import Conv, ConvBNReLU, _Init, glorot_uniform_
+from .blocks import Conv, ConvBNReLU, _Init, conv2d_same, glorot_uniform_
 
 
 class _RefinedClassifier(_Init, nn.Module):
@@ -41,9 +41,8 @@ class _RefinedClassifier(_Init, nn.Module):
             x = torch.cat([low, enc], dim=1)
             return upsample_conv3(x, w, self.half)
         f = self.half
-        conv = nn.functional.conv2d
-        out = conv(tf_resize_images(low, f, f), w[:, : self.c_low], padding=1)
-        return out + conv(tf_resize_images(enc, f, f), w[:, self.c_low :], padding=1)
+        out = conv2d_same(tf_resize_images(low, f, f), w[:, : self.c_low])
+        return out + conv2d_same(tf_resize_images(enc, f, f), w[:, self.c_low :])
 
 
 class Decoder(nn.Module):

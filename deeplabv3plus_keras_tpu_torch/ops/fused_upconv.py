@@ -25,6 +25,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..parallel import spatial
 from .resize import tf_resize_images
 
 
@@ -50,7 +51,16 @@ def upsample_conv3(x: torch.Tensor, w: torch.Tensor, f: int) -> torch.Tensor:
     """``conv3×3_SAME(bilinear_×f(x), w)`` without the upsampled tensor.
 
     x: (B, C, H, W); w: (O, C, 3, 3); f: even integer ≥ 2.
-    Result: (B, O, f·H, f·W)."""
+    Result: (B, O, f·H, f·W).  Under ``mesh_space`` a rank's output rows
+    come from the source rows they need, the result's rows kept
+    (``parallel/spatial.py`` ``resize_rows`` with a one-row halo)."""
+    if spatial.active():
+        return spatial.resize_rows(x, f, lambda b: _upsample_conv3(b, w, f), halo=1,
+                                   out_width=f * x.shape[-1], out_channels=w.shape[0], deps=(w,))
+    return _upsample_conv3(x, w, f)
+
+
+def _upsample_conv3(x: torch.Tensor, w: torch.Tensor, f: int) -> torch.Tensor:
     n_h, n_w = x.shape[-2:]
     if f < 2 or f % 2 or min(n_h, n_w) < 3:
         return upsample_conv3_plain(x, w, f)  # tiny inputs: strips would overlap

@@ -17,12 +17,17 @@ Two bilinear conventions, which must not be mixed up:
    ``jax.image.resize(method='linear')`` and
    ``F.interpolate(mode='bilinear', align_corners=False)`` take the same
    taps and weights, edges clamped.  Tensors are NCHW (any memory format).
+   Under ``mesh_space`` the in-model resizes run on a rank's rows: the
+   source rows its output rows need are fetched and resized, and the rows
+   it owns kept (``parallel/spatial.py`` ``resize_rows``).
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from ..parallel import spatial
 
 
 def _axis_coords(out_size: int, in_size: int, mode: str, device=None):
@@ -127,6 +132,21 @@ def tf_resize_images(x: torch.Tensor, height_factor: int, width_factor: int) -> 
     greedy path takes (the one whose result is smaller for the matrix it
     removes; the rows first on a square map).  The port contracts in that
     order, so it rounds where JAX does."""
+    if spatial.active():
+        return _rows(_tf_resize_images, x, height_factor, width_factor)
+    return _tf_resize_images(x, height_factor, width_factor)
+
+
+def _rows(fn, x: torch.Tensor, height_factor: int, width_factor: int) -> torch.Tensor:
+    """``fn`` (a resize) of a row-sharded x: this rank's output rows."""
+    if int(height_factor) != int(width_factor):
+        raise ValueError(f"mesh_space: resize factors {height_factor} x {width_factor} of a "
+                         "square map must be equal")
+    return spatial.resize_rows(x, int(height_factor), lambda b: fn(b, height_factor, width_factor),
+                               out_width=x.shape[-1] * int(width_factor), out_channels=x.shape[1])
+
+
+def _tf_resize_images(x: torch.Tensor, height_factor: int, width_factor: int) -> torch.Tensor:
     if x.dtype not in (torch.bfloat16, torch.float16):
         return F.interpolate(
             x, scale_factor=(int(height_factor), int(width_factor)),
@@ -135,7 +155,7 @@ def tf_resize_images(x: torch.Tensor, height_factor: int, width_factor: int) -> 
     n, h, w = x.shape[0] * x.shape[1], x.shape[-2], x.shape[-1]
     H, W = h * int(height_factor), w * int(width_factor)
     if n * H * w - H * h <= n * h * W - W * w:  # rows first: the matmul form
-        return tf_resize_images_matmul(x, height_factor, width_factor)
+        return _tf_resize_images_matmul(x, height_factor, width_factor)
     ah = interpolation_matrix(h, height_factor, x.dtype, x.device)
     aw = interpolation_matrix(w, width_factor, x.dtype, x.device)
     return torch.einsum("Hh,bchW->bcHW", ah, torch.einsum("Ww,bchw->bchW", aw, x))
@@ -155,6 +175,12 @@ def tf_resize_images_matmul(x: torch.Tensor, height_factor: int, width_factor: i
     """:func:`tf_resize_images` as two interpolation-matrix contractions
     (the JAX package's form for the pyramid-pooling branch and the fp32
     final upsample); the same ≤2-tap sums, operators built in fp32."""
+    if spatial.active():
+        return _rows(_tf_resize_images_matmul, x, height_factor, width_factor)
+    return _tf_resize_images_matmul(x, height_factor, width_factor)
+
+
+def _tf_resize_images_matmul(x: torch.Tensor, height_factor: int, width_factor: int) -> torch.Tensor:
     h, w = x.shape[-2:]
     ah = interpolation_matrix(h, height_factor, x.dtype, x.device)
     aw = interpolation_matrix(w, width_factor, x.dtype, x.device)

@@ -3,8 +3,9 @@
 
 The JAX package turns ``multi_gpu``/``num_gpus`` into a ``('data',
 'space')`` mesh of one program: parameters replicated, the batch sharded
-over ``'data'``, and GSPMD inserts the collectives.  Here each rank of a
-``torch.distributed`` process group is one device of the ``'data'`` axis
+over ``'data'`` (and the image height over ``'space'`` when the extra key
+``mesh_space`` is above 1), and GSPMD inserts the collectives.  Here each
+rank of a ``torch.distributed`` process group is one device of that mesh
 and runs the step as a local program on its own device:
 
 - ``hps.batch_size`` stays the **global** batch; rank r owns the rows
@@ -14,16 +15,22 @@ and runs the step as a local program on its own device:
   pixels and the gradients are summed over ranks (``parallel/step.py``), so
   N ranks compute what the N-device mesh computes.
 
+Under ``mesh_space`` S > 1 the N = n_data × S ranks form the grid of
+:func:`init_grid`: rank r is (d, s) = divmod(r, S), holds the batch rows
+``row_indices(B, n_data, d)`` and the image rows :func:`rows_of` gives
+position s of every activation, and fetches other ranks' rows where a
+spatial op reaches them (``parallel/spatial.py``).
+
 Collectives here are ``all_reduce`` (sum) and ``broadcast`` only: the gloo
 backend carries no other collective on CUDA tensors, and two ranks that
 share one card must use gloo (NCCL refuses two ranks on one device).  A
 group of one rank, or none, is the one-device program: every helper is then
-the identity.  The spatial ``'space'`` axis is not ported (ROADMAP.md Queue
-A item 13b).
+the identity.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import datetime
 import os
 
@@ -117,6 +124,70 @@ def row_indices(batch: int, world: int | None = None, rank_: int | None = None,
                            for i in range(accum)])
 
 
+def rows_of(H: int, n_space: int, s: int) -> tuple[int, int]:
+    """The rows [lo, hi) of a height-``H`` activation that space position
+    ``s`` of ``n_space`` holds: ⌈H/S⌉ rows a position in order, the last
+    positions shorter or empty.  A function of (H, S, s) alone, so every
+    rank knows which rank owns which rows of every activation."""
+    per = -(-H // n_space)
+    lo = min(s * per, H)
+    return lo, min(lo + per, H)
+
+
+@dataclasses.dataclass(frozen=True)
+class Grid:
+    """The (data, space) grid of the ranks: this rank's position (d, s),
+    the group of its row of the grid (the ranks of its data position d,
+    which hold its samples: ``space_group``) and of its column (the ranks
+    of its space position s: ``data_group``)."""
+
+    n_data: int
+    n_space: int
+    d: int
+    s: int
+    space_group: object
+    data_group: object
+
+    def rows_of(self, H: int) -> tuple[int, int]:
+        """This rank's rows of a height-``H`` activation."""
+        return rows_of(H, self.n_space, self.s)
+
+
+_grid: Grid | None = None
+
+
+def init_grid(n_space: int) -> Grid | None:
+    """Split the group of N ranks into the (N / n_space) × n_space grid of
+    the JAX package's ``('data', 'space')`` mesh (``make_mesh``): rank r is
+    (d, s) = divmod(r, n_space).  Every rank must call it, in the same
+    order (``new_group`` is collective).  ``n_space`` 1 clears the grid (the
+    data-parallel group of A13).  Raises ``ValueError`` where ``n_space``
+    does not divide N, as the JAX facade does."""
+    global _grid
+    n_space = max(1, int(n_space))
+    world = world_size()
+    if world % n_space:
+        raise ValueError(f"mesh_space {n_space} must divide num devices {world}")
+    if n_space == 1:
+        _grid = None
+        return None
+    if _grid is not None and _grid.n_space == n_space:
+        return _grid
+    n_data = world // n_space
+    d, s = divmod(rank(), n_space)
+    space_groups = [dist.new_group([i * n_space + j for j in range(n_space)])
+                    for i in range(n_data)]
+    data_groups = [dist.new_group([i * n_space + j for i in range(n_data)])
+                   for j in range(n_space)]
+    _grid = Grid(n_data, n_space, d, s, space_groups[d], data_groups[s])
+    return _grid
+
+
+def grid() -> Grid | None:
+    """The grid of :func:`init_grid`, or None (no spatial split)."""
+    return _grid if is_active() else None
+
+
 def all_reduce_(t: torch.Tensor) -> torch.Tensor:
     """Sum ``t`` over the ranks, in place (the identity without a group)."""
     if is_active():
@@ -138,6 +209,12 @@ def gather_ints(value: int, device) -> list[int]:
     t = torch.zeros(world_size(), dtype=torch.float64, device=device)
     t[rank()] = float(value)
     return [int(v) for v in all_reduce_(t).tolist()]
+
+
+def all_reduce_group_(t: torch.Tensor, group) -> torch.Tensor:
+    """Sum ``t`` over the ranks of ``group``, in place."""
+    dist.all_reduce(t, group=group)
+    return t
 
 
 def barrier(device) -> None:

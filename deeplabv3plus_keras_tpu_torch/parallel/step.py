@@ -39,6 +39,21 @@ backward, through flat all-reduces in parameter order (no
 autograd hooks, interleaved with BN's own backward all-reduces in an order
 that is not fixed, it would stall on a parameter the loss never reaches,
 and accumulation would need ``no_sync``).
+
+Under ``mesh_space`` S > 1 (the grid of ``mesh.init_grid``: N = n_data × S
+ranks) the train and eval steps take this rank's rows of the global batch
+(``mesh.row_indices`` over the n_data data positions) and this rank's
+image rows (``mesh.rows_of``), the JAX steps' batch sharded over
+``('data', 'space')``: the model fetches the rows each spatial op needs
+(``parallel/spatial.py``), BN takes its statistics over every rank's
+pixels, each sample's pixel mean in the loss sums over its space ranks
+(the global pixel count in every rank's denominator), the count of valid
+samples is the data ranks', and gradients, loss and confusion matrix sum
+over all N ranks.  The predict and label steps take whole images and
+return whole probabilities and labels on every rank, as the JAX steps
+return them replicated: each rank computes its rows and the rows are
+gathered.  Dropout draws from each rank's own stream, as under a data
+split (a known divergence from the JAX mask, ROADMAP.md Queue C).
 """
 
 from __future__ import annotations
@@ -64,7 +79,7 @@ from ..train.loss import (
 )
 from ..train.metrics import confusion_matrix_update, confusion_matrix_update_sparse
 from ..train.optimizer import KerasAdam, make_optimizer
-from . import mesh
+from . import mesh, spatial
 
 def _use_fused_tail(conf: Config) -> bool:
     """The extra key ``fused_tail`` (default off, as in the JAX package,
@@ -108,12 +123,32 @@ def create_train_state(conf: Config, model: torch.nn.Module) -> KerasAdam:
     return make_optimizer(model.parameters(), conf.hps)
 
 
-def _loss_for(label, probs, pw, nw, valid, n_valid=None):
+def _loss_for(label, probs, pw, nw, valid, n_valid=None, n_pix=None):
     """One-hot (B,H,W,C) or integer (B,H,W) labels; ``n_valid``: the global
-    count of valid samples (``train/loss.py`` ``masked_pixel_mean``)."""
+    count of valid samples (``train/loss.py`` ``masked_pixel_mean``);
+    ``n_pix``: a sample's global pixel count, where the rows are a share."""
     if label.dim() == probs.dim():
-        return class_balanced_loss(label, probs, pw, nw, valid=valid, n_valid=n_valid)
-    return class_balanced_loss_sparse(label, probs, pw, nw, valid=valid, n_valid=n_valid)
+        return class_balanced_loss(label, probs, pw, nw, valid=valid, n_valid=n_valid,
+                                   n_pix=n_pix)
+    return class_balanced_loss_sparse(label, probs, pw, nw, valid=valid, n_valid=n_valid,
+                                      n_pix=n_pix)
+
+
+def _valid_count(valid: torch.Tensor, grid) -> torch.Tensor:
+    """The count of valid samples of the global batch, in float64, per row
+    of ``valid``'s leading dimensions summed: over every rank, or under
+    ``mesh_space`` over the data ranks (the ranks of one space position
+    hold different samples, those of one data position the same ones)."""
+    v = valid.to(torch.float64)
+    if grid is None:
+        return mesh.all_reduce_(v)
+    return mesh.all_reduce_group_(v, grid.data_group)
+
+
+def _pixels(image: torch.Tensor, grid) -> int | None:
+    """A sample's global pixel count under ``mesh_space`` (square images:
+    the width squared), else None (the rows are whole samples)."""
+    return None if grid is None else image.shape[2] * image.shape[2]
 
 
 def _sum_over_ranks(loss_share: torch.Tensor, cm: torch.Tensor):
@@ -173,6 +208,11 @@ def build_train_step(model, optimizer: KerasAdam, conf: Config, class_weights=No
     aug = parse_augment_conf(conf.extra.get("augment"))
     fused = _use_fused_tail(conf)
     world, rank = mesh.world_size(), mesh.rank()
+    grid = mesh.grid()
+    # the data positions: the ranks under a data split, n_data under space
+    n_data, d = (grid.n_data, grid.d) if grid is not None else (world, rank)
+    if grid is not None:
+        spatial.refuse_unported(conf)
 
     def train_step(batch: dict) -> dict:
         model.train()
@@ -185,14 +225,15 @@ def build_train_step(model, optimizer: KerasAdam, conf: Config, class_weights=No
         step = optimizer.iterations
         gen = step_generator(seed, step, dev)
         rows = n_valid = None
+        n_pix = _pixels(image, grid)
         if world > 1:
-            rows = torch.as_tensor(mesh.row_indices(B * world, world, rank, accum), device=dev)
-            # each microbatch's count of valid samples over every rank
-            n_valid = mesh.all_reduce_(valid.reshape(accum, mb).sum(1).to(torch.float64))
+            rows = torch.as_tensor(mesh.row_indices(B * n_data, n_data, d, accum), device=dev)
+            # each microbatch's count of valid samples over the data ranks
+            n_valid = _valid_count(valid.reshape(accum, mb).sum(1), grid)
         if aug is not None:
             # drawn before the dropout, as the JAX step splits its step key
             image, label = augment_batch(image, label, gen, flip=aug[0], scale_range=aug[1],
-                                         rows=rows, batch=B * world)
+                                         rows=rows, batch=B * n_data)
         optimizer.zero_grad()
         loss_sum, l2_sum, cm_sum = 0.0, 0.0, 0
         for i in range(accum):
@@ -202,8 +243,8 @@ def build_train_step(model, optimizer: KerasAdam, conf: Config, class_weights=No
             draws = gen
             if world > 1:
                 own = step_generator(seed, step, dev, i if accum > 1 else None, rank=rank)
-                draws = mesh.RankDraws(gen, own, torch.arange(rank * mb, (rank + 1) * mb, device=dev),
-                                       mb * world)
+                draws = mesh.RankDraws(gen, own, torch.arange(d * mb, (d + 1) * mb, device=dev),
+                                       mb * n_data)
             nv = n_valid[i] if world > 1 else None
             if fused:
                 logits, _ = model(image[part], return_presample=True, generator=draws)
@@ -212,7 +253,7 @@ def build_train_step(model, optimizer: KerasAdam, conf: Config, class_weights=No
                 del logits
             else:
                 probs = model(image[part], generator=draws)
-                loss = _loss_for(label[part], probs, pw, nw, valid[part], nv)
+                loss = _loss_for(label[part], probs, pw, nw, valid[part], nv, n_pix)
                 with torch.no_grad():
                     cm = _cm_for(label[part], probs, num_classes, valid[part])
                 del probs
@@ -310,40 +351,56 @@ def build_eval_step(model, conf: Config, class_weights=None, with_probs: bool = 
     probs_fn = _tta_probs_fn(model, conf, tta_scales, tta_flip) if tta else model
     fused = _use_fused_tail(conf) and not with_probs and not tta
     world = mesh.world_size()
+    grid = mesh.grid()
+    if grid is not None:
+        spatial.refuse_unported(conf)
 
     def eval_step(batch: dict) -> dict:
         model.eval()
         with _inference(model, quant):
             valid = batch["valid"]
             n_valid = None
+            n_pix = _pixels(batch["image"], grid)
             if world > 1:
-                n_valid = mesh.all_reduce_(valid.sum().to(torch.float64).reshape(1))[0]
+                n_valid = _valid_count(valid.sum().reshape(1), grid)[0]
             if fused:
                 logits, _ = model(batch["image"], return_presample=True)
                 loss, cm = tail_loss_cm(logits, batch["label"], pw, nw, num_classes, valid,
                                         n_valid=n_valid)
             else:
                 probs = probs_fn(batch["image"])
-                loss = _loss_for(batch["label"], probs, pw, nw, valid, n_valid)
+                loss = _loss_for(batch["label"], probs, pw, nw, valid, n_valid, n_pix)
                 cm = _cm_for(batch["label"], probs, num_classes, valid)
             if world > 1:
                 loss, cm = _sum_over_ranks(loss, cm)
             out = {"loss": loss + l2_penalty(model, wd), "cm": cm}
             if with_probs:
-                out["probs"] = probs
+                # under mesh_space: this rank's samples at their full height
+                out["probs"] = spatial.gather_rows(probs, probs.shape[2], 1)
             return out
 
     return eval_step
 
 
+def _own_rows(images: torch.Tensor) -> torch.Tensor:
+    """This rank's image rows of whole images (B, S, S, 3) under
+    ``mesh_space``; the images as they are otherwise."""
+    grid = spatial.active()
+    if grid is None:
+        return images
+    a, b = grid.rows_of(images.shape[1])
+    return images[:, a:b]
+
+
 def build_predict_step(model, quant=None) -> Callable[[torch.Tensor], torch.Tensor]:
     """images (B, S, S, 3) → softmax probabilities (B, S, S, classes);
-    int8 at the sites of ``quant``."""
+    int8 at the sites of ``quant``.  Under ``mesh_space`` each rank
+    computes its rows and every rank returns them all."""
 
     def predict_step(images: torch.Tensor) -> torch.Tensor:
         model.eval()
         with _inference(model, quant):
-            return model(images)
+            return spatial.gather_rows(model(_own_rows(images)), images.shape[1], 1)
 
     return predict_step
 
@@ -354,12 +411,24 @@ def build_label_step(model, quant=None) -> Callable[[torch.Tensor], torch.Tensor
     argmax∘softmax∘upsample ≡ argmax∘upsample, so labels come from the
     decoder's pre-upsample logits through the fused upsample+argmax kernel
     (``kernels/upsample_argmax``): the (B, S, S, C) probabilities never
-    exist.  int8 at the sites of ``quant``."""
+    exist.  int8 at the sites of ``quant``.
+
+    Under ``mesh_space`` each rank runs the kernel on the logits rows its
+    label rows need (its own and a fetched row or so on each side, clamped
+    at the image's edges: TF half-pixel sampling at an integer scale makes
+    the kept rows exact), and every rank returns all the labels."""
 
     def label_step(images: torch.Tensor) -> torch.Tensor:
         model.eval()
         with _inference(model, quant):
-            logits, up = model(images, return_presample=True)
-            return upsample_argmax(logits.contiguous(), up)
+            logits, up = model(_own_rows(images), return_presample=True)
+            if spatial.active() is None:
+                return upsample_argmax(logits.contiguous(), up)
+            # the logits NHWC; spatial.resize_rows takes NCHW row shards
+            labels = spatial.resize_rows(
+                logits.permute(0, 3, 1, 2), up,
+                lambda xb: upsample_argmax(xb.permute(0, 2, 3, 1).contiguous(), up),
+                out_width=logits.shape[2] * up, out_channels=0, row_dim=1)
+            return spatial.gather_rows(labels, images.shape[1], 1).to(torch.int32)
 
     return label_step

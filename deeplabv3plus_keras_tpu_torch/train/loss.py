@@ -88,25 +88,26 @@ def masked_pixel_mean(per_pixel, valid, n_valid=None, total_pixels_per_sample=No
 
 
 def class_balanced_loss(y_true, y_pred, pos_weights=SS_PW, neg_weights=SS_NW,
-                        epsilon: float = 1e-7, valid=None, n_valid=None):
+                        epsilon: float = 1e-7, valid=None, n_valid=None, n_pix=None):
     """Weighted per-class BCE of one-hot ``y_true`` and probabilities
     ``y_pred`` (both (B, H, W, C)), summed over classes, mean over the rest
     (over valid samples only when ``valid`` (B,) is given; ``n_valid``:
-    :func:`masked_pixel_mean`)."""
+    :func:`masked_pixel_mean`; ``n_pix``, a sample's global pixel count
+    where the rows are a share of each sample's, under ``mesh_space``)."""
     per_pixel = per_pixel_loss_dense(y_true, y_pred, pos_weights, neg_weights, epsilon)
     if valid is None:
         return per_pixel.mean()
-    return masked_pixel_mean(per_pixel, valid, n_valid)
+    return masked_pixel_mean(per_pixel, valid, n_valid, n_pix)
 
 
 def class_balanced_loss_sparse(labels, y_pred, pos_weights=SS_PW, neg_weights=SS_NW,
-                               epsilon: float = 1e-7, valid=None, n_valid=None):
+                               epsilon: float = 1e-7, valid=None, n_valid=None, n_pix=None):
     """:func:`class_balanced_loss` of integer labels (B, H, W): the same
     value without a (B, H, W, C) one-hot tensor."""
     per_pixel = per_pixel_loss_sparse(labels, y_pred, pos_weights, neg_weights, epsilon)
     if valid is None:
         return per_pixel.mean()
-    return masked_pixel_mean(per_pixel, valid, n_valid)
+    return masked_pixel_mean(per_pixel, valid, n_valid, n_pix)
 
 
 def l2_penalty(model: nn.Module, weight_decay: float):

@@ -98,7 +98,8 @@ def test_segment_rejects_bad_images_and_unported_options():
     ({"multi_gpu": True, "num_gpus": 4, "allow_fewer_devices": True}, "shrinks"),
     ({"backbone_weights": "/nonexistent/backbone.h5"}, "item 14b"),
     ({"backbone_weights": "imagenet"}, "item 14b"),
-    ({"mesh_space": 2}, "item 13b"),
+    ({"multi_gpu": True, "num_gpus": 3, "mesh_space": 2}, "divide"),
+    ({"multi_gpu": True, "num_gpus": 2, "mesh_space": 2, "fused_tail": True}, "item 13c"),
     ({"cache_device": True}, "item 19"),
     ({"hps": {"dtype": "bfloat16"}}, "item 18"),
 ])
@@ -112,13 +113,21 @@ def test_config_keys_that_change_the_result_raise(keys, item, tmp_path, monkeypa
     process, as the JAX facade shrinks its mesh.  It loads backbone weights
     from a Keras file and downloads nothing: a missing file (an ImageNet one
     absent from an empty Keras cache) raises naming it, before TensorFlow
-    is imported.  It does not shard space yet, so it refuses that.  It keeps the
+    is imported.  It shards space over the ranks' (data, space) grid
+    (tests/test_torch_spatial.py): a ``mesh_space`` that does not divide
+    ``num_gpus`` raises ``ValueError``, as the JAX facade does
+    (api.py:110-111), and what is not ported under it yet
+    (``fused_tail`` here) raises naming ROADMAP item 13c, both before any
+    process group is needed.  It keeps the
     dataset in device memory under ``cache_device`` (api.py:221-236,
     ROADMAP item 19) and computes in the ``hps.dtype`` (item 18) as the JAX
     facade does, so those keys are accepted and take effect."""
     conf = {**conf_dict(32), **keys}
     if item == "launcher":
         with pytest.raises(RuntimeError, match="torchrun"):
+            SemanticSegmentation(conf, device="cpu")
+    elif item == "divide":
+        with pytest.raises(ValueError, match="mesh_space 2 must divide num devices 3"):
             SemanticSegmentation(conf, device="cpu")
     elif item == "shrinks":
         seg = SemanticSegmentation(conf, device="cpu")

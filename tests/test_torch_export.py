@@ -103,12 +103,12 @@ def ops_on_cpu(monkeypatch):
     """The depthwise wrappers route CPU tensors through the custom
     operators, whose launches run the plain versions (the card's path,
     rehearsed on the CPU)."""
-    def launch(x, weight, stride, dilation):
-        return depthwise_conv_plain(x, weight, stride, dilation).contiguous(
+    def launch(x, weight, stride, dilation, window=None):
+        return depthwise_conv_plain(x, weight, stride, dilation, window).contiguous(
             memory_format=torch.channels_last)
 
-    def launch_backward(x, weight, g, stride, dilation, want_dx, want_dk):
-        dx, dk = depthwise.depthwise_conv_backward_plain(x, weight, g, stride, dilation)
+    def launch_backward(x, weight, g, stride, dilation, want_dx, want_dk, window=None):
+        dx, dk = depthwise.depthwise_conv_backward_plain(x, weight, g, stride, dilation, window)
         return (dx if want_dx else None), (dk if want_dk else None)
 
     monkeypatch.setattr(depthwise, "_launch", launch)

@@ -649,6 +649,105 @@ def test_two_ranks_launch_the_kernels_of_one_process(card, tmp_path):
     assert abs(ranks[0]["loss"] - loss) <= 1e-5 * loss
 
 
+# Row-window sites (mesh_space): (C, H, k, stride, dilation) of the
+# flagship at 512² (its stride-2 sites at even heights, the dilated ASPP
+# at the 32² map) and 3×3 sites at Xception's odd heights at 512² (253, 127)
+# and 1024² (509, 255) and its 128² map, also at stride 2
+WINDOW_SITES = [
+    (32, 256, 3, 1, (1, 1)), (96, 256, 3, 2, (1, 1)), (144, 128, 3, 2, (1, 1)),
+    (384, 32, 3, 1, (1, 1)), (96, 32, 3, 1, (18, 15)), (256, 32, 3, 1, (6, 21)),
+    (64, 253, 3, 1, (1, 1)), (128, 253, 3, 2, (1, 1)), (256, 127, 3, 1, (1, 1)),
+    (256, 127, 3, 2, (1, 1)), (64, 509, 3, 1, (1, 1)), (128, 255, 3, 2, (1, 1)),
+    (728, 128, 3, 1, (1, 1)), (32, 57, 5, 2, (1, 1)), (32, 57, 7, 1, (1, 1)),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,rel", [(torch.float32, 1e-5), (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("site", WINDOW_SITES, ids=lambda s: "C{}H{}k{}s{}d{}".format(*s[:4], s[4][0]))
+def test_depthwise_row_windows_match_plain(card, site, dtype, rel):
+    """K2–K5 on row windows (``window=(Ho, pad_t)``): for each shard of 2
+    and of 4 (``mesh.rows_of`` of the output rows, uneven where they do not
+    divide), the window's rows given to the kernels against the plain
+    versions on the same window in float64 (forward and dx to ``rel`` of
+    their largest value; dk, a float32 sum in either dtype, to 1e-4 of
+    Σ|x·g|)."""
+    from deeplabv3plus_keras_tpu_torch.kernels import same_pads
+    from deeplabv3plus_keras_tpu_torch.parallel import mesh
+
+    C, H, k, stride, dil = site
+    x = torch.randn(2, C, H, H, device="cuda", generator=card).to(dtype).contiguous(
+        memory_format=torch.channels_last)
+    w = torch.randn(C, 1, k, k, device="cuda", generator=card).to(dtype).float()
+    Ho, pt, _ = same_pads(H, k, stride, dil[0])
+    for S in (2, 4):
+        for q in range(S):
+            o0, o1 = mesh.rows_of(Ho, S, q)
+            if o0 == o1:
+                continue
+            lo, hi = o0 * stride - pt, (o1 - 1) * stride - pt + dil[0] * (k - 1) + 1
+            c0, c1 = max(lo, 0), min(hi, H)
+            win = (o1 - o0, c0 - lo)
+            xw = x[:, :, c0:c1].contiguous(memory_format=torch.channels_last)
+            g = torch.randn((2, C, o1 - o0, -(-H // stride)), device="cuda", generator=card).to(
+                dtype).contiguous(memory_format=torch.channels_last)
+            y = depthwise_conv(xw, w, stride, dil, window=win)
+            dx, dk = depthwise_conv_backward(xw, w, g, stride, dil, window=win)
+            ref = depthwise_conv_plain(xw.double(), w.double(), stride, dil, window=win)
+            rdx, rdk = depthwise_conv_backward_plain(xw.double(), w.double(), g.double(), stride,
+                                                     dil, window=win)
+            _, dk_abs = depthwise_conv_backward_plain(xw.double().abs(), w.double(),
+                                                      g.double().abs(), stride, dil, window=win)
+            assert y.dtype == dtype and y.shape == ref.shape, (site, S, q)
+            assert (y.double() - ref).abs().max() <= rel * ref.abs().max(), (site, S, q)
+            assert (dx.double() - rdx).abs().max() <= rel * rdx.abs().max(), (site, S, q)
+            assert ((dk.double() - rdk).abs() <= 1e-4 * dk_abs).all(), (site, S, q)
+
+
+@pytest.mark.cuda
+def test_two_ranks_split_in_space_launch_every_kernel(card, tmp_path):
+    """One flagship-shaped step (the five-branch ASPP, 128², B = 2) with
+    ``mesh_space`` 2: NCCL with a card each where two cards exist, else
+    gloo with both ranks on the one card.  Each rank launches K2–K5 at
+    every site (its row window) as often as one process, both report the
+    same loss, within 1e-5 of one process's, and ``segment()`` returns the
+    same whole labels on both ranks, equal to one process's except at
+    float32 ties (at most 1 in 10⁴ pixels)."""
+    import json
+
+    import numpy as np
+
+    import torch_spatial_workers as workers
+    from deeplabv3plus_keras_tpu_torch import SemanticSegmentation
+    from deeplabv3plus_keras_tpu_torch.parallel import launch
+    from torch_helpers import FLAGSHIP_MIDDLE, conf_dict
+
+    two_cards = torch.cuda.device_count() >= 2
+    launch.spawn(workers.on_card_spatial_worker, 2, (str(tmp_path),),
+                 devices=["cuda:0", "cuda:1"] if two_cards else ["cuda:0", "cuda:0"],
+                 backend="nccl" if two_cards else "gloo", timeout_s=300, group_timeout_s=120)
+    ranks = [json.loads((tmp_path / f"spatial_card_r{r}.json").read_text()) for r in (0, 1)]
+
+    conf = conf_dict(128)
+    conf["nn_arch"].update(encoder_middle_conf=FLAGSHIP_MIDDLE, dropout_rate=0.0)
+    seg = SemanticSegmentation(conf, device="cuda")
+    rng = np.random.default_rng(0)
+    batch = {"image": rng.uniform(-1, 1, (2, 128, 128, 3)).astype(np.float32),
+             "label": rng.integers(0, 21, (2, 128, 128))}
+    kernels.reset_launch_counts()
+    loss = float(seg.train_step(batch)["loss"])
+    one = kernels.launch_counts()
+    labels = seg.segment(batch["image"])
+    names = ("depthwise_fwd_s1", "depthwise_fwd_s2", "depthwise_bwd_s1", "depthwise_bwd_s2")
+    assert [one[k] for k in names] == [15, 3, 15, 3]
+    for r in ranks:
+        assert [r["launches"][k] for k in names] == [one[k] for k in names], r
+    assert ranks[0]["loss"] == ranks[1]["loss"]
+    assert abs(ranks[0]["loss"] - loss) <= 1e-5 * loss
+    assert ranks[0]["labels"] == ranks[1]["labels"]
+    assert (np.asarray(ranks[0]["labels"]) != labels).mean() <= 1e-4
+
+
 # int8 products (M, K, N) of the zoo's quantized sites: the flagship's ASPP
 # at 16×512² (32² maps: 320 → 256, the 1280 → 256 projection), Xception's
 # middle flow (728) and exit flow (1024 → 1536 → 2048 at 32²), EfficientNet's
