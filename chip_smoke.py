@@ -107,10 +107,14 @@ BN statistics of its float32 phases:
   each loss and each parameter's update, the latter beside one process
   taking the batch rows reversed; ``segment()``'s labels where one
   process's top two logits are clearly apart; an eval step's confusion
-  matrix), Xception at 1024² × 2 (one step and ``segment()`` under
+  matrix), its step options (3 steps each of ``fused_tail``, ``remat``
+  and ``augment``: losses, updates and summed matrices; T1/T2 also
+  checked on row windows against their plain versions), a
+  test-time-augmented eval step (loss and matrix) and a 1024 × 768
+  ``segment()``, Xception at 1024² × 2 (one step and ``segment()`` under
   ``nhwc`` and ``bhcw``: K6/K7 on every rank); per rank and per one
   process peak memory, a profiled step's and call's device time, the
-  halo exchanges and their bytes a step, K1–K7's launches;
+  halo exchanges and their bytes a step, K1–K7's and T1/T2's launches;
 - ``int8`` (before ``ddp``): ``int8_infer`` on the flagship and on
   Xception (under ``nhwc``) calibrated on the serving batches: the
   quantized sites against the CPU's for the same config, ``segment()``
@@ -2890,9 +2894,45 @@ SPATIAL_XCEPTION_BATCH = 2
 # two upsampled logits differ by more than 1e-3 relative; the eval step's
 # confusion matrix over every pixel
 SPATIAL_LOSS_REL, SPATIAL_UPDATE_REL, SPATIAL_MARGIN_REL = 1e-4, 1e-2, 1e-3
+# a rank's confusion matrices against one process's, in L1 distance (a
+# pixel whose class moves moves two entries by one): an eval step's (the
+# plain and the test-time-augmented one) to 2 × 1e-5 of its pixels (84 at
+# 4 × 1024²; read 0, and one row at a rank boundary wrong throughout is
+# 4096 pixels); a train step's (plain and each option) as the ddp phase
+# holds its steps: to 1/4096 of the pixels or DDP_SPREAD × the distance of
+# one process taking the batch rows reversed at that step, where larger
+# (after the first step Keras Adam's ±lr updates of the zero-gradient
+# biases move pixels' classes in any run: the ranks' three option steps
+# moved 14,656–19,480 in all)
+SPATIAL_CM_MOVED = 1e-5
+
+
+def _cm_l1(a, b) -> int:
+    """The L1 distance of two confusion matrices."""
+    return int((a.long() - b.long()).abs().sum())
+
+
+def _cm_bound(cm, spread: int | None = None) -> float:
+    """The bound of a matrix's distance from one process's ``cm``: an eval
+    step's (``spread`` None) ``SPATIAL_CM_MOVED`` of its pixels; a train
+    step's 1/4096 of them or ``DDP_SPREAD`` × ``spread`` (the rows-reversed
+    run's distance at that step), where larger."""
+    pixels = int(cm.sum())
+    if spread is None:
+        return 2 * SPATIAL_CM_MOVED * pixels
+    return max(pixels // 4096, DDP_SPREAD * spread)
 # the row-window kernel checks: Xception's odd heights at 512² (253, 127)
 # and 1024² (509, 255, 128), B = 2, stride 1 (its sites) and 2
 SPATIAL_XCEPTION_HEIGHTS = ((253, 128), (127, 256), (509, 64), (255, 128), (128, 256))
+# the step options under mesh_space, each SPATIAL_STEPS train_step()s of
+# the flagship from the plain run's weights and batches, held to one
+# process by its bounds (the plain run's rows-reversed distances the
+# yardstick of the updates)
+SPATIAL_OPTIONS = {"fused_tail": {"fused_tail": True}, "remat": {"remat": True},
+                   "augment": {"augment": {"random_flip": True, "scale_range": [0.5, 2.0]}}}
+# test-time augmentation in one eval_step(); segment() of a non-square batch
+SPATIAL_TTA = {"eval_scales": [0.75, 1.0, 1.25], "eval_flip": True}
+SPATIAL_NONSQUARE = (SPATIAL_SIZE, 768)
 
 
 def spatial_conf(conf: dict, ranks: int) -> dict:
@@ -2917,7 +2957,7 @@ def spatial_batches(n: int, batch: int, seed: int = 11) -> list[dict]:
 
 
 def spatial_run(conf: dict, device, steps: int, tag: str, evaluate: bool, margins: bool,
-                reverse: bool = False) -> dict:
+                reverse: bool = False, steps_only: bool = False) -> dict:
     """The facade on ``conf`` (random weights from seed 1024): ``steps``
     ``train_step()``s on whole images (a rank takes its rows), the last
     profiled, then ``segment()`` of the first batch (the second call
@@ -2925,26 +2965,29 @@ def spatial_run(conf: dict, device, steps: int, tag: str, evaluate: bool, margin
     loss, the kernels' launches and the halo exchanges; peak memory of the
     steps; each parameter's update; the labels; with ``margins`` (one
     process) where its top two upsampled logits differ by more than
-    ``SPATIAL_MARGIN_REL`` relative.  ``reverse``: the batches' rows in
-    reverse order, the steps alone (the yardstick of summation order)."""
+    ``SPATIAL_MARGIN_REL`` relative.  ``steps_only``: the steps alone,
+    none profiled; ``reverse`` (which implies it): the batches' rows in
+    reverse order (the yardstick of summation order)."""
     import torch
     import torch.nn.functional as F
 
     from deeplabv3plus_keras_tpu_torch import SemanticSegmentation, kernels
     from deeplabv3plus_keras_tpu_torch.parallel import mesh, spatial
 
+    steps_only = steps_only or reverse
     seg = SemanticSegmentation(conf, device=device)
     before = {n: p.detach().clone() for n, p in seg.model.named_parameters()}
     data = spatial_batches(steps, conf["hps"]["batch_size"])
     gpu = [{k: (v.flip(0) if reverse else v).to(device) for k, v in b.items()} for b in data]
-    out = {"losses": [], "launches": [], "exchanges": [], "step_s": []}
+    out = {"losses": [], "cms": [], "launches": [], "exchanges": [], "step_s": [],
+           "step_peak_gib": []}
     torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats(device)
     for i, b in enumerate(gpu):
         kernels.reset_launch_counts()
         spatial.reset_counts()
+        torch.cuda.reset_peak_memory_stats(device)
         t = time.perf_counter()
-        if i == steps - 1:  # the last step under the profiler (its wall time too)
+        if i == steps - 1 and not steps_only:  # the last step profiled (its wall time too)
             res = {}
             prof = profile_device(lambda: res.update(seg.train_step(b)),
                                   OUT / f"spatial_{tag}_train_r{mesh.rank()}.txt",
@@ -2953,14 +2996,16 @@ def spatial_run(conf: dict, device, steps: int, tag: str, evaluate: bool, margin
         else:
             res = seg.train_step(b)
         out["losses"].append(res["loss"].item())
+        out["cms"].append(res["cm"].cpu())
         out["step_s"].append(time.perf_counter() - t)
         if i == 0:  # the first step's gradients (summed over the ranks)
             out["grads1"] = {n: p.grad.detach().cpu() for n, p in seg.model.named_parameters()}
         out["launches"].append(kernels.launch_counts())
         out["exchanges"].append(dict(spatial.counts))
-    out["peak_gib"] = torch.cuda.max_memory_allocated(device) / 2**30
+        out["step_peak_gib"].append(torch.cuda.max_memory_allocated(device) / 2**30)
+    out["peak_gib"] = max(out["step_peak_gib"])
     out["updates"] = {n: (p.detach() - before[n]).cpu() for n, p in seg.model.named_parameters()}
-    if reverse:
+    if steps_only:
         return out
     images = gpu[0]["image"]
     kernels.reset_launch_counts()
@@ -2985,9 +3030,67 @@ def spatial_run(conf: dict, device, steps: int, tag: str, evaluate: bool, margin
     return out
 
 
+def spatial_serve(conf: dict, device, margins: bool) -> dict:
+    """The facade on ``conf`` with test-time augmentation
+    (:data:`SPATIAL_TTA`): one ``eval_step()`` of the first batch (its
+    loss and matrix, peak memory, exchanges, launches), then ``segment()``
+    of a :data:`SPATIAL_NONSQUARE` batch (its labels, exchanges, launches;
+    with ``margins``, where one process's top two upsampled logits differ
+    by more than ``SPATIAL_MARGIN_REL`` relative)."""
+    import torch
+    import torch.nn.functional as F
+
+    from deeplabv3plus_keras_tpu_torch import SemanticSegmentation, kernels
+    from deeplabv3plus_keras_tpu_torch.parallel import spatial
+
+    seg = SemanticSegmentation({**conf, **SPATIAL_TTA}, device=device)
+    batch = {k: v.to(device) for k, v in spatial_batches(1, conf["hps"]["batch_size"])[0].items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    kernels.reset_launch_counts()
+    spatial.reset_counts()
+    m = seg.eval_step(batch)
+    out = {"tta": {"loss": m["loss"].item(), "cm": m["cm"].cpu(),
+                   "peak_gib": torch.cuda.max_memory_allocated(device) / 2**30,
+                   "launches": kernels.launch_counts(), "exchanges": dict(spatial.counts)}}
+    H, W = SPATIAL_NONSQUARE
+    gen = torch.Generator().manual_seed(17)
+    images = (torch.rand(conf["hps"]["batch_size"], H, W, 3, generator=gen) * 2 - 1).to(device)
+    kernels.reset_launch_counts()
+    spatial.reset_counts()
+    out["nonsquare"] = {"labels": torch.from_numpy(seg.segment(images)),
+                        "launches": kernels.launch_counts(), "exchanges": dict(spatial.counts)}
+    if margins:
+        with torch.inference_mode():
+            seg.model.eval()
+            logits, up = seg.model(images, return_presample=True)
+            upl = F.interpolate(logits.permute(0, 3, 1, 2), scale_factor=up, mode="bilinear",
+                                align_corners=False)
+            top = upl.topk(2, dim=1).values
+            out["nonsquare"]["clear"] = (
+                (top[:, 0] - top[:, 1]) > SPATIAL_MARGIN_REL * top[:, 0].abs()).cpu()
+    return out
+
+
+def spatial_flagship(device, world: int, margins: bool) -> dict:
+    """The flagship's runs of the spatial phase over ``world`` ranks (1: one
+    process): 3 steps, ``segment()`` and an eval step; the 3 steps of each
+    of :data:`SPATIAL_OPTIONS`; test-time augmentation and a non-square
+    ``segment()`` (:func:`spatial_serve`)."""
+    conf = spatial_conf(flagship_conf(SPATIAL_SIZE, SPATIAL_BATCH), world)
+    out = {"flagship": spatial_run(conf, device, SPATIAL_STEPS, "flagship", evaluate=True,
+                                   margins=margins)}
+    for name, extra in SPATIAL_OPTIONS.items():
+        out[name] = spatial_run({**conf, **extra}, device, SPATIAL_STEPS, name, evaluate=False,
+                                margins=False, steps_only=True)
+    out.update(spatial_serve(conf, device, margins))
+    return out
+
+
 def _spatial_rank(out_dir: str) -> None:
     """A rank of the spatial phase: the flagship (3 steps, segment(), an
-    eval step) under nhwc, then Xception (one step, segment()) under nhwc
+    eval step; the step options, test-time augmentation and a non-square
+    segment()) under nhwc, then Xception (one step, segment()) under nhwc
     and under bhcw, each over the (1 × 2) grid."""
     import torch
 
@@ -2998,9 +3101,7 @@ def _spatial_rank(out_dir: str) -> None:
     world = mesh.world_size()
     out = {}
     with dw_layout("nhwc"):
-        out["flagship"] = spatial_run(
-            spatial_conf(flagship_conf(SPATIAL_SIZE, SPATIAL_BATCH), world), device,
-            SPATIAL_STEPS, "flagship", evaluate=True, margins=False)
+        out.update(spatial_flagship(device, world, margins=False))
     for layout in ("nhwc", "bhcw"):
         with dw_layout(layout):
             out[f"xception_{layout}"] = spatial_run(
@@ -3084,6 +3185,77 @@ def check_spatial_windows(card: str) -> dict:
     return result
 
 
+def check_tail_windows(card: str) -> dict:
+    """T1/T2 on row windows (``window=True``: the first and last logits rows
+    context only) at the flagship's logits under ``mesh_space`` at 1024² ×
+    4, (4, 512, 512, 21) float32: each of 2 ranks' 256 sites with a
+    context row each side, clamped at the image's top (rank 0) or bottom
+    (rank 1), and a 4-way split's second rank (both context rows its
+    neighbours'); integer and one-hot labels of the sites' rows, one
+    padded sample.  Each against its windowed plain version on the same
+    values (sums to ``TAIL_SUM_REL``, the matrix exactly, dlogits to
+    ``TAIL_DX_REL`` of their largest), timed (CUDA graphs); the two ranks'
+    sums and matrices against T1 on the whole map."""
+    import torch
+    import torch.nn.functional as F
+
+    from deeplabv3plus_keras_tpu_torch.kernels import parity_tail as pt
+    from deeplabv3plus_keras_tpu_torch.parallel import mesh
+    from deeplabv3plus_keras_tpu_torch.train.loss import SS_NW, SS_PW
+
+    t0 = time.perf_counter()
+    B, h, C = SPATIAL_BATCH, SPATIAL_SIZE // 2, CLASSES
+    g = torch.Generator(device="cuda").manual_seed(13)
+    x = torch.randn(B, h, h, C, device="cuda", generator=g) * 3
+    ids = torch.randint(0, C, (B, 2 * h, 2 * h), device="cuda", generator=g)
+    valid = torch.ones(B, dtype=torch.int32, device="cuda")
+    valid[-1] = 0
+    scale = valid.float() / (float(valid.sum()) * 4 * h * h)
+    windows = {"rank0_of_2": mesh.rows_of(h, 2, 0), "rank1_of_2": mesh.rows_of(h, 2, 1),
+               "rank1_of_4": mesh.rows_of(h, 4, 1)}
+    rows, failures = [], []
+    for layout in ("integer", "one_hot"):
+        labels = ids if layout == "integer" else F.one_hot(ids, C).float()
+        whole_sums, whole_cm = pt.parity_tail_forward(x, labels, SS_PW, SS_NW, valid)
+        split_sums, split_cm = 0, 0
+        for name, (a, b) in windows.items():
+            at = torch.arange(a - 1, b + 1, device="cuda").clamp(0, h - 1)
+            blk, lab = x[:, at].contiguous(), labels[:, 2 * a:2 * b].contiguous()
+            sums, cm = pt.parity_tail_forward(blk, lab, SS_PW, SS_NW, valid, window=True)
+            dx = pt.parity_tail_backward(blk, lab, SS_PW, SS_NW, scale, window=True)
+            ref_sums, ref_cm = pt.parity_tail_forward_plain(blk, lab, SS_PW, SS_NW, valid,
+                                                            window=True)
+            ref_dx = pt.parity_tail_backward_plain(blk, lab, SS_PW, SS_NW, scale, window=True)
+            row = {"window": name, "labels": layout, "sites": [a, b], "logits_rows": b - a + 2,
+                   "sums_max_rel_err": ((sums - ref_sums).abs() / ref_sums.abs()).max().item(),
+                   "cm_differing": int((cm - ref_cm).abs().sum()),
+                   "dx_max_abs_err": (dx - ref_dx).abs().max().item(),
+                   "dx_max_abs": ref_dx.abs().max().item(),
+                   "context_dx_max_abs": dx[:, [0, -1]].abs().max().item(),
+                   "ms_fwd": cuda_ms(lambda: pt.parity_tail_forward(blk, lab, SS_PW, SS_NW, valid,
+                                                                    window=True)),
+                   "ms_bwd": cuda_ms(lambda: pt.parity_tail_backward(blk, lab, SS_PW, SS_NW, scale,
+                                                                     window=True))}
+            rows.append(row)
+            if not (row["sums_max_rel_err"] <= TAIL_SUM_REL and row["cm_differing"] == 0
+                    and row["dx_max_abs_err"] <= TAIL_DX_REL["float32"] * row["dx_max_abs"]
+                    and row["context_dx_max_abs"] > 0):
+                failures.append(f"{row}")
+            if name.endswith("of_2"):
+                split_sums, split_cm = split_sums + sums, split_cm + cm
+        split = {"labels": layout, "sums_max_rel_err": ((split_sums - whole_sums).abs()
+                                                        / whole_sums.abs()).max().item(),
+                 "cm_differing": int((split_cm - whole_cm).abs().sum())}
+        rows.append(split)
+        if not (split["sums_max_rel_err"] <= TAIL_SUM_REL and split["cm_differing"] == 0):
+            failures.append(f"two windows against the whole map: {split}")
+    result = {"logits": [B, h, h, C], "rows": rows, "s": time.perf_counter() - t0, "card": card}
+    print(json.dumps({"spatial_tail_windows": result}))
+    if failures:
+        raise SystemExit("spatial: T1/T2 on a row window: " + "; ".join(failures))
+    return result
+
+
 def run_spatial(kernels, card: str) -> dict:
     """``mesh_space`` 2: two ranks as a (1 data × 2 space) grid
     (:func:`ddp_layout`: NCCL over two cards, else gloo with both on the
@@ -3107,19 +3279,19 @@ def run_spatial(kernels, card: str) -> dict:
 
     t0 = time.perf_counter()
     check_spatial_windows(card)
+    check_tail_windows(card)
     layout = ddp_layout()
     deterministic = torch.backends.cudnn.deterministic
     ddp_numerics()
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         launch.spawn(_spatial_rank, 2, (tmp,), devices=layout["devices"],
-                     backend=layout["backend"], timeout_s=300, group_timeout_s=180)
+                     backend=layout["backend"], timeout_s=600, group_timeout_s=180)
         ranks = [torch.load(os.path.join(tmp, f"spatial_r{r}.pt")) for r in (0, 1)]
     t_ranks = time.perf_counter() - t0
     device = torch.device("cuda")
     with dw_layout("nhwc"):
-        one = {"flagship": spatial_run(spatial_conf(flagship_conf(SPATIAL_SIZE, SPATIAL_BATCH), 1),
-                                       device, SPATIAL_STEPS, "flagship", True, True)}
+        one = spatial_flagship(device, 1, margins=True)
         reversed_rows = spatial_run(spatial_conf(flagship_conf(SPATIAL_SIZE, SPATIAL_BATCH), 1),
                                     device, SPATIAL_STEPS, "flagship_reversed", False, False,
                                     reverse=True)
@@ -3158,11 +3330,17 @@ def run_spatial(kernels, card: str) -> dict:
     label_diff = [int(((r["labels"] != f1["labels"]) & clear).sum()) for r in fr]
     pixels = SPATIAL_BATCH * SPATIAL_SIZE * SPATIAL_SIZE
     cm_pixels = [int(r["eval"]["cm"].sum()) for r in fr] + [int(f1["eval"]["cm"].sum())]
+    # each step's matrix: the rows-reversed run's distance the yardstick
+    cm_spread = [_cm_l1(a, b) for a, b in zip(reversed_rows["cms"], f1["cms"])]
+    cm_steps = [[_cm_l1(a, b) for a, b in zip(r["cms"], f1["cms"])] for r in fr]
+    cm_step_bound = [_cm_bound(b, d) for b, d in zip(f1["cms"], cm_spread)]
+    cm_eval = [_cm_l1(r["eval"]["cm"], f1["eval"]["cm"]) for r in fr]
     names = ("upsample_argmax", "depthwise_fwd_s1", "depthwise_fwd_s2", "depthwise_bwd_s1",
              "depthwise_bwd_s2", "depthwise_fwd_cf", "depthwise_bwd_cf")
 
     def brief(run) -> dict:
-        return {"peak_gib": run["peak_gib"], "step_device_ms": run["step_device_ms"],
+        return {"peak_gib": run["peak_gib"], "step_peak_gib": run["step_peak_gib"],
+                "step_device_ms": run["step_device_ms"],
                 "segment_device_ms": run["segment_device_ms"], "step_s": run["step_s"],
                 "exchanges_per_step": run["exchanges"][-1],
                 "segment_exchanges": run["segment_exchanges"],
@@ -3186,6 +3364,9 @@ def run_spatial(kernels, card: str) -> dict:
                      "labels_differing_where_clear": label_diff,
                      "clear_pixels": int(clear.sum()), "pixels": pixels,
                      "eval_cm_pixels": cm_pixels,
+                     "step_cm_l1_from_one_process": cm_steps,
+                     "step_cm_l1_reversed_rows": cm_spread, "step_cm_l1_bound": cm_step_bound,
+                     "eval_cm_l1_from_one_process": cm_eval,
                      "eval_loss_rel": abs(fr[0]["eval"]["loss"] - f1["eval"]["loss"])
                      / abs(f1["eval"]["loss"]),
                      "ranks": [brief(r) for r in fr], "one_process": brief(f1)},
@@ -3217,6 +3398,10 @@ def run_spatial(kernels, card: str) -> dict:
         failures.append(f"segment() labels differ at {label_diff} clear pixels")
     if cm_pixels != [pixels] * 3:
         failures.append(f"eval confusion matrices hold {cm_pixels} pixels, not {pixels}")
+    if any(d > b for r in cm_steps for d, b in zip(r, cm_step_bound)):
+        failures.append(f"flagship step matrices {cm_steps} from one process's > {cm_step_bound}")
+    if not all(d <= _cm_bound(f1["eval"]["cm"]) for d in cm_eval):
+        failures.append(f"flagship eval matrices {cm_eval} from one process's")
     for r in fr:
         if not all(r["launches"][-1][k] > 0 for k in names[1:5]):
             failures.append(f"K2-K5 not all launched on a rank's step: {r['launches'][-1]}")
@@ -3229,12 +3414,112 @@ def run_spatial(kernels, card: str) -> dict:
             failures.append("no halo exchange in a rank's step")
     if not all(torch.equal(fr[0]["updates"][n], fr[1]["updates"][n]) for n in fr[0]["updates"]):
         failures.append("the ranks' updates differ")
+    result["options"] = spatial_options_checks(ranks, one, f1, spread_rel, cm_spread, failures)
+    print(json.dumps({"spatial_options": result["options"], "card": card}))
     if failures:
         raise SystemExit("spatial: " + "; ".join(failures))
-    x0 = ranks[0]["xception_bhcw"]
+    x0, r0 = ranks[0]["xception_bhcw"], ranks[0]
     return {"spatial_train": fr[0]["launches"][-1], "spatial_segment": fr[0]["segment_launches"],
             "spatial_xception_bhcw": {k: x0["launches"][0][k] + x0["segment_launches"][k]
-                                      for k in x0["launches"][0]}}
+                                      for k in x0["launches"][0]},
+            **{f"spatial_{name}": r0[name]["launches"][-1] for name in SPATIAL_OPTIONS},
+            "spatial_tta_eval": r0["tta"]["launches"],
+            "spatial_nonsquare_segment": r0["nonsquare"]["launches"]}
+
+
+def spatial_options_checks(ranks: list, one: dict, f1: dict, spread_rel: dict,
+                           cm_spread: list, failures: list) -> dict:
+    """The step options, test-time augmentation and the non-square
+    ``segment()`` of the two ranks against one process: each step's loss
+    to ``SPATIAL_LOSS_REL``; each parameter's update to
+    max(``SPATIAL_UPDATE_REL``, ``DDP_SPREAD`` × the plain flagship's
+    rows-reversed distance); each step's matrix to :func:`_cm_bound` of
+    that step's rows-reversed distance (``cm_spread``); the ranks' updates
+    equal; the kernels of each
+    option launched on every rank (T1/T2 a step under ``fused_tail``, K2/K3
+    again in ``remat``'s recompute); the eval step's loss and its matrix's
+    pixels, its matrix to ``SPATIAL_CM_MOVED``; the labels where one
+    process's top two logits are clear.
+    Per rank: peak memory beside the plain flagship's, exchanges and
+    launches a step.  Appends to ``failures``; returns the summary."""
+    import torch
+
+    out = {}
+    plain = [r["flagship"] for r in ranks]
+    for name in SPATIAL_OPTIONS:
+        rs, o = [r[name] for r in ranks], one[name]
+        loss_rel = [abs(a - b) / abs(b) for a, b in zip(rs[0]["losses"], o["losses"])]
+        cm_dist = [[_cm_l1(a, b) for a, b in zip(r["cms"], o["cms"])] for r in rs]
+        cm_bound = [_cm_bound(b, d) for b, d in zip(o["cms"], cm_spread)]
+        rel = {}
+        for n, u in o["updates"].items():
+            ref = u.double().norm().item()
+            rel[n] = (rs[0]["updates"][n] - u).double().norm().item() / ref if ref else (
+                0.0 if not rs[0]["updates"][n].any() else math.inf)
+        over = [n for n, v in rel.items() if v > max(SPATIAL_UPDATE_REL, DDP_SPREAD * spread_rel[n])]
+        last = [r["launches"][-1] for r in rs]
+        out[name] = {
+            "loss_rel": loss_rel, "losses": rs[0]["losses"],
+            "step_cm_l1_from_one_process": cm_dist, "step_cm_l1_bound": cm_bound,
+            "update_rel_2norm_worst": sorted(rel.items(), key=lambda t: -t[1])[:4],
+            "updates_over_bound": over,
+            "step_peak_gib": [r["step_peak_gib"] for r in rs],
+            "step_peak_gib_plain": [r["step_peak_gib"] for r in plain],
+            "one_process_step_peak_gib": o["step_peak_gib"],
+            "one_process_step_peak_gib_plain": f1["step_peak_gib"],
+            "exchanges_per_step": rs[0]["exchanges"][-1],
+            "exchanges_per_step_plain": plain[0]["exchanges"][-1],
+            "launches_per_step": last[0], "one_process_launches_per_step": o["launches"][-1]}
+        if not all(d <= SPATIAL_LOSS_REL for d in loss_rel):
+            failures.append(f"{name} step losses {loss_rel}")
+        if any(d > b for r in cm_dist for d, b in zip(r, cm_bound)):
+            failures.append(f"{name} step matrices {cm_dist} from one process's > {cm_bound}")
+        if over:
+            failures.append(f"{name} updates past their bounds: {over}")
+        if not all(torch.equal(rs[0]["updates"][n], rs[1]["updates"][n]) for n in rel):
+            failures.append(f"{name}: the ranks' updates differ")
+        need = ["depthwise_fwd_s1", "depthwise_fwd_s2", "depthwise_bwd_s1", "depthwise_bwd_s2"]
+        if name == "fused_tail":
+            need += ["parity_tail_fwd", "parity_tail_bwd"]
+        for r, p in zip(last, (q["launches"][-1] for q in plain)):
+            if not all(r[k] > 0 for k in need):
+                failures.append(f"{name}: {need} not all launched on a rank's step: {r}")
+            if name == "remat" and not r["depthwise_fwd_s1"] > p["depthwise_fwd_s1"]:
+                failures.append(f"remat: K2 not launched again in the recompute: {r} vs {p}")
+    tr, t1 = [r["tta"] for r in ranks], one["tta"]
+    pixels = SPATIAL_BATCH * SPATIAL_SIZE * SPATIAL_SIZE
+    out["tta_eval"] = {
+        "scales": SPATIAL_TTA["eval_scales"], "flip": SPATIAL_TTA["eval_flip"],
+        "loss_rel": abs(tr[0]["loss"] - t1["loss"]) / abs(t1["loss"]),
+        "cm_pixels": [int(r["cm"].sum()) for r in tr] + [int(t1["cm"].sum())],
+        "cm_l1_from_one_process": [_cm_l1(r["cm"], t1["cm"]) for r in tr],
+        "cm_l1_bound": _cm_bound(t1["cm"]),
+        "peak_gib": [r["peak_gib"] for r in tr], "one_process_peak_gib": t1["peak_gib"],
+        "exchanges": tr[0]["exchanges"], "launches": tr[0]["launches"]}
+    if not out["tta_eval"]["loss_rel"] <= SPATIAL_LOSS_REL:
+        failures.append(f"TTA eval loss {out['tta_eval']['loss_rel']}")
+    if not all(d <= out["tta_eval"]["cm_l1_bound"]
+               for d in out["tta_eval"]["cm_l1_from_one_process"]):
+        failures.append(f"TTA eval matrices {out['tta_eval']['cm_l1_from_one_process']} "
+                        "from one process's")
+    if out["tta_eval"]["cm_pixels"] != [pixels] * 3:
+        failures.append(f"TTA eval matrices hold {out['tta_eval']['cm_pixels']} pixels")
+    if not all(r["launches"][k] > 0 for r in tr for k in ("depthwise_fwd_s1", "depthwise_fwd_s2")):
+        failures.append("TTA eval: K2/K3 not launched on every rank")
+    nr, n1 = [r["nonsquare"] for r in ranks], one["nonsquare"]
+    shape = (SPATIAL_BATCH, *SPATIAL_NONSQUARE)
+    out["nonsquare_segment"] = {
+        "shape": list(shape), "clear_pixels": int(n1["clear"].sum()),
+        "labels_differing_where_clear": [int(((r["labels"] != n1["labels"]) & n1["clear"]).sum())
+                                         for r in nr],
+        "exchanges": nr[0]["exchanges"], "launches": nr[0]["launches"]}
+    if any(tuple(r["labels"].shape) != shape for r in nr) or any(
+            out["nonsquare_segment"]["labels_differing_where_clear"]):
+        failures.append(f"non-square segment(): {out['nonsquare_segment']}")
+    if not all(r["launches"][k] > 0 for r in nr
+               for k in ("upsample_argmax", "depthwise_fwd_s1", "depthwise_fwd_s2")):
+        failures.append("non-square segment(): K1-K3 not launched on every rank")
+    return out
 
 
 # ---------------------------------------------------------------------------

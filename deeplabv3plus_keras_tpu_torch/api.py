@@ -56,13 +56,15 @@ the JAX package's (N/S) × S ``('data', 'space')`` grid (``parallel/
 mesh.py`` ``init_grid``; a ``ValueError`` where S does not divide N): each
 rank holds its data position's rows of the global batch and its space
 position's image rows, and the model fetches the rows its spatial ops need
-from the other ranks (``parallel/spatial.py``).  ``segment()``, ``test()``
-and the predict step return whole labels and probabilities on every rank;
-the ranks of space position 0 write ``test()``'s PNGs and ``evaluate()``'s
-panels.  What is not ported under it yet (``fused_tail``, test-time
-augmentation, ``int8_infer``, ``remat``, ``augment``, the backbones other
-than MobileNetV2 and Xception) raises ``NotImplementedError`` naming
-ROADMAP.md item 13c.
+from the other ranks (``parallel/spatial.py``).  The steps take the whole
+H × W images of the data position and cut the rank's rows themselves, after
+``augment`` or a test-time scale's resize; ``fused_tail``, ``remat``,
+``augment`` and test-time augmentation run under it.  ``segment()``,
+``test()`` and the predict step return whole labels and probabilities on
+every rank; the ranks of space position 0 write ``test()``'s PNGs and
+``evaluate()``'s panels.  What is not ported under it yet (``int8_infer``,
+the backbones other than MobileNetV2 and Xception) raises
+``NotImplementedError`` naming ROADMAP.md item 13c.
 
 The environment variable ``DLV3_DW_LAYOUT=bhcw`` routes the 3×3 stride-1
 undilated depthwise sites through the channels-first kernels
@@ -210,13 +212,13 @@ class SemanticSegmentation:
                                  if t.is_floating_point()])
         # extra key 'class_weights_npz': the loss's class-balance weights
         self._cw = resolve_class_weights(self.conf)
-        self._train_step = self._row_step(build_train_step(
-            self.model, self.optimizer, self.conf, class_weights=self._cw, seed=_SEED))
+        self._train_step = build_train_step(
+            self.model, self.optimizer, self.conf, class_weights=self._cw, seed=_SEED)
         # extra keys 'eval_scales' / 'eval_flip': test-time augmentation
         self._tta = dict(tta_scales=extra.get("eval_scales"),
                          tta_flip=bool(extra.get("eval_flip", False)))
-        self._eval_step = self._row_step(build_eval_step(
-            self.model, self.conf, class_weights=self._cw, with_probs=False, **self._tta))
+        self._eval_step = build_eval_step(
+            self.model, self.conf, class_weights=self._cw, with_probs=False, **self._tta)
         self._eval_step_probs = None  # built by evaluate(result_saving=True)
         self._label_step = build_label_step(self.model)
         # extra key 'int8_infer': the inference entry points with the
@@ -230,19 +232,6 @@ class SemanticSegmentation:
     # Steps on batches the caller builds
     # ------------------------------------------------------------------
 
-    def _row_step(self, step):
-        """``step`` on this rank's image rows of a batch of whole images
-        under ``mesh_space``; ``step`` itself otherwise."""
-        if self.grid is None:
-            return step
-
-        def run(batch: dict) -> dict:
-            a, b = self.grid.rows_of(batch["image"].shape[1])
-            return step({**batch, "image": batch["image"][:, a:b],
-                         "label": batch["label"][:, a:b]})
-
-        return run
-
     def _writes_samples(self) -> bool:
         """Whether this rank writes its samples' files: every rank, or under
         ``mesh_space`` the ranks of space position 0 (the others hold the
@@ -250,13 +239,13 @@ class SemanticSegmentation:
         return self.grid is None or self.grid.s == 0
 
     def train_step(self, batch: dict) -> dict:
-        """One Keras-Adam step on ``batch`` (``image`` (B,S,S,3), ``label``
-        one-hot (B,S,S,C) or int (B,S,S), optional ``valid`` (B,)), BN in
+        """One Keras-Adam step on ``batch`` (``image`` (B,H,W,3), ``label``
+        one-hot (B,H,W,C) or int (B,H,W), optional ``valid`` (B,)), BN in
         training mode.  Returns ``{"loss", "cm"}`` as device tensors, so a
         loop of steps does not wait on each one.  Over N ranks, ``batch`` is
         this rank's rows (``mesh.row_indices`` of its data position) and the
         results are the global batch's; under ``mesh_space`` the images
-        are whole and the step takes this rank's image rows of them."""
+        are whole and the step cuts this rank's image rows of them."""
         return self._train_step(self._batch(batch))
 
     def eval_step(self, batch: dict) -> dict:
@@ -265,8 +254,8 @@ class SemanticSegmentation:
         return self._eval_step(self._batch(batch))
 
     def segment(self, images) -> np.ndarray:
-        """Programmatic batch inference: images (B,S,S,3) in (−1,1) →
-        argmax class-index labels (B,S,S) int32 (reference segment,
+        """Programmatic batch inference: images (B,H,W,3) in (−1,1) →
+        argmax class-index labels (B,H,W) int32 (reference segment,
         :1207-1227).  Only the labels cross to the host.
         Under ``int8_infer`` the first call calibrates on the given images
         (no dataset needed); call :meth:`calibrate_int8` beforehand to
@@ -278,7 +267,7 @@ class SemanticSegmentation:
     def _images(self, images) -> torch.Tensor:
         x = torch.as_tensor(images, dtype=torch.float32, device=self.device)
         if x.dim() != 4 or x.shape[-1] != 3:
-            raise ValueError(f"images must be (B, S, S, 3), got {tuple(x.shape)}")
+            raise ValueError(f"images must be (B, H, W, 3), got {tuple(x.shape)}")
         return x
 
     def _batch(self, batch: dict) -> dict:
@@ -600,8 +589,8 @@ class SemanticSegmentation:
             eval_step = self._int8_step("eval", with_probs=result_saving)
         elif result_saving:
             if self._eval_step_probs is None:
-                self._eval_step_probs = self._row_step(build_eval_step(
-                    self.model, self.conf, class_weights=self._cw, with_probs=True, **self._tta))
+                self._eval_step_probs = build_eval_step(
+                    self.model, self.conf, class_weights=self._cw, with_probs=True, **self._tta)
             eval_step = self._eval_step_probs
         else:
             eval_step = self._eval_step

@@ -76,6 +76,17 @@
 //   row's column pass over the 4 pixels of its site column is formed once
 //   and added, row-weighted, into the two sites it reaches, in a fixed
 //   order.  A sample whose scale is 0 (padding) writes zeros.
+// - A row window (spatial sharding): only the sites of rows [s0, s1) =
+//   [1, H - 1) are computed, the labels hold their 2 (H - 2) rows, and rows
+//   0 and H - 1 are context (a row fetched from each neighbouring rank, or
+//   the image's edge row clamped); the whole map is s0 = 0, s1 = H.  T1
+//   runs on the own rows as a map of H - 2 rows whose window may read one
+//   row past each end (the WIN instantiations: the clamp's bounds shift by
+//   a compile-time row, so a window costs T1 no register).  T2's tiles
+//   cover every row, as it writes every row's dlogits: the pixels of the
+//   context rows' sites are zero in its phase 1, so a context row's
+//   dlogits are its share of the own sites' gradient, and the clamp's
+//   weights at the block's edges meet only those zeros.
 //
 // C interface: parity_tail_fwd(...) and parity_tail_bwd(...) return
 // cudaGetLastError() (or cudaErrorInvalidValue for arguments the kernels do
@@ -106,8 +117,8 @@ struct ClassWeights {
 
 // Element types by code: 0 float32, 1 bfloat16, 2 float16 (logits, one-hot
 // labels); 3 int64, 4 int32 (integer labels).  A uniform branch on the code
-// inside the loads and stores keeps the instantiations to (CM, one-hot).
-__device__ __forceinline__ int elem_size(int dt) { return dt == 0 ? 4 : 2; }
+// inside the loads and stores keeps the instantiations to (CM, one-hot[, WIN]).
+__host__ __device__ __forceinline__ int elem_size(int dt) { return dt == 0 ? 4 : 2; }
 
 __device__ __forceinline__ float load_f(const void* p, int dt, size_t i) {
     if (dt == 0) return static_cast<const float*>(p)[i];
@@ -224,22 +235,24 @@ struct Run {
 __host__ __device__ __forceinline__ int raw_chunks(int n) { return (n * 4 + 15) / 16 + 1; }
 
 // Window row k (rows i0 - 1 .. i0 + TR, columns j0 - 1 .. j0 + TW of image
-// xb, each index clamped to the image): the run of its columns inside the
+// xb, each index clamped to the image, whose rows -ctx .. H - 1 + ctx are
+// readable: ctx 1 for T1's row window): the run of its columns inside the
 // image.
 __device__ __forceinline__ Run window_run(float* win, const void* xb, int xdt, int H, int W, int C, int cp, int i0,
-                                          int j0, int xc, int k) {
+                                          int j0, int xc, int k, int ctx) {
     const int lo = max(j0 - 1, 0), hi = min(j0 + xc - 2, W - 1);
-    const int row = min(max(i0 - 1 + k, 0), H - 1);
+    const int row = min(max(i0 - 1 + k, -ctx), H - 1 + ctx);
     return Run(win + ((size_t)k * xc + lo - (j0 - 1)) * cp, xb, xdt, ((size_t)row * W + lo) * C, (hi - lo + 1) * C);
 }
 
 // Window row k's clamped columns outside that run (edge tiles), element by
 // element by the lanes of one warp.
 __device__ __forceinline__ void window_edges(float* win, const void* xb, int xdt, int H, int W, int C, int cp,
-                                             const FastDiv& div_c, int i0, int j0, int xc, int k, int lane) {
+                                             const FastDiv& div_c, int i0, int j0, int xc, int k, int lane,
+                                             int ctx) {
     const int lo = max(j0 - 1, 0), hi = min(j0 + xc - 2, W - 1);
     const int run = hi - lo + 1, first = lo - (j0 - 1), edge = (xc - run) * C;
-    const int row = min(max(i0 - 1 + k, 0), H - 1);
+    const int row = min(max(i0 - 1 + k, -ctx), H - 1 + ctx);
     for (int e = lane; e < edge; e += 32) {
         const int q = div_c(e), c = e - q * C;
         const int jj = q < first ? q : q + run;
@@ -266,6 +279,9 @@ __device__ __forceinline__ Run label_run(float* dst, const void* label, int ldt,
 // waits for the copies, syncs, and converts them into the window and label
 // layouts, with the window's clamped columns.  Issued right after the
 // previous tile's commit, the copies fly during its whole computation.
+// CTX: the rows of x readable past each end of the map (T1's row window);
+// lwin: the labels hold the rows of sites 1 .. H - 2 alone (T2's).
+template <int CTX>
 struct Stager {
     float *win, *lab;
     uint4 *raw_w, *raw_l;  // raw rows, row_w and row_l chunks apart
@@ -273,10 +289,12 @@ struct Stager {
     int xdt, ldt, b, H, W, C, cp, xc, xr, lr0, lc0, lrows, lcols, row_w, row_l;  // lr0, lc0: label rows' origin - 2 i0, 2 j0
     bool dense;   // stage one-hot labels
     bool direct;  // and read them from the raw rows: float32 at an odd C (no bank conflicts), no conversion
+    int lwin;
     int tl;
 
     __device__ __forceinline__ Run labels(int i0, int j0, int k) const {
-        return label_run(lab, label, ldt, b, 2 * H, 2 * W, C, cp, 2 * i0 + lr0, 2 * j0 + lc0, lcols, k);
+        return label_run(lab, label, ldt, b, 2 * (H - 2 * lwin), 2 * W, C, cp, 2 * (i0 - lwin) + lr0, 2 * j0 + lc0,
+                         lcols, k);
     }
 
     // The raw label rows of tile w of the walk: read in place (direct), the
@@ -290,13 +308,13 @@ struct Stager {
     __device__ __forceinline__ void issue(int w, int i0, int j0, int pr, int ps, bool has_pixel) {
         const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, nw = blockDim.x >> 5;
         for (int k = warp; k < xr; k += nw)
-            window_run(win, xb, xdt, H, W, C, cp, i0, j0, xc, k).issue(raw_w + (size_t)k * row_w, lane);
+            window_run(win, xb, xdt, H, W, C, cp, i0, j0, xc, k, CTX).issue(raw_w + (size_t)k * row_w, lane);
         if (dense)
             for (int k = warp; k < lrows; k += nw) labels(i0, j0, k).issue(raw_labels(w) + (size_t)k * row_l, lane);
         commit_async();
-        const int r = 2 * i0 + lr0 + pr, s = 2 * j0 + lc0 + ps;
-        tl = ldt >= 3 && has_pixel && r >= 0 && r < 2 * H && s >= 0 && s < 2 * W
-                 ? load_id(label, ldt, ((size_t)b * 2 * H + r) * 2 * W + s)
+        const int r = 2 * (i0 - lwin) + lr0 + pr, s = 2 * j0 + lc0 + ps, H2 = 2 * (H - 2 * lwin);
+        tl = ldt >= 3 && has_pixel && r >= 0 && r < H2 && s >= 0 && s < 2 * W
+                 ? load_id(label, ldt, ((size_t)b * H2 + r) * 2 * W + s)
                  : 0;
     }
 
@@ -308,8 +326,9 @@ struct Stager {
         wait_async();
         __syncthreads();
         for (int k = warp; k < xr; k += nw) {
-            window_run(win, xb, xdt, H, W, C, cp, i0, j0, xc, k).convert(raw_w + (size_t)k * row_w, lane, C, cp, div_c);
-            window_edges(win, xb, xdt, H, W, C, cp, div_c, i0, j0, xc, k, lane);
+            window_run(win, xb, xdt, H, W, C, cp, i0, j0, xc, k, CTX)
+                .convert(raw_w + (size_t)k * row_w, lane, C, cp, div_c);
+            window_edges(win, xb, xdt, H, W, C, cp, div_c, i0, j0, xc, k, lane, CTX);
         }
         if (dense && !direct)
             for (int k = warp; k < lrows; k += nw)
@@ -549,8 +568,9 @@ __device__ __forceinline__ void pixel_bwd_wide(const Pixel& px, float* gq, const
 // Shared memory of T1: the raw window rows, the raw label rows (CM > 0,
 // DENSE), the warps' sums [32], the block's matrix [C*C] (hist), the
 // window, the pixels' probabilities (CM > 0), the staged labels (CM > 0,
-// DENSE, not read from the raw rows).
-template <int CM, bool DENSE>
+// DENSE, not read from the raw rows).  WIN: x's images hold H + 2 rows,
+// the H computed ones after a context row (x points at row 1 of image 0).
+template <int CM, bool DENSE, bool WIN>
 __global__ void __launch_bounds__(FWD_THREADS, CM > 0 && DENSE ? (CM == 32 ? 1 : 2) : 3)
     tail_fwd_kernel(const void* __restrict__ x, int xdt, const void* __restrict__ label, int ldt,
                     const float* __restrict__ wts, const __grid_constant__ ClassWeights wp,
@@ -569,12 +589,12 @@ __global__ void __launch_bounds__(FWD_THREADS, CM > 0 && DENSE ? (CM == 32 ? 1 :
     float* lab = prob + (CM > 0 ? (size_t)npx * cp : 0);
     const int b = blockIdx.z, j0 = blockIdx.x * TW;
     const FastDiv div_c(mc);
-    const void* xb = static_cast<const char*>(x) + (size_t)b * H * W * C * elem_size(xdt);
+    const void* xb = static_cast<const char*>(x) + (size_t)b * (H + 2 * WIN) * W * C * elem_size(xdt);
     // the thread's pixel: (pr, ps) of the tile's 2 TR x 2 TW
     const int pr = t / (2 * TW), ps = t % (2 * TW);
     const bool has_pixel = t < npx;
-    Stager st{win,  lab,  smem4, raw_l, xb,     label, xdt,    ldt,    b,    H,     W,     C,
-              cp,   xc,   xr,    0,     0,      2 * TR, 2 * TW, row_w,  row_l, STAGED, direct};
+    Stager<WIN> st{win, lab,   smem4, raw_l, xb,    label, xdt,    ldt,    b, H, W, C, cp, xc, xr, 0, 0,
+                   2 * TR, 2 * TW, row_w, row_l, STAGED, direct, 0};
 
     if constexpr (CM > 0) fill_pad(win, xr * xc, cp, C, CM, -__int_as_float(0x7f800000));
     if (hist_in_smem)
@@ -659,7 +679,7 @@ template <int CM, bool DENSE>
 __global__ void __launch_bounds__(BWD_THREADS, CM == 32 ? 1 : BWD_BLOCKS)
     tail_bwd_kernel(const void* __restrict__ x, int xdt, const void* __restrict__ label, int ldt,
                     const float* __restrict__ wts, const __grid_constant__ ClassWeights wp,
-                    const float* __restrict__ scale, void* __restrict__ dx, int H, int W, int C,
+                    const float* __restrict__ scale, void* __restrict__ dx, int H, int W, int C, int lw,
                     unsigned long long mc, int cp, int TR, int TW, int walk, float eps) {
     extern __shared__ uint4 smem4[];
     constexpr bool STAGED = CM > 0 && DENSE;
@@ -687,8 +707,8 @@ __global__ void __launch_bounds__(BWD_THREADS, CM == 32 ? 1 : BWD_BLOCKS)
     // the thread's pixel: (pr, ps) of the region's rr x rc, from (2 i0 - 1, 2 j0 - 1)
     const int pr = t / rc, ps = t % rc;
     const bool has_pixel = t < rr * rc;
-    Stager st{win, g,  smem4, raw_l, static_cast<const char*>(x) + img * elem_size(xdt),
-              label, xdt, ldt, b, H, W, C, cp, xc, xr, -1, -1, rr, rc, row_w, row_l, STAGED, direct};
+    Stager<0> st{win, g,  smem4, raw_l, static_cast<const char*>(x) + img * elem_size(xdt),
+                 label, xdt, ldt, b, H, W, C, cp, xc, xr, -1, -1, rr, rc, row_w, row_l, STAGED, direct, lw};
     if constexpr (CM > 0) {
         fill_pad(win, xr * xc, cp, C, CM, -__int_as_float(0x7f800000));
     }
@@ -705,15 +725,15 @@ __global__ void __launch_bounds__(BWD_THREADS, CM == 32 ? 1 : BWD_BLOCKS)
         if (has_pixel) {
             const int r = 2 * i0 - 1 + pr, s = 2 * j0 - 1 + ps;
             float* gq = g + (size_t)t * cp;
-            if (r < 0 || r >= 2 * H || s < 0 || s >= 2 * W) {
+            if (r < 2 * lw || r >= 2 * (H - lw) || s < 0 || s >= 2 * W) {
                 for (int c = 0; c < C; ++c) gq[c] = 0.f;
             } else {
                 const Pixel px(win, xc, cp, r, s, i0, j0);
                 if constexpr (CM > 0)
                     pixel_bwd_reg<CM, DENSE>(px, gq, ys, tl, wp, C, sc, eps);
                 else
-                    pixel_bwd_wide<DENSE>(px, gq, label, ldt, ((size_t)b * 2 * H + r) * 2 * W + s, tl, wts, wts + C,
-                                          C, sc, eps);
+                    pixel_bwd_wide<DENSE>(px, gq, label, ldt, ((size_t)b * 2 * (H - 2 * lw) + r - 2 * lw) * 2 * W + s,
+                                          tl, wts, wts + C, C, sc, eps);
             }
         }
         __syncthreads();
@@ -765,9 +785,11 @@ long long bwd_smem_need(int C, int cp, int TR, int TW, int cmax, int dense, int 
     return s;
 }
 
-bool plan_ok(int B, int H, int W, int C, int cp, int TR, int TW, int cmax, int walk, int threads, int pixels,
-             int max_threads) {
-    return B >= 1 && H >= 1 && W >= 1 && C >= 1 && cp >= C && cp >= cmax && TR >= 1 && TW >= 1 && walk >= 1
+// [s0, s1): the whole map (0, H) or the row window (1, H - 1).
+bool plan_ok(int B, int H, int W, int C, int s0, int s1, int cp, int TR, int TW, int cmax, int walk, int threads,
+             int pixels, int max_threads) {
+    return B >= 1 && H >= 1 && W >= 1 && C >= 1 && ((s0 == 0 && s1 == H) || (s0 == 1 && s1 == H - 1 && H >= 3))
+           && cp >= C && cp >= cmax && TR >= 1 && TW >= 1 && walk >= 1
            && threads >= pixels && threads % 32 == 0 && threads <= max_threads && B <= 65535
            && (H + TR * walk - 1) / (TR * walk) <= 65535
            && (cmax == 0 || cmax == 8 || cmax == 16 || cmax == 24 || cmax == 32) && (cmax == 0 || C <= cmax)
@@ -790,17 +812,21 @@ ClassWeights class_weights(const float* host_wts, int C) {
     return w;
 }
 
-template <int CM, bool DENSE>
+// T1 on the site rows [s0, s1) of x's H: the whole map (0, H), or the row
+// window (1, H - 1), which runs the WIN instantiation on rows 1 .. H - 2.
+template <int CM, bool DENSE, bool WIN>
 int launch_fwd(const void* x, int xdt, const void* label, int ldt, const void* wts, const float* host_wts,
                const void* valid, void* partial, void* sums, void* cm, int B, int H, int W, int C, int cp, int TR,
                int TW, int walk, int threads, int smem, int hist, float eps, cudaStream_t st) {
-    cudaError_t e = allow_smem(tail_fwd_kernel<CM, DENSE>, smem);
+    cudaError_t e = allow_smem(tail_fwd_kernel<CM, DENSE, WIN>, smem);
     if (e != cudaSuccess) return (int)e;
-    const dim3 grid((W + TW - 1) / TW, (H + TR * walk - 1) / (TR * walk), B);
-    tail_fwd_kernel<CM, DENSE><<<grid, threads, smem, st>>>(x, xdt, label, ldt, (const float*)wts,
-                                                            class_weights(host_wts, C), (const int*)valid,
-                                                            (float*)partial, (int*)cm, H, W, C, div_magic(C), cp,
-                                                            TR, TW, walk, hist, eps);
+    const int rows = H - 2 * WIN;
+    const void* own = static_cast<const char*>(x) + (WIN ? (size_t)W * C * elem_size(xdt) : 0);
+    const dim3 grid((W + TW - 1) / TW, (rows + TR * walk - 1) / (TR * walk), B);
+    tail_fwd_kernel<CM, DENSE, WIN><<<grid, threads, smem, st>>>(own, xdt, label, ldt, (const float*)wts,
+                                                                 class_weights(host_wts, C), (const int*)valid,
+                                                                 (float*)partial, (int*)cm, rows, W, C,
+                                                                 div_magic(C), cp, TR, TW, walk, hist, eps);
     e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
     tail_sum_kernel<<<B, SUM_THREADS, 0, st>>>((const float*)partial, (int)(grid.x * grid.y), (float*)sums);
@@ -809,14 +835,14 @@ int launch_fwd(const void* x, int xdt, const void* label, int ldt, const void* w
 
 template <int CM, bool DENSE>
 int launch_bwd(const void* x, int xdt, const void* label, int ldt, const void* wts, const float* host_wts,
-               const void* scale, void* dx, int B, int H, int W, int C, int cp, int TR, int TW, int walk, int threads,
-               int smem, float eps, cudaStream_t st) {
+               const void* scale, void* dx, int B, int H, int W, int C, int lw, int cp, int TR, int TW, int walk,
+               int threads, int smem, float eps, cudaStream_t st) {
     cudaError_t e = allow_smem(tail_bwd_kernel<CM, DENSE>, smem);
     if (e != cudaSuccess) return (int)e;
     const dim3 grid((W + TW - 1) / TW, (H + TR * walk - 1) / (TR * walk), B);
     tail_bwd_kernel<CM, DENSE><<<grid, threads, smem, st>>>(x, xdt, label, ldt, (const float*)wts,
                                                             class_weights(host_wts, C), (const float*)scale, dx, H,
-                                                            W, C, div_magic(C), cp, TR, TW, walk, eps);
+                                                            W, C, lw, div_magic(C), cp, TR, TW, walk, eps);
     return (int)cudaGetLastError();
 }
 
@@ -840,7 +866,9 @@ int dispatch(int cmax, bool dense, A... args) {
 }
 
 template <int CM, bool D> struct Fwd {
-    template <typename... A> static int run(A... args) { return launch_fwd<CM, D>(args...); }
+    template <typename... A> static int run(bool win, A... args) {
+        return win ? launch_fwd<CM, D, true>(args...) : launch_fwd<CM, D, false>(args...);
+    }
 };
 template <int CM, bool D> struct Bwd {
     template <typename... A> static int run(A... args) { return launch_bwd<CM, D>(args...); }
@@ -849,29 +877,32 @@ template <int CM, bool D> struct Bwd {
 }  // namespace
 
 // wts: [pw; nw] (2, C) float32 on the card; host_wts: the same on the host
-// (read at the launch, for the register instantiations' parameter).
+// (read at the launch, for the register instantiations' parameter); [s0, s1):
+// the site rows computed, (0, H) for the whole map, (1, H - 1) for a row
+// window.
 extern "C" int parity_tail_fwd(const void* x, int xdt, const void* label, int ldt, const void* wts,
                                const float* host_wts, const void* valid, void* partial, void* sums, void* cm, int B,
-                               int H, int W, int C, int cp, int TR, int TW, int walk, int cmax, int threads, int smem,
-                               int hist, float eps, void* stream) {
+                               int H, int W, int C, int s0, int s1, int cp, int TR, int TW, int walk, int cmax,
+                               int threads, int smem, int hist, float eps, void* stream) {
     const bool dense = ldt >= 0 && ldt <= 2, direct = dense && (C & 1) && ldt == 0;
-    if (!plan_ok(B, H, W, C, cp, TR, TW, cmax, walk, threads, 4 * TR * TW, FWD_THREADS) || xdt < 0 || xdt > 2
-        || ldt < 0 || ldt > 4 || (cmax > 0 && (!hist || !host_wts))
+    if (!plan_ok(B, H, W, C, s0, s1, cp, TR, TW, cmax, walk, threads, 4 * TR * TW, FWD_THREADS) || xdt < 0
+        || xdt > 2 || ldt < 0 || ldt > 4 || (cmax > 0 && (!hist || !host_wts))
         || smem < fwd_smem_need(C, cp, TR, TW, cmax, dense, direct, hist)
         || smem > 227 * 1024 || !x || !label || !wts || !partial || !sums || !cm)
         return (int)cudaErrorInvalidValue;
-    return dispatch<Fwd>(cmax, dense, x, xdt, label, ldt, wts, host_wts, valid, partial, sums, cm, B, H, W, C, cp, TR,
-                         TW, walk, threads, smem, hist, eps, (cudaStream_t)stream);
+    return dispatch<Fwd>(cmax, dense, s0 > 0, x, xdt, label, ldt, wts, host_wts, valid, partial, sums, cm, B, H, W, C,
+                         cp, TR, TW, walk, threads, smem, hist, eps, (cudaStream_t)stream);
 }
 
 extern "C" int parity_tail_bwd(const void* x, int xdt, const void* label, int ldt, const void* wts,
-                               const float* host_wts, const void* scale, void* dx, int B, int H, int W, int C, int cp,
-                               int TR, int TW, int walk, int cmax, int threads, int smem, float eps, void* stream) {
-    if (!plan_ok(B, H, W, C, cp, TR, TW, cmax, walk, threads, (2 * TR + 2) * (2 * TW + 2), BWD_THREADS) || xdt < 0
-        || xdt > 2 || ldt < 0 || ldt > 4 || (cmax > 0 && !host_wts)
+                               const float* host_wts, const void* scale, void* dx, int B, int H, int W, int C, int s0,
+                               int s1, int cp, int TR, int TW, int walk, int cmax, int threads, int smem, float eps,
+                               void* stream) {
+    if (!plan_ok(B, H, W, C, s0, s1, cp, TR, TW, cmax, walk, threads, (2 * TR + 2) * (2 * TW + 2), BWD_THREADS)
+        || xdt < 0 || xdt > 2 || ldt < 0 || ldt > 4 || (cmax > 0 && !host_wts)
         || smem < bwd_smem_need(C, cp, TR, TW, cmax, ldt <= 2, ldt == 0 && (C & 1))
         || smem > 227 * 1024 || !x || !label || !wts || !scale || !dx)
         return (int)cudaErrorInvalidValue;
-    return dispatch<Bwd>(cmax, ldt <= 2, x, xdt, label, ldt, wts, host_wts, scale, dx, B, H, W, C, cp, TR, TW, walk,
-                         threads, smem, eps, (cudaStream_t)stream);
+    return dispatch<Bwd>(cmax, ldt <= 2, x, xdt, label, ldt, wts, host_wts, scale, dx, B, H, W, C, s0, cp, TR, TW,
+                         walk, threads, smem, eps, (cudaStream_t)stream);
 }

@@ -25,6 +25,14 @@ C ≤ 32 a thread keeps its pixel's C values in registers and makes one pass
 over them; the plan picks that instantiation, or the multi-pass one for
 larger C, from C alone.
 
+A row window (``window``, under ``mesh_space``): the logits' first and
+last rows are context only, fetched from the neighbouring ranks.  Only the
+sites of rows 1 .. H − 2 are computed and counted, the labels hold their
+2(H − 2) rows, and T2's dlogits of the context rows are those rows' share
+of the own sites' gradient (no pixel of theirs contributes), which the
+fetch's transpose returns to their owners.  T1's tiles cover the own sites
+alone; T2's cover every row, as it writes every row's dlogits.
+
 ``csrc/parity_tail.cu`` is laid out by :func:`_parity_tail_plan`; its
 tiles are walked on the CPU by :func:`parity_tail_forward_emulation` and
 :func:`parity_tail_backward_emulation` for the tests.  A CPU tensor takes
@@ -90,7 +98,11 @@ class ParityTailPlan:
     conflicts; double-buffered along the walk), other one-hot labels
     converted to the stride ``cp``.  A block's shared memory: ``*_smem``
     with one-hot labels converted, ``*_smem_direct`` read in place,
-    ``*_smem_int`` with integer labels."""
+    ``*_smem_int`` with integer labels.
+
+    T1's tiles cover site rows [``s0``, ``s1``) (a row window: [1, H − 1)),
+    ``rows`` row tiles from ``s0``; T2's cover [0, H), ``bwd_rows`` row
+    tiles in ``bwd_grid``."""
 
     tr: int
     tw: int
@@ -107,17 +119,24 @@ class ParityTailPlan:
     bwd_smem_int: int
     bwd_smem_direct: int
     grid: tuple[int, int, int]
-    rows: int  # row tiles of the map
+    rows: int  # T1's row tiles
+    s0: int
+    s1: int
+    bwd_grid: tuple[int, int, int]
+    bwd_rows: int
 
-    def blocks(self):
+    def blocks(self, kernel: str = "fwd"):
         """(b, [(first row, first column) of each tile it walks]) of every
-        block, in T1's partial-sum order within an image."""
-        gx, gy, B = self.grid
+        block of T1 (``"fwd"``, in its partial-sum order within an image)
+        or T2 (``"bwd"``)."""
+        fwd = kernel == "fwd"
+        gx, gy, B = self.grid if fwd else self.bwd_grid
+        rows, first = (self.rows, self.s0) if fwd else (self.bwd_rows, 0)
         for b in range(B):
             for y in range(gy):
                 for x in range(gx):
-                    yield b, [(t * self.tr, x * self.tw)
-                              for t in range(y * self.walk, min((y + 1) * self.walk, self.rows))]
+                    yield b, [(first + t * self.tr, x * self.tw)
+                              for t in range(y * self.walk, min((y + 1) * self.walk, rows))]
 
 
 def _round_threads(n: int) -> int:
@@ -125,12 +144,13 @@ def _round_threads(n: int) -> int:
 
 
 def _parity_tail_make(B: int, H: int, W: int, C: int, tr: int, tw: int,
-                      walk: int | None = None) -> ParityTailPlan:
+                      walk: int | None = None, window: bool = False) -> ParityTailPlan:
     cmax = next((k for k in _CLASS_BOUNDS if C <= k), 0)
     cp = cmax + 1 if cmax else C | 1
     win = (tr + 2) * (tw + 2) * cp * 4
     region = (2 * tr + 2) * (2 * tw + 2) * cp * 4
-    rows = -(-H // tr)
+    s0, s1 = (1, H - 1) if window else (0, H)
+    rows, bwd_rows = -(-(s1 - s0) // tr), -(-H // tr)
     def raw(n_rows, n):  # raw rows of n elements: 16-byte chunks at any alignment, 4-byte elements
         return 16 * n_rows * ((n * 4 + 15) // 16 + 1)
 
@@ -152,29 +172,33 @@ def _parity_tail_make(B: int, H: int, W: int, C: int, tr: int, tw: int,
     return ParityTailPlan(tr, tw, cp, cmax, walk, _round_threads(4 * tr * tw),
                           _round_threads((2 * tr + 2) * (2 * tw + 2)), hist, fwd + hist_bytes,
                           fwd_int + hist_bytes, direct + hist_bytes, bwd, bwd_int, bwd_direct,
-                          (-(-W // tw), -(-rows // walk), B), rows)
+                          (-(-W // tw), -(-rows // walk), B), rows, s0, s1,
+                          (-(-W // tw), -(-bwd_rows // walk), B), bwd_rows)
 
 
 @functools.lru_cache(maxsize=256)
-def _parity_tail_plan(B: int, H: int, W: int, C: int) -> ParityTailPlan:
+def _parity_tail_plan(B: int, H: int, W: int, C: int, window: bool = False) -> ParityTailPlan:
     """The plan of one call, from the shape alone: tiles of 4 × 16 sites
     walked 4 at a time (T1 256 threads, T2 352; at the flagship's C = 21 the
     C ≤ 24 instantiation: T1 91 KB and T2 112 KB with float32 one-hot
     labels, 48 KB and 54 KB with integer ones), halving the columns and then
     the rows while a kernel's shared memory with converted one-hot labels
     passes 96 KB.  Raises ``ValueError`` where even one site a block passes
-    227 KB."""
+    227 KB.  ``window``: T1's tiles from site row 1 to H − 2 (module
+    docstring)."""
+    if window and H < 3:
+        raise ValueError(f"parity_tail: a row window of {H} rows holds no site")
     tr, tw = 4, 16
-    plan = _parity_tail_make(B, H, W, C, tr, tw)
+    plan = _parity_tail_make(B, H, W, C, tr, tw, window=window)
     while max(plan.fwd_smem, plan.bwd_smem) > _SMEM_SOFT and (tr, tw) != (1, 1):
         if tw > 1:
             tw //= 2
         else:
             tr //= 2
-        plan = _parity_tail_make(B, H, W, C, tr, tw)
+        plan = _parity_tail_make(B, H, W, C, tr, tw, window=window)
     if max(plan.fwd_smem, plan.bwd_smem) > _SMEM_MAX:
         raise ValueError(f"parity_tail: C={C} does not fit a block's shared memory")
-    if plan.grid[1] > 65535 or B > 65535:
+    if plan.bwd_grid[1] > 65535 or B > 65535:
         raise ValueError(f"parity_tail: grid of {(B, H, W, C)} too large")
     return plan
 
@@ -184,21 +208,22 @@ def _parity_tail_plan(B: int, H: int, W: int, C: int) -> ParityTailPlan:
 
 
 def parity_tail_forward_plain(logits, label, pos_weights, neg_weights, valid=None,
-                              epsilon: float = 1e-7):
+                              epsilon: float = 1e-7, window: bool = False):
     """What T1 computes, in PyTorch: (per-sample loss sums (B,), cm)."""
     from ..ops.parity_tail import tail_per_pixel
 
     per_pixel, cm = tail_per_pixel(logits, label, pos_weights, neg_weights, logits.shape[-1],
-                                   valid, epsilon)
+                                   valid, epsilon, window)
     return per_pixel.sum((1, 2)), cm
 
 
 def parity_tail_backward_plain(logits, label, pos_weights, neg_weights, scale,
-                               epsilon: float = 1e-7):
+                               epsilon: float = 1e-7, window: bool = False):
     """What T2 computes, in PyTorch: d(Σ_b scale_b · sums_b)/d logits."""
     with torch.enable_grad():
         x = logits.detach().requires_grad_(True)
-        sums, _ = parity_tail_forward_plain(x, label, pos_weights, neg_weights, None, epsilon)
+        sums, _ = parity_tail_forward_plain(x, label, pos_weights, neg_weights, None, epsilon,
+                                            window)
         (dx,) = torch.autograd.grad(sums, x, scale.to(sums.dtype))
     return dx
 
@@ -293,15 +318,17 @@ def _emulation_inputs(logits, pos_weights, neg_weights):
 
 
 def parity_tail_forward_emulation(logits, label, pos_weights, neg_weights, valid=None,
-                                  epsilon: float = 1e-7, plan: ParityTailPlan | None = None):
+                                  epsilon: float = 1e-7, plan: ParityTailPlan | None = None,
+                                  window: bool = False):
     """T1's decomposition in PyTorch, for tests: each block walks its tiles,
     each tile's pixels from its clamped window alone, every thread's pixel
     losses summed across the tiles (the tile's pixel grid), then over the
     block, written to the (B, blocks) buffer in the plan's block order and
     summed per sample in float64; the matrix counted per block.  Returns
-    (sums (B,) float32, cm)."""
+    (sums (B,) float32, cm).  ``window`` shapes the default plan; a given
+    ``plan`` carries its own site rows (``s0``, ``s1``)."""
     B, H, W, C = logits.shape
-    plan = plan or _parity_tail_plan(B, H, W, C)
+    plan = plan or _parity_tail_plan(B, H, W, C, window)
     x, pw, nw = _emulation_inputs(logits, pos_weights, neg_weights)
     partial = torch.zeros(B, plan.grid[0] * plan.grid[1], dtype=x.dtype)
     cm = torch.zeros(C * C + 1, dtype=torch.int64)
@@ -310,14 +337,15 @@ def parity_tail_forward_emulation(logits, label, pos_weights, neg_weights, valid
         per_thread = torch.zeros(2 * plan.tr, 2 * plan.tw, dtype=x.dtype)
         for i0, j0 in tiles:
             win = _window(x[b], i0 - 1, j0 - 1, plan.tr + 2, plan.tw + 2)
-            r = torch.arange(2 * i0, min(2 * (i0 + plan.tr), 2 * H))
+            r = torch.arange(2 * i0, min(2 * (i0 + plan.tr), 2 * plan.s1))
             s = torch.arange(2 * j0, min(2 * (j0 + plan.tw), 2 * W))
             u = _tile_values(win, r, s, i0, j0)
-            loss, _ = _pixel_terms(u, _label_values(label, b, r, s, C, u.dtype), pw, nw, epsilon,
+            lr = r - 2 * plan.s0  # the labels' rows
+            loss, _ = _pixel_terms(u, _label_values(label, b, lr, s, C, u.dtype), pw, nw, epsilon,
                                    plan.cmax > 0)
             per_thread[:len(r), :len(s)] += loss
             if valid is None or int(valid[b]) != 0:
-                t = _true_class(label, b, r, s)
+                t = _true_class(label, b, lr, s)
                 idx = torch.where((t >= 0) & (t < C), t * C + u.argmax(-1), C * C)
                 cm += torch.bincount(idx.reshape(-1), minlength=C * C + 1)
         partial[b, n[b]] = per_thread.sum()
@@ -342,30 +370,34 @@ def _row_weights(n0: int, nt: int, n: int) -> torch.Tensor:
 
 
 def parity_tail_backward_emulation(logits, label, pos_weights, neg_weights, scale,
-                                   epsilon: float = 1e-7, plan: ParityTailPlan | None = None):
+                                   epsilon: float = 1e-7, plan: ParityTailPlan | None = None,
+                                   window: bool = False):
     """T2's decomposition in PyTorch, for tests: per block, each tile of its
     walk in turn: the gradient of every full-resolution pixel in rows
     2·i0 − 1 .. 2·(i0 + tr) and columns likewise (zero outside the image)
     from the tile's clamped window, then each site's dlogits as the
     transposed lerp of its 4 × 4 pixels: each pixel row's pass over a site
-    column's 4 pixels, weighted into the two sites it reaches."""
+    column's 4 pixels, weighted into the two sites it reaches.  Under a row
+    window the pixels of the context rows' sites are zero; ``window`` and
+    ``plan`` as T1's emulation's."""
     B, H, W, C = logits.shape
-    plan = plan or _parity_tail_plan(B, H, W, C)
+    plan = plan or _parity_tail_plan(B, H, W, C, window)
     x, pw, nw = _emulation_inputs(logits, pos_weights, neg_weights)
     dx = torch.zeros(B, H, W, C, dtype=x.dtype)
-    for b, i0, j0 in ((b, i0, j0) for b, tiles in plan.blocks() for i0, j0 in tiles):
+    for b, i0, j0 in ((b, i0, j0) for b, tiles in plan.blocks("bwd") for i0, j0 in tiles):
         sc = float(scale[b])
         if sc == 0.0:
             continue
         win = _window(x[b], i0 - 1, j0 - 1, plan.tr + 2, plan.tw + 2)
         r = torch.arange(2 * i0 - 1, 2 * (i0 + plan.tr) + 1)
         s = torch.arange(2 * j0 - 1, 2 * (j0 + plan.tw) + 1)
-        rin, sin = (r >= 0) & (r < 2 * H), (s >= 0) & (s < 2 * W)
+        rin = (r >= 2 * plan.s0) & (r < 2 * plan.s1)
+        sin = (s >= 0) & (s < 2 * W)
         g = torch.zeros(len(r), len(s), C, dtype=x.dtype)
         rv, sv = r[rin], s[sin]
         u = _tile_values(win, rv, sv, i0, j0)
-        _, grad = _pixel_terms(u, _label_values(label, b, rv, sv, C, u.dtype), pw, nw, epsilon,
-                               plan.cmax > 0)
+        _, grad = _pixel_terms(u, _label_values(label, b, rv - 2 * plan.s0, sv, C, u.dtype), pw,
+                               nw, epsilon, plan.cmax > 0)
         g[rin.nonzero()[:, 0][:, None], sin.nonzero()[:, 0][None, :]] = grad * sc
         mr = _row_weights(i0, plan.tr, H).to(x.dtype)
         mc = _row_weights(j0, plan.tw, W).to(x.dtype)
@@ -397,14 +429,14 @@ def _device_weights(pos_weights, neg_weights, C: int, device) -> tuple[torch.Ten
     return _weights_on(pw.tobytes(), nw.tobytes(), torch.device(device)), np.concatenate([pw, nw])
 
 
-def _check(logits: torch.Tensor, label: torch.Tensor) -> None:
+def _check(logits: torch.Tensor, label: torch.Tensor, window: bool) -> None:
     if logits.device.type != "cuda":
         raise ValueError(f"parity_tail: logits on {logits.device}")
     if logits.dim() != 4 or logits.dtype not in _LOGIT_CODE:
         raise ValueError(f"parity_tail: logits {tuple(logits.shape)} {logits.dtype}; the kernels "
                          "take (B, H, W, C) float32, bfloat16 or float16")
     B, H, W, C = logits.shape
-    dense = (B, 2 * H, 2 * W, C)
+    dense = (B, 2 * (H - 2 if window else H), 2 * W, C)
     if label.device != logits.device or label.dtype not in _LABEL_CODE or tuple(label.shape) not in (
             dense, dense[:3]) or (label.dim() == 4) != label.is_floating_point():
         raise ValueError(f"parity_tail: label {tuple(label.shape)} {label.dtype} on {label.device} "
@@ -428,17 +460,19 @@ def _stream(device) -> int:
 
 
 def parity_tail_forward(logits, label, pos_weights, neg_weights, valid=None,
-                        epsilon: float = 1e-7):
+                        epsilon: float = 1e-7, window: bool = False):
     """T1: (per-sample loss sums (B,) float32, cm (C, C) int32) of logits
     (B, H, W, C) and labels (one-hot (B, 2H, 2W, C) float, or integer
-    (B, 2H, 2W)); ``valid`` (B,) leaves samples out of the matrix.  A CPU
+    (B, 2H, 2W); under ``window`` 2(H − 2) rows, the module docstring's row
+    window); ``valid`` (B,) leaves samples out of the matrix.  A CPU
     tensor takes :func:`parity_tail_forward_plain`."""
     if logits.device.type == "cpu":
-        return parity_tail_forward_plain(logits, label, pos_weights, neg_weights, valid, epsilon)
-    _check(logits, label)
+        return parity_tail_forward_plain(logits, label, pos_weights, neg_weights, valid, epsilon,
+                                         window)
+    _check(logits, label, window)
     logits, label = logits.contiguous(), label.contiguous()
     B, H, W, C = logits.shape
-    plan = _parity_tail_plan(B, H, W, C)
+    plan = _parity_tail_plan(B, H, W, C, window)
     wts, host = _device_weights(pos_weights, neg_weights, C, logits.device)
     v = None if valid is None else valid.to(device=logits.device, dtype=torch.int32).contiguous()
     if v is not None and v.shape != (B,):
@@ -448,15 +482,15 @@ def parity_tail_forward(logits, label, pos_weights, neg_weights, valid=None,
     cm = torch.zeros(C, C, dtype=torch.int32, device=logits.device)
     fn = _build.function("parity_tail", "parity_tail_fwd",
                          [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int]
-                         + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 12
+                         + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 14
                          + [ctypes.c_float, ctypes.c_void_p])
     with torch.cuda.device(logits.device):
         rc = fn(logits.data_ptr(), _LOGIT_CODE[logits.dtype], label.data_ptr(),
                 _LABEL_CODE[label.dtype], wts.data_ptr(), host.ctypes.data,
                 0 if v is None else v.data_ptr(),
                 partial.data_ptr(), sums.data_ptr(), cm.data_ptr(),
-                B, H, W, C, plan.cp, plan.tr, plan.tw, plan.walk, plan.cmax, plan.fwd_threads,
-                _smem(plan, label, "fwd"), int(plan.hist),
+                B, H, W, C, plan.s0, plan.s1, plan.cp, plan.tr, plan.tw, plan.walk, plan.cmax,
+                plan.fwd_threads, _smem(plan, label, "fwd"), int(plan.hist),
                 float(epsilon), _stream(logits.device))
     if rc != 0:
         raise RuntimeError(f"parity_tail_fwd launch failed: CUDA error {rc}")
@@ -464,16 +498,18 @@ def parity_tail_forward(logits, label, pos_weights, neg_weights, valid=None,
     return sums, cm
 
 
-def parity_tail_backward(logits, label, pos_weights, neg_weights, scale, epsilon: float = 1e-7):
+def parity_tail_backward(logits, label, pos_weights, neg_weights, scale, epsilon: float = 1e-7,
+                         window: bool = False):
     """T2: dlogits (B, H, W, C) in the logits' dtype, the gradient of
-    Σ_b scale_b · sums_b (``scale`` (B,), float32).  A CPU tensor takes
-    :func:`parity_tail_backward_plain`."""
+    Σ_b scale_b · sums_b (``scale`` (B,), float32); ``window`` as T1's.  A
+    CPU tensor takes :func:`parity_tail_backward_plain`."""
     if logits.device.type == "cpu":
-        return parity_tail_backward_plain(logits, label, pos_weights, neg_weights, scale, epsilon)
-    _check(logits, label)
+        return parity_tail_backward_plain(logits, label, pos_weights, neg_weights, scale, epsilon,
+                                          window)
+    _check(logits, label, window)
     logits, label = logits.contiguous(), label.contiguous()
     B, H, W, C = logits.shape
-    plan = _parity_tail_plan(B, H, W, C)
+    plan = _parity_tail_plan(B, H, W, C, window)
     wts, host = _device_weights(pos_weights, neg_weights, C, logits.device)
     scale = scale.to(device=logits.device, dtype=torch.float32).contiguous()
     if scale.shape != (B,):
@@ -481,13 +517,13 @@ def parity_tail_backward(logits, label, pos_weights, neg_weights, scale, epsilon
     dx = torch.empty_like(logits)
     fn = _build.function("parity_tail", "parity_tail_bwd",
                          [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int]
-                         + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 11
+                         + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 13
                          + [ctypes.c_float, ctypes.c_void_p])
     with torch.cuda.device(logits.device):
         rc = fn(logits.data_ptr(), _LOGIT_CODE[logits.dtype], label.data_ptr(),
                 _LABEL_CODE[label.dtype], wts.data_ptr(), host.ctypes.data, scale.data_ptr(),
-                dx.data_ptr(), B, H, W, C, plan.cp, plan.tr, plan.tw, plan.walk, plan.cmax,
-                plan.bwd_threads, _smem(plan, label, "bwd"),
+                dx.data_ptr(), B, H, W, C, plan.s0, plan.s1, plan.cp, plan.tr, plan.tw, plan.walk,
+                plan.cmax, plan.bwd_threads, _smem(plan, label, "bwd"),
                 float(epsilon), _stream(logits.device))
     if rc != 0:
         raise RuntimeError(f"parity_tail_bwd launch failed: CUDA error {rc}")
@@ -499,22 +535,23 @@ class _ParityTail(torch.autograd.Function):
     """T1 forward, T2 backward; the confusion matrix takes no gradient."""
 
     @staticmethod
-    def forward(ctx, logits, label, pos_weights, neg_weights, valid, epsilon):
-        sums, cm = parity_tail_forward(logits, label, pos_weights, neg_weights, valid, epsilon)
+    def forward(ctx, logits, label, pos_weights, neg_weights, valid, epsilon, window):
+        sums, cm = parity_tail_forward(logits, label, pos_weights, neg_weights, valid, epsilon,
+                                       window)
         ctx.save_for_backward(logits, label)
-        ctx.weights, ctx.epsilon = (pos_weights, neg_weights), epsilon
+        ctx.weights, ctx.epsilon, ctx.window = (pos_weights, neg_weights), epsilon, window
         ctx.mark_non_differentiable(cm)
         return sums, cm
 
     @staticmethod
     def backward(ctx, dsums, _dcm):
         logits, label = ctx.saved_tensors
-        dx = parity_tail_backward(logits, label, *ctx.weights, dsums, ctx.epsilon)
-        return dx, None, None, None, None, None
+        dx = parity_tail_backward(logits, label, *ctx.weights, dsums, ctx.epsilon, ctx.window)
+        return dx, None, None, None, None, None, None
 
 
 def parity_tail_sums(logits, label, pos_weights, neg_weights, num_classes: int, valid=None,
-                     epsilon: float = 1e-7):
+                     epsilon: float = 1e-7, window: bool = False):
     """(per-sample loss sums (B,) with T2 as their gradient, cm) on a CUDA
     tensor; raises elsewhere (the CPU takes ``ops/parity_tail.py``'s plain
     version before it gets here)."""
@@ -522,4 +559,5 @@ def parity_tail_sums(logits, label, pos_weights, neg_weights, num_classes: int, 
         raise ValueError(f"parity_tail: logits on {logits.device}; the kernels take CUDA tensors")
     if logits.shape[-1] != num_classes:
         raise ValueError(f"parity_tail: logits {tuple(logits.shape)} for {num_classes} classes")
-    return _ParityTail.apply(logits, label, pos_weights, neg_weights, valid, float(epsilon))
+    return _ParityTail.apply(logits, label, pos_weights, neg_weights, valid, float(epsilon),
+                             bool(window))

@@ -18,7 +18,11 @@ key ``remat`` recomputes the backbone's activations in the backward pass
 (``torch.utils.checkpoint``, JAX ``nn.remat``): training only, the BN
 running statistics moved once, by the first forward, and the recompute
 drawing EfficientNet's stochastic-depth masks again from the generator's
-state before the first forward, as ``nn.remat`` replays its key.
+state before the first forward, as ``nn.remat`` replays its key.  Under
+``mesh_space`` the recompute replays the backbone's row fetches and BN's
+all-reduces, on the backward's thread with the forward's map of global
+heights, and recomputes the whole backbone on every rank, so that every
+rank enters the same exchanges (``parallel/spatial.py``).
 """
 
 from __future__ import annotations
@@ -27,9 +31,10 @@ import contextlib
 
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import checkpoint, set_checkpoint_early_stop
 
 from ..config import Config
+from ..parallel import spatial
 from .backbones import get_backbone
 from .blocks import init_weights, running_stats_frozen
 from .decoder import Decoder
@@ -52,12 +57,13 @@ def compute_dtype(name: str) -> torch.dtype:
 
 
 @contextlib.contextmanager
-def _recompute(generator: torch.Generator | None, state: torch.Tensor | None):
-    """Around the backbone's recompute: BN's running statistics frozen, and
+def _recompute(generator: torch.Generator | None, state: torch.Tensor | None, heights):
+    """Around the backbone's recompute: BN's running statistics frozen, the
+    first forward's global heights (``heights``, under ``mesh_space``), and
     ``generator`` wound back to ``state`` (its state before the first
     forward) so that the recompute draws the same masks; afterwards the
     generator is where the step had left it."""
-    with running_stats_frozen():
+    with running_stats_frozen(), spatial.use_heights(heights):
         if generator is None:
             yield
             return
@@ -73,7 +79,8 @@ def _remat_contexts(generator: torch.Generator | None):
     """``checkpoint``'s ``context_fn`` for one forward: nothing around the
     first forward, :func:`_recompute` around the recompute."""
     state = None if generator is None else generator.get_state()
-    return lambda: (contextlib.nullcontext(), _recompute(generator, state))
+    heights = spatial.heights()
+    return lambda: (contextlib.nullcontext(), _recompute(generator, state, heights))
 
 
 def _at_least_f32(x: torch.Tensor) -> torch.Tensor:
@@ -125,10 +132,15 @@ class DeepLabV3Plus(nn.Module):
         x = x.contiguous(memory_format=torch.channels_last)
         if self.remat and self.training and torch.is_grad_enabled():
             # torch's global RNG is not drawn from; the generator is
-            # replayed by the recompute's context
-            base_features = checkpoint(self.base, x, generator, use_reentrant=False,
-                                       context_fn=_remat_contexts(generator),
-                                       preserve_rng_state=False)
+            # replayed by the recompute's context.  Under mesh_space no rank
+            # stops its recompute early: a rank holding no rows of a map
+            # skips that map's op and saves fewer tensors, so its early stop
+            # could fall before an exchange the other ranks enter
+            with (set_checkpoint_early_stop(False) if spatial.active()
+                  else contextlib.nullcontext()):
+                base_features = checkpoint(self.base, x, generator, use_reentrant=False,
+                                           context_fn=_remat_contexts(generator),
+                                           preserve_rng_state=False)
         else:
             base_features = self.base(x, generator)
         encoder_features = self.encoder(base_features, generator)

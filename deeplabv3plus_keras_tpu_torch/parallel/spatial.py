@@ -24,9 +24,13 @@ still fetches (an empty request) and returns an empty tensor joined to
 its inputs in the autograd graph, so its backward enters the transposed
 exchange too.
 
-The images under ``mesh_space`` are square (the facade's ``image_size``),
-so the global height of every activation is its width
-(:func:`global_height`): a shard's own height does not determine it.
+A shard's own height does not determine its activation's global height
+(⌈H/S⌉ rows fit several H), so every op reads it from a map of widths to
+global heights (:func:`use_heights`): a step seeds it with its images'
+{W: H}, and every op of this module adds its output's.  On the backbones
+under ``mesh_space`` every layer maps the height and the width by the same
+per-axis function, so the activations of one width share one global
+height; a width met with two heights raises.
 
 ``counts`` holds the exchanges (forward and backward) and the bytes each
 all-reduced since :func:`reset_counts`.
@@ -35,6 +39,7 @@ all-reduced since :func:`reset_counts`.
 from __future__ import annotations
 
 import contextlib
+import functools
 import threading
 
 import torch
@@ -73,10 +78,45 @@ def local():
         _state.local = depth
 
 
+@contextlib.contextmanager
+def use_heights(heights: dict | None):
+    """Inside, an activation of width W has the global height
+    ``heights[W]`` (:func:`global_height`), and the ops of this module add
+    their outputs' widths and heights to the map: a step seeds it with
+    ``{W: H}`` of its images (or of a test-time scale's), the remat
+    recompute, which runs on the backward's thread, with its forward's
+    whole map.  The map of the enclosing block is back afterwards."""
+    prev = getattr(_state, "heights", None)
+    _state.heights = heights
+    try:
+        yield
+    finally:
+        _state.heights = prev
+
+
+def heights() -> dict | None:
+    """The map of widths to global heights in force on this thread."""
+    return getattr(_state, "heights", None)
+
+
 def global_height(x: torch.Tensor) -> int:
-    """The global height of a row-sharded NCHW activation: its width, as
-    the images under ``mesh_space`` are square."""
-    return int(x.shape[-1])
+    """The global height of a row-sharded NCHW activation, from its width
+    (:func:`use_heights`); raises where the map has no such width."""
+    W = int(x.shape[-1])
+    known = heights()
+    if not known or W not in known:
+        raise ValueError(f"spatial: no global height for an activation of width {W} "
+                         f"(known widths {sorted(known or {})}): run the model under "
+                         "spatial.use_heights({W: H}) of its images")
+    return known[W]
+
+
+def _record(width: int, height: int) -> None:
+    """An op's output: ``width`` has the global height ``height``."""
+    known = heights()
+    if known.setdefault(int(width), int(height)) != height:
+        raise ValueError(f"spatial: activations of width {width} with global heights "
+                         f"{known[width]} and {height}")
 
 
 def _clip(lo: int, hi: int, H: int) -> tuple[int, int]:
@@ -254,6 +294,7 @@ def window_op(x: torch.Tensor, op, *, k: int, stride: int, dilation: int = 1,
     H = global_height(x)
     pt, pb = pads_h
     Ho = (H + pt + pb - dilation * (k - 1) - 1) // stride + 1
+    _record(out_width, Ho)
     lo, hi = [], []
     for q in range(grid.n_space):
         o0, o1 = mesh.rows_of(Ho, grid.n_space, q)
@@ -292,6 +333,7 @@ def resize_rows(x: torch.Tensor, f: int, fn, *, out_width: int, out_channels: in
     grid = active()
     h = global_height(x)
     Hout = h * f
+    _record(out_width, Hout)
     lo, hi = [], []
     for q in range(grid.n_space):
         O0, O1 = mesh.rows_of(Hout, grid.n_space, q)
@@ -314,8 +356,44 @@ def resize_rows(x: torch.Tensor, f: int, fn, *, out_width: int, out_channels: in
         return fn(xb).narrow(row_dim, O0 - lo[me] * f, O1 - O0)
 
 
+@functools.lru_cache(maxsize=8)
+def _linear_operator(n_in: int, n_out: int) -> torch.Tensor:
+    """(n_out, n_in) float64 operator of a half-pixel linear resize from
+    n_in to n_out samples, antialiased (the triangle widened by the ratio)
+    where it shrinks: ``F.interpolate`` of an identity, as ``jax.image.
+    resize(..., "linear")`` and the step's ``_resize_linear`` resize."""
+    eye = torch.eye(n_in, dtype=torch.float64)[None, None]
+    return F.interpolate(eye, size=(n_out, n_in), mode="bilinear", align_corners=False,
+                         antialias=n_out < n_in)[0, 0]
+
+
+def resize_rows_linear(x: torch.Tensor, h: int, H: int, out_width: int) -> torch.Tensor:
+    """This rank's rows (``rows_of(H)``) of the row-sharded NCHW ``x`` of
+    global height ``h`` resized to H × ``out_width`` (half-pixel linear,
+    antialiased where it shrinks; any ratio): each rank's rows of the H
+    operator, their nonzero source span fetched, contracted along H, then
+    the width resized.  No rank holds the whole map."""
+    grid = active()
+    A = _linear_operator(h, H)
+    lo, hi = [], []
+    for q in range(grid.n_space):
+        O0, O1 = mesh.rows_of(H, grid.n_space, q)
+        cols = A[O0:O1].ne(0).any(0).nonzero()[:, 0]
+        lo.append(int(cols[0]) if O0 < O1 else 0)
+        hi.append(int(cols[-1]) + 1 if O0 < O1 else 0)
+    me = grid.s
+    O0, O1 = mesh.rows_of(H, grid.n_space, me)
+    xw = fetch_rows(x, lo, hi, h)
+    if O0 == O1:
+        return x.new_zeros((x.shape[0], x.shape[1], 0, out_width))
+    y = torch.einsum("oh,bchw->bcow", A[O0:O1, lo[me]:hi[me]].to(x), xw)
+    if out_width != x.shape[-1]:
+        y = torch.einsum("vw,bcow->bcov", _linear_operator(x.shape[-1], out_width).to(x), y)
+    return y
+
+
 # what the port does not yet run under mesh_space (ROADMAP.md Queue A item 13c)
-_UNPORTED_KEYS = ("fused_tail", "eval_scales", "eval_flip", "int8_infer", "remat", "augment")
+_UNPORTED_KEYS = ("int8_infer",)
 SPATIAL_BACKBONES = ("mobilenetv2", "xception")
 
 

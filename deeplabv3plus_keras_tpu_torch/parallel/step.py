@@ -7,8 +7,8 @@ optimizer (:class:`~..train.optimizer.KerasAdam`) holds the Adam moments
 and the step count: together they are the training state, and a train
 step updates them in place.
 
-Batches are dicts with ``image`` (B, S, S, 3), ``label`` one-hot
-(B, S, S, C) or integer (B, S, S), and ``valid`` (B,) 0/1, on the model's
+Batches are dicts with ``image`` (B, H, W, 3), ``label`` one-hot
+(B, H, W, C) or integer (B, H, W), and ``valid`` (B,) 0/1, on the model's
 device.  Loss = class-balanced loss + the Keras L2 of ``_l2`` kernels, in
 both the train and the eval step, as Keras adds regularizer losses to
 both.  Padded samples (``valid == 0``) count in neither the loss mean nor
@@ -41,19 +41,26 @@ that is not fixed, it would stall on a parameter the loss never reaches,
 and accumulation would need ``no_sync``).
 
 Under ``mesh_space`` S > 1 (the grid of ``mesh.init_grid``: N = n_data × S
-ranks) the train and eval steps take this rank's rows of the global batch
-(``mesh.row_indices`` over the n_data data positions) and this rank's
-image rows (``mesh.rows_of``), the JAX steps' batch sharded over
-``('data', 'space')``: the model fetches the rows each spatial op needs
-(``parallel/spatial.py``), BN takes its statistics over every rank's
-pixels, each sample's pixel mean in the loss sums over its space ranks
-(the global pixel count in every rank's denominator), the count of valid
+ranks) the train and eval steps take this rank's data position's rows of
+the global batch (``mesh.row_indices`` over the n_data data positions) as
+whole H × W images, and cut this rank's image rows (``mesh.rows_of(H)``)
+themselves, after the augmentation or a test-time scale's resize: the JAX
+steps' batch sharded over ``('data', 'space')``.  The model fetches the
+rows each spatial op needs (``parallel/spatial.py``, its global heights
+seeded from the images' H and W), BN takes its statistics over every
+rank's pixels, each sample's pixel mean in the loss sums over its space
+ranks (the global H·W in every rank's denominator), the count of valid
 samples is the data ranks', and gradients, loss and confusion matrix sum
-over all N ranks.  The predict and label steps take whole images and
-return whole probabilities and labels on every rank, as the JAX steps
-return them replicated: each rank computes its rows and the rows are
-gathered.  Dropout draws from each rank's own stream, as under a data
-split (a known divergence from the JAX mask, ROADMAP.md Queue C).
+over all N ranks.  ``fused_tail`` takes the label rows of this rank's
+logits sites (``ops/parity_tail.py``); ``remat`` recomputes the backbone's
+exchanges in the backward (``models/deeplab.py``); test-time augmentation
+resizes each scale's whole images, runs the model on this rank's rows of
+them and resizes its probabilities back to its rows of the native size
+(``spatial.resize_rows_linear``).  The predict and label steps take whole
+images and return whole probabilities and labels on every rank, as the
+JAX steps return them replicated: each rank computes its rows and the
+rows are gathered.  Dropout draws from each rank's own stream, as under a
+data split (a known divergence from the JAX mask, ROADMAP.md Queue C).
 """
 
 from __future__ import annotations
@@ -146,9 +153,18 @@ def _valid_count(valid: torch.Tensor, grid) -> torch.Tensor:
 
 
 def _pixels(image: torch.Tensor, grid) -> int | None:
-    """A sample's global pixel count under ``mesh_space`` (square images:
-    the width squared), else None (the rows are whole samples)."""
-    return None if grid is None else image.shape[2] * image.shape[2]
+    """A sample's global pixel count H·W of whole images under
+    ``mesh_space``, else None (the rows are whole samples)."""
+    return None if grid is None else image.shape[1] * image.shape[2]
+
+
+def _image_rows(t: torch.Tensor, grid) -> torch.Tensor:
+    """This rank's image rows (``rows_of(H)`` along dim 1) of whole images
+    or labels under ``mesh_space``; ``t`` itself otherwise."""
+    if grid is None:
+        return t
+    a, b = grid.rows_of(t.shape[1])
+    return t[:, a:b]
 
 
 def _sum_over_ranks(loss_share: torch.Tensor, cm: torch.Tensor):
@@ -189,8 +205,10 @@ def build_train_step(model, optimizer: KerasAdam, conf: Config, class_weights=No
     Under a process group of W > 1 ranks (the group active when the step is
     built) ``batch`` holds this rank's rows of a global batch W times as
     large, in the order ``mesh.row_indices`` gives them (its slice of each
-    microbatch).  Each rank differentiates its share of the global loss
-    (its pixels' sum over the global valid-pixel count, + L2/W), and the
+    microbatch); under ``mesh_space`` its data position's rows, whole
+    images, whose image rows the step cuts after the augmentation.  Each
+    rank differentiates its share of the global loss (its pixels' sum over
+    the global valid-pixel count, + L2/W), and the
     gradients are summed over ranks; the augmentation's and stochastic
     depth's per-sample draws are made for the global batch and sliced, so
     W ranks draw what one process draws; element-wise dropout draws from
@@ -221,52 +239,57 @@ def build_train_step(model, optimizer: KerasAdam, conf: Config, class_weights=No
         B = image.shape[0]
         if B % accum:
             raise ValueError(f"grad_accum {accum} must divide batch size {B}")
-        mb = B // accum
         step = optimizer.iterations
         gen = step_generator(seed, step, dev)
         rows = n_valid = None
-        n_pix = _pixels(image, grid)
         if world > 1:
             rows = torch.as_tensor(mesh.row_indices(B * n_data, n_data, d, accum), device=dev)
             # each microbatch's count of valid samples over the data ranks
-            n_valid = _valid_count(valid.reshape(accum, mb).sum(1), grid)
+            n_valid = _valid_count(valid.reshape(accum, B // accum).sum(1), grid)
         if aug is not None:
             # drawn before the dropout, as the JAX step splits its step key
             image, label = augment_batch(image, label, gen, flip=aug[0], scale_range=aug[1],
                                          rows=rows, batch=B * n_data)
+        mb = B // accum
+        n_pix = _pixels(image, grid)
+        geometry = spatial.use_heights({image.shape[2]: image.shape[1]})
+        image = _image_rows(image, grid)
+        if not fused:  # the fused tail takes its sites' rows of the whole labels
+            label = _image_rows(label, grid)
         optimizer.zero_grad()
         loss_sum, l2_sum, cm_sum = 0.0, 0.0, 0
-        for i in range(accum):
-            part = slice(i * mb, (i + 1) * mb)
-            if accum > 1:
-                gen = step_generator(seed, step, dev, i)
-            draws = gen
-            if world > 1:
-                own = step_generator(seed, step, dev, i if accum > 1 else None, rank=rank)
-                draws = mesh.RankDraws(gen, own, torch.arange(d * mb, (d + 1) * mb, device=dev),
-                                       mb * n_data)
-            nv = n_valid[i] if world > 1 else None
-            if fused:
-                logits, _ = model(image[part], return_presample=True, generator=draws)
-                loss, cm = tail_loss_cm(logits, label[part], pw, nw, num_classes, valid[part],
-                                        n_valid=nv)
-                del logits
-            else:
-                probs = model(image[part], generator=draws)
-                loss = _loss_for(label[part], probs, pw, nw, valid[part], nv, n_pix)
-                with torch.no_grad():
-                    cm = _cm_for(label[part], probs, num_classes, valid[part])
-                del probs
-            l2 = l2_penalty(model, wd)
-            if world > 1:
-                (loss + l2 / world).backward()
-                loss_sum = loss_sum + loss.detach()
-                l2_sum = l2_sum + (l2.detach() if torch.is_tensor(l2) else l2)
-            else:
-                loss = loss + l2
-                loss.backward()
-                loss_sum = loss_sum + loss.detach()
-            cm_sum = cm_sum + cm
+        with geometry:
+            for i in range(accum):
+                part = slice(i * mb, (i + 1) * mb)
+                if accum > 1:
+                    gen = step_generator(seed, step, dev, i)
+                draws = gen
+                if world > 1:
+                    own = step_generator(seed, step, dev, i if accum > 1 else None, rank=rank)
+                    draws = mesh.RankDraws(gen, own, torch.arange(d * mb, (d + 1) * mb, device=dev),
+                                           mb * n_data)
+                nv = n_valid[i] if world > 1 else None
+                if fused:
+                    logits, _ = model(image[part], return_presample=True, generator=draws)
+                    loss, cm = tail_loss_cm(logits, label[part], pw, nw, num_classes, valid[part],
+                                            n_valid=nv)
+                    del logits
+                else:
+                    probs = model(image[part], generator=draws)
+                    loss = _loss_for(label[part], probs, pw, nw, valid[part], nv, n_pix)
+                    with torch.no_grad():
+                        cm = _cm_for(label[part], probs, num_classes, valid[part])
+                    del probs
+                l2 = l2_penalty(model, wd)
+                if world > 1:
+                    (loss + l2 / world).backward()
+                    loss_sum = loss_sum + loss.detach()
+                    l2_sum = l2_sum + (l2.detach() if torch.is_tensor(l2) else l2)
+                else:
+                    loss = loss + l2
+                    loss.backward()
+                    loss_sum = loss_sum + loss.detach()
+                cm_sum = cm_sum + cm
         # a parameter the loss does not reach (Xception's unused os-8
         # shortcut) gets a zero gradient, as jax.grad gives it
         for p in optimizer.params:
@@ -296,24 +319,42 @@ def _resize_linear(x: torch.Tensor, size: int) -> torch.Tensor:
 def _tta_probs_fn(model, conf: Config, scales, flip: bool) -> Callable[[torch.Tensor], torch.Tensor]:
     """Multi-scale and horizontal-flip test-time augmentation: each scaled
     size is rounded to a multiple of ``output_stride``, each variant's
-    probabilities are resized back to the input size and all are
-    averaged."""
+    probabilities are resized back to the input size and all are averaged.
+    A scale that changes the height resizes to and from squares, as the
+    JAX step's does (``jax.image.resize`` to (sz, sz) and back to (H, H)),
+    so it takes square images only; a variant at the input height (the
+    flip alone, a scale of 1) takes any H × W.  Under ``mesh_space``
+    ``images`` are whole: each scale's images are resized whole, the model
+    runs on this rank's rows of them (the global heights seeded at the
+    variant's size), the flip along W stays on the rank, and its
+    probabilities are resized back to its rows of the native size from the
+    rows they need (``spatial.resize_rows_linear``); the result is this
+    rank's rows."""
     os_ = conf.nn_arch.output_stride
     scales = tuple(float(s) for s in (scales or (1.0,)))
 
     def tta_probs(images: torch.Tensor) -> torch.Tensor:
-        S = images.shape[1]
+        H, W = images.shape[1], images.shape[2]
+        sizes = [max(os_, int(round(H * s / os_)) * os_) for s in scales]
+        if H != W and any(sz != H for sz in sizes):
+            raise ValueError(f"test-time augmentation at a scaled size {sizes} takes square "
+                             f"images, got {(H, W)}")
+        grid = spatial.active()
         acc, n = 0.0, 0
-        for s in scales:
-            sz = max(os_, int(round(S * s / os_)) * os_)
-            x = images if sz == S else _resize_linear(images, sz)
+        for sz in sizes:
+            x = images if sz == H else _resize_linear(images, sz)
+            x = _image_rows(x, grid)
             variants = [x, x.flip(2)] if flip else [x]
             for i, xv in enumerate(variants):
-                p = model(xv)
+                with spatial.use_heights({x.shape[2]: sz}):
+                    p = model(xv)
                 if i == 1:
                     p = p.flip(2)  # the prediction, flipped back
-                if sz != S:
-                    p = _resize_linear(p, S)
+                if sz != H and grid is None:
+                    p = _resize_linear(p, H)
+                elif sz != H:
+                    p = spatial.resize_rows_linear(p.permute(0, 3, 1, 2), sz, H, H).permute(
+                        0, 2, 3, 1)
                 acc = acc + p
                 n += 1
         return acc / n
@@ -334,10 +375,12 @@ def build_eval_step(model, conf: Config, class_weights=None, with_probs: bool = 
                     tta_scales=None, tta_flip: bool = False,
                     quant=None) -> Callable[[dict], dict]:
     """``eval_step(batch) -> {"loss", "cm"[, "probs"]}`` in eval mode.
-    ``with_probs=False`` drops the (B, S, S, C) probabilities.  Under a
+    ``with_probs=False`` drops the (B, H, W, C) probabilities.  Under a
     process group the loss and the confusion matrix are the global batch's
     (summed over ranks, the loss over the global valid-pixel count); the
-    probabilities are this rank's rows'.
+    probabilities are this rank's rows' (under ``mesh_space``, its data
+    position's samples at their whole height; the batch holds whole images,
+    whose rows the step cuts).
     ``tta_scales``/``tta_flip`` (extra keys ``eval_scales``/``eval_flip``)
     turn on test-time augmentation (:func:`_tta_probs_fn`); ``quant``, the
     calibrated int8 ranges, quantizes the eligible sites of each scale.
@@ -348,69 +391,63 @@ def build_eval_step(model, conf: Config, class_weights=None, with_probs: bool = 
     num_classes = conf.nn_arch.num_classes
     pw, nw = class_weights or default_class_weights(num_classes)
     tta = bool(tta_scales) or tta_flip
-    probs_fn = _tta_probs_fn(model, conf, tta_scales, tta_flip) if tta else model
     fused = _use_fused_tail(conf) and not with_probs and not tta
     world = mesh.world_size()
     grid = mesh.grid()
     if grid is not None:
         spatial.refuse_unported(conf)
+    # test-time augmentation cuts the rows of each scale's images itself
+    probs_fn = (_tta_probs_fn(model, conf, tta_scales, tta_flip) if tta
+                else lambda images: model(_image_rows(images, grid)))
 
     def eval_step(batch: dict) -> dict:
         model.eval()
-        with _inference(model, quant):
-            valid = batch["valid"]
+        image, label, valid = batch["image"], batch["label"], batch["valid"]
+        H, W = image.shape[1], image.shape[2]
+        with _inference(model, quant), spatial.use_heights({W: H}):
             n_valid = None
-            n_pix = _pixels(batch["image"], grid)
             if world > 1:
                 n_valid = _valid_count(valid.sum().reshape(1), grid)[0]
-            if fused:
-                logits, _ = model(batch["image"], return_presample=True)
-                loss, cm = tail_loss_cm(logits, batch["label"], pw, nw, num_classes, valid,
+            if fused:  # the tail takes the whole labels (its sites' rows)
+                logits, _ = model(_image_rows(image, grid), return_presample=True)
+                loss, cm = tail_loss_cm(logits, label, pw, nw, num_classes, valid,
                                         n_valid=n_valid)
             else:
-                probs = probs_fn(batch["image"])
-                loss = _loss_for(batch["label"], probs, pw, nw, valid, n_valid, n_pix)
-                cm = _cm_for(batch["label"], probs, num_classes, valid)
+                probs = probs_fn(image)
+                label = _image_rows(label, grid)
+                loss = _loss_for(label, probs, pw, nw, valid, n_valid, _pixels(image, grid))
+                cm = _cm_for(label, probs, num_classes, valid)
             if world > 1:
                 loss, cm = _sum_over_ranks(loss, cm)
             out = {"loss": loss + l2_penalty(model, wd), "cm": cm}
             if with_probs:
                 # under mesh_space: this rank's samples at their full height
-                out["probs"] = spatial.gather_rows(probs, probs.shape[2], 1)
+                out["probs"] = spatial.gather_rows(probs, H, 1)
             return out
 
     return eval_step
 
 
-def _own_rows(images: torch.Tensor) -> torch.Tensor:
-    """This rank's image rows of whole images (B, S, S, 3) under
-    ``mesh_space``; the images as they are otherwise."""
-    grid = spatial.active()
-    if grid is None:
-        return images
-    a, b = grid.rows_of(images.shape[1])
-    return images[:, a:b]
-
-
 def build_predict_step(model, quant=None) -> Callable[[torch.Tensor], torch.Tensor]:
-    """images (B, S, S, 3) → softmax probabilities (B, S, S, classes);
+    """images (B, H, W, 3) → softmax probabilities (B, H, W, classes);
     int8 at the sites of ``quant``.  Under ``mesh_space`` each rank
     computes its rows and every rank returns them all."""
 
     def predict_step(images: torch.Tensor) -> torch.Tensor:
         model.eval()
-        with _inference(model, quant):
-            return spatial.gather_rows(model(_own_rows(images)), images.shape[1], 1)
+        H, W = images.shape[1], images.shape[2]
+        with _inference(model, quant), spatial.use_heights({W: H}):
+            return spatial.gather_rows(model(_image_rows(images, spatial.active())), H, 1)
 
     return predict_step
 
 
 def build_label_step(model, quant=None) -> Callable[[torch.Tensor], torch.Tensor]:
-    """images (B, S, S, 3) → class labels (B, S, S) int32.
+    """images (B, H, W, 3) → class labels (B, H, W) int32.
 
     argmax∘softmax∘upsample ≡ argmax∘upsample, so labels come from the
     decoder's pre-upsample logits through the fused upsample+argmax kernel
-    (``kernels/upsample_argmax``): the (B, S, S, C) probabilities never
+    (``kernels/upsample_argmax``): the (B, H, W, C) probabilities never
     exist.  int8 at the sites of ``quant``.
 
     Under ``mesh_space`` each rank runs the kernel on the logits rows its
@@ -420,8 +457,9 @@ def build_label_step(model, quant=None) -> Callable[[torch.Tensor], torch.Tensor
 
     def label_step(images: torch.Tensor) -> torch.Tensor:
         model.eval()
-        with _inference(model, quant):
-            logits, up = model(_own_rows(images), return_presample=True)
+        with _inference(model, quant), spatial.use_heights(
+                {images.shape[2]: images.shape[1]}):
+            logits, up = model(_image_rows(images, spatial.active()), return_presample=True)
             if spatial.active() is None:
                 return upsample_argmax(logits.contiguous(), up)
             # the logits NHWC; spatial.resize_rows takes NCHW row shards

@@ -76,7 +76,7 @@ def test_no_device_without_cuda_raises(monkeypatch):
 
 def test_segment_rejects_bad_images_and_unported_options():
     seg = SemanticSegmentation(conf_dict(64), device="cpu")
-    with pytest.raises(ValueError, match=r"\(B, S, S, 3\)"):
+    with pytest.raises(ValueError, match=r"\(B, H, W, 3\)"):
         seg.segment(np.zeros((1, 3, 64, 64), np.float32))
     # every backbone of the reference serves (the port once refused
     # EfficientNet, naming Queue A item 14)
@@ -99,7 +99,7 @@ def test_segment_rejects_bad_images_and_unported_options():
     ({"backbone_weights": "/nonexistent/backbone.h5"}, "item 14b"),
     ({"backbone_weights": "imagenet"}, "item 14b"),
     ({"multi_gpu": True, "num_gpus": 3, "mesh_space": 2}, "divide"),
-    ({"multi_gpu": True, "num_gpus": 2, "mesh_space": 2, "fused_tail": True}, "item 13c"),
+    ({"multi_gpu": True, "num_gpus": 2, "mesh_space": 2, "int8_infer": True}, "item 13c"),
     ({"cache_device": True}, "item 19"),
     ({"hps": {"dtype": "bfloat16"}}, "item 18"),
 ])
@@ -117,7 +117,7 @@ def test_config_keys_that_change_the_result_raise(keys, item, tmp_path, monkeypa
     (tests/test_torch_spatial.py): a ``mesh_space`` that does not divide
     ``num_gpus`` raises ``ValueError``, as the JAX facade does
     (api.py:110-111), and what is not ported under it yet
-    (``fused_tail`` here) raises naming ROADMAP item 13c, both before any
+    (``int8_infer`` here) raises naming ROADMAP item 13c, both before any
     process group is needed.  It keeps the
     dataset in device memory under ``cache_device`` (api.py:221-236,
     ROADMAP item 19) and computes in the ``hps.dtype`` (item 18) as the JAX

@@ -866,6 +866,47 @@ def test_parity_tail_kernels_match_plain(card, shape, dtype, dense):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 12, 32, 21), (3, 7, 9, 8), (2, 3, 6, 33)])
+@pytest.mark.parametrize("dense", [True, False])
+def test_parity_tail_row_window_matches_plain(card, shape, dense):
+    """T1 and T2 on a row window (``window=True``: the logits' first and
+    last rows context only; ``mesh_space``): for the sites of each of 2
+    and 3 ranks of the map, with a context row each side clamped at the
+    image's edges, against the windowed plain version (the bounds of
+    ``test_parity_tail_kernels_match_plain`` in float32), one launch each;
+    the ranks' sums and matrices add up to T1's on the whole map."""
+    from deeplabv3plus_keras_tpu_torch.kernels import parity_tail as pt
+    from deeplabv3plus_keras_tpu_torch.parallel import mesh
+
+    x, lab, pw, nw, valid, scale = _parity_tail_inputs(shape, torch.float32, dense)
+    B, H = shape[:2]
+    whole_sums, whole_cm = pt.parity_tail_forward(x, lab, pw, nw, valid)
+    for S in (2, 3):
+        total, total_cm = 0, 0
+        for q in range(S):
+            a, b = mesh.rows_of(H, S, q)
+            if a == b:
+                continue
+            rows = torch.arange(a - 1, b + 1, device="cuda").clamp(0, H - 1)
+            blk, lb = x[:, rows].contiguous(), lab[:, 2 * a:2 * b].contiguous()
+            before = dict(kernels.launch_counts())
+            sums, cm = pt.parity_tail_forward(blk, lb, pw, nw, valid, window=True)
+            dx = pt.parity_tail_backward(blk, lb, pw, nw, scale, window=True)
+            torch.cuda.synchronize()
+            after = kernels.launch_counts()
+            assert after["parity_tail_fwd"] == before["parity_tail_fwd"] + 1
+            assert after["parity_tail_bwd"] == before["parity_tail_bwd"] + 1
+            ref_sums, ref_cm = pt.parity_tail_forward_plain(blk, lb, pw, nw, valid, window=True)
+            ref_dx = pt.parity_tail_backward_plain(blk, lb, pw, nw, scale, window=True)
+            torch.testing.assert_close(sums, ref_sums, rtol=1e-5, atol=0)
+            assert torch.equal(cm, ref_cm)
+            assert float((dx - ref_dx).abs().max()) <= 1e-5 * float(ref_dx.abs().max())
+            total, total_cm = total + sums, total_cm + cm
+        torch.testing.assert_close(total, whole_sums, rtol=1e-5, atol=0)
+        assert torch.equal(total_cm, whole_cm)
+
+
+@pytest.mark.cuda
 def test_parity_tail_kernels_are_bit_reproducible(card):
     """Two runs of T1 and T2 on the same inputs give the same bits:
     fixed-order float sums, integer atomics for the matrix."""

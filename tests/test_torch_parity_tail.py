@@ -220,6 +220,81 @@ def test_soft_labels_take_both_terms_in_either_instantiation():
         torch.testing.assert_close(d1, d0, rtol=0, atol=1e-12 * float(d0.abs().max()))
 
 
+@pytest.mark.parametrize("S", [2, 3, 4])
+@pytest.mark.parametrize("dense", [True, False])
+def test_row_window_blocks_sum_to_the_whole_tail(S, dense):
+    """The row window of T1/T2 (``mesh_space``): h = 7 logits rows split
+    over S ranks by ``mesh.rows_of``, each block its sites with a context
+    row above and below (edge-clamped at the image's edges) and its
+    sites' label rows.  Summed over the blocks, the windowed plain
+    version's per-sample sums and matrices equal the whole map's
+    ``tail_loss_cm`` and its sums, and its dlogits, scattered back
+    through the clamp, the gradient of that loss; the emulations (the
+    default plan, 2 × 4 tiles, and 1 × 2 tiles walked 3 at a time) equal
+    the windowed plain version.  float64, 1e-12."""
+    from deeplabv3plus_keras_tpu_torch.parallel import mesh
+
+    B, h, w, C = 2, 7, 5, 8
+    g = torch.Generator().manual_seed(S + 10 * dense)
+    x = torch.randn(B, h, w, C, generator=g, dtype=torch.float64) * 2
+    ids = torch.randint(0, C, (B, 2 * h, 2 * w), generator=g)
+    lab = torch.nn.functional.one_hot(ids, C).to(torch.float64) if dense else ids
+    pw, nw = np.linspace(0.3, 0.99, C), np.linspace(0.7, 0.01, C)
+    valid = torch.tensor([1, 0])
+    xr = x.clone().requires_grad_()
+    loss_whole, cm_whole = parity_tail.tail_loss_cm(xr, lab, pw, nw, C, valid)
+    (gx,) = torch.autograd.grad(loss_whole, xr)
+    sums_whole, _ = kernel.parity_tail_forward_plain(x, lab, pw, nw, valid)
+    # what autograd hands the per-sample sums of the loss
+    scale = valid.to(torch.float64) / (valid.sum() * 4 * h * w)
+    for tile in (None, (2, 4), (1, 2, 3)):
+        sums, cm, dx = 0, 0, torch.zeros_like(x)
+        for q in range(S):
+            a, b = mesh.rows_of(h, S, q)
+            if a == b:
+                continue
+            rows = torch.arange(a - 1, b + 1).clamp(0, h - 1)
+            blk, lb = x[:, rows], lab[:, 2 * a:2 * b]
+            plan = kernel._parity_tail_make(B, b - a + 2, w, C, *tile, window=True) if tile else None
+            s0, c0 = kernel.parity_tail_forward_plain(blk, lb, pw, nw, valid, window=True)
+            s1, c1 = kernel.parity_tail_forward_emulation(blk, lb, pw, nw, valid, plan=plan,
+                                                          window=True)
+            torch.testing.assert_close(s1, s0, rtol=1e-12, atol=0)
+            assert torch.equal(c1, c0)
+            d0 = kernel.parity_tail_backward_plain(blk, lb, pw, nw, scale, window=True)
+            d1 = kernel.parity_tail_backward_emulation(blk, lb, pw, nw, scale, plan=plan,
+                                                       window=True)
+            torch.testing.assert_close(d1, d0, rtol=0, atol=1e-12 * float(d0.abs().max()))
+            sums, cm = sums + s0, cm + c0
+            dx.index_add_(1, rows, d0)
+        torch.testing.assert_close(sums, sums_whole, rtol=1e-12, atol=0)
+        mean = float(loss.masked_pixel_mean(sums, valid, total_pixels_per_sample=4 * h * w))
+        assert abs(mean - loss_whole.item()) <= 1e-12 * abs(loss_whole.item())
+        assert torch.equal(cm, cm_whole)
+        torch.testing.assert_close(dx, gx, rtol=0, atol=1e-12 * float(gx.abs().max()))
+
+
+def test_row_window_plan_tiles_own_sites_and_every_row():
+    """Under a row window T1's tiles cover the site rows 1 .. H − 2 once
+    (from row 1), T2's every row (it writes the context rows' dlogits);
+    the whole map's plan is unchanged; a window of fewer than 3 rows holds
+    no site and raises."""
+    for B, H, W, C in ((1, 5, 9, 4), (2, 35, 17, 21), (1, 3, 1, 1), (2, 18, 40, 33)):
+        p = kernel._parity_tail_plan(B, H, W, C, window=True)
+        assert (p.s0, p.s1) == (1, H - 1)
+        for kind, first, last in (("fwd", 1, H - 1), ("bwd", 0, H)):
+            sites = [(b, i, j) for b, tiles in p.blocks(kind) for i0, j0 in tiles
+                     for i in range(i0, min(i0 + p.tr, last)) for j in range(j0, min(j0 + p.tw, W))]
+            assert sorted(sites) == sorted(set(sites)) and len(sites) == B * (last - first) * W
+            assert min(i for _, i, _ in sites) == first
+        assert len(list(p.blocks())) == p.grid[0] * p.grid[1] * B
+        assert len(list(p.blocks("bwd"))) == p.bwd_grid[0] * p.bwd_grid[1] * B
+        whole = kernel._parity_tail_plan(B, H, W, C)
+        assert (whole.s0, whole.s1, whole.grid, whole.rows) == (0, H, whole.bwd_grid, whole.bwd_rows)
+    with pytest.raises(ValueError, match="no site"):
+        kernel._parity_tail_plan(1, 2, 8, 21, window=True)
+
+
 def test_kernel_plan_fits_the_card_and_covers_the_map():
     """The flagship's tail takes the C ≤ 24 instantiation: tiles of 4 × 16
     sites, a block walking 4 of them (16 row-tile groups), T1 256 threads,

@@ -11,7 +11,18 @@ spans every shard, in eval and train; halos strictly inside a shard at 256²
 in eval and train; os 8; the refinement decoder with and without the fused
 upsample-conv) and the tiny train step under ``grad_accum`` 2 (against
 one process only: the JAX accumulating step carries a float32 loss), in
-float64 on the (n_data, n_space) grids (1, 2), (2, 2) and (1, 4).  One spawn of 2 ranks and one of 4 carry every case of a file
+float64 on the (n_data, n_space) grids (1, 2), (2, 2) and (1, 4).  The
+step options under a space split: ``fused_tail`` (the parity tail on row
+windows of the logits), ``remat`` (the backbone's exchanges recomputed),
+``augment`` (against one process only: the port draws its flips and
+scales from torch's generator, JAX from ``jax.random``) and test-time
+augmentation; ``remat`` computes the unrematerialised step's numbers, so
+its JAX reference is ``tiny_train``'s (no further compile).  And the
+facade's ``segment()``, ``eval_step()`` and ``train_step()`` on (64, 96)
+and (96, 64) images on the 2-rank grid (labels equal to one process's at
+every pixel): the JAX package's spatial steps take both shapes, its
+test-time augmentation neither (it resizes to squares), and the port's
+alike.  One spawn of 2 ranks and one of 4 carry every case of a file
 (``torch_spatial_workers.py``), with a deadline; the JAX steps and the one
 process run meanwhile.  The 128² and 256² cases, whose JAX steps take most
 of the compile time, run from tests/test_torch_spatial_halo.py, so that
@@ -58,7 +69,16 @@ GRIDS = [g for grids in workers.GRIDS.values() for g in grids]
 JAX_MESH = {"tiny_train": (1, 2), "tiny_eval": (2, 2), "xception_aspp": (1, 4),
             "pyramid_eval": (1, 4), "pyramid_train": (2, 2), "halo_eval": (1, 2),
             "halo_train": (2, 2), "os8_eval": (1, 2), "refine_fused": (1, 4),
-            "refine_unfused": (2, 2)}
+            "refine_unfused": (2, 2), "tail_fused_train": (1, 4), "tta_eval": (2, 2),
+            "remat_train": (1, 2)}
+# a case whose JAX step computes another's numbers: that one's reference
+JAX_REF = {"remat_train": "tiny_train"}
+
+
+def case_grid_params(cases):
+    """(case, grid) of every case on each grid it runs on."""
+    return [pytest.param(c, g, id=f"{c}-{g[0]}x{g[1]}") for c in cases
+            for g in workers.case_grids(c)]
 
 
 def _jax_case(case: str, jm, variables) -> dict:
@@ -72,7 +92,8 @@ def _jax_case(case: str, jm, variables) -> dict:
     bs = [{k: jnp.asarray(b[k]) for k in ("image", "label", "valid")}
           for b in workers.batches(case, steps)]
     if kind == "eval":
-        out = shard_step(jax_build_eval_step(jm, jconf), m, kind="eval", spatial=True)(state, bs[0])
+        step = jax_build_eval_step(jm, jconf, **workers.tta_keys(conf))
+        out = shard_step(step, m, kind="eval", spatial=True)(state, bs[0])
         return {"loss": float(out["loss"]), "probs": np.asarray(out["probs"])}
     step = shard_step(jax_build_train_step(jm, tx, jconf), m, kind="train", spatial=True)
     losses = []
@@ -116,7 +137,9 @@ def spatial_runs(tmp, cases, units: bool):
         single = depthwise3._single_device_mesh  # shard_step sets it for the mesh
         jax.config.update("jax_enable_x64", True)
         try:
-            ref = {case: _jax_case(case, *models[case]) for case in cases if case in JAX_MESH}
+            ref = {case: _jax_case(case, *models[case]) for case in cases
+                   if case in JAX_MESH and case not in JAX_REF}
+            ref.update({case: ref[JAX_REF[case]] for case in cases if case in JAX_REF})
         finally:
             jax.config.update("jax_enable_x64", False)
             depthwise3.set_single_device_mesh(single)
@@ -127,7 +150,7 @@ def spatial_runs(tmp, cases, units: bool):
         return torch.load(tmp / name, weights_only=False)
 
     ranks = {(case, g): [load(f"{case}_{g[0]}x{g[1]}_r{r}.pt") for r in range(g[0] * g[1])]
-             for case in cases for g in GRIDS}
+             for case in cases for g in workers.case_grids(case)}
     unit = {n: [load(f"unit_{n}_r{r}.pt") for r in range(n)] for n in (2, 3, 4)} if units else {}
     if units:
         unit["facade"] = [load(f"facade_r{r}.pt") for r in range(2)]
@@ -149,12 +172,12 @@ def _probs(rs: list, grid) -> torch.Tensor:
     return torch.cat([rs[d * n_space]["probs"] for d in range(n_data)])
 
 
-@pytest.mark.parametrize("grid", GRIDS, ids=lambda g: f"{g[0]}x{g[1]}")
-@pytest.mark.parametrize("case", CASES)
+@pytest.mark.parametrize("case,grid", case_grid_params(CASES))
 def test_spatial_ranks_equal_one_process(runs, case, grid):
     """float64: every rank's losses, confusion matrices and, after the
     train steps, parameters and BN statistics against one process; eval's
-    probabilities of every sample, whole height."""
+    probabilities of every sample, whole height; ``segment()``'s labels of
+    non-square images at every pixel."""
     check_one_process(runs, case, grid)
 
 
@@ -171,14 +194,33 @@ def check_one_process(runs, case, grid):
                 assert float((r0["state"][k] - v).abs().max()) <= 1e-12, (case, grid, k)
             else:
                 assert torch.equal(r0["state"][k], v), (case, grid, k)
+        for r in rs:  # non-square images: every rank's whole labels
+            for key in ("labels", "segment"):
+                for a, b in zip(r.get(key, ()), one.get(key, ())):
+                    assert a.shape == b.shape and np.array_equal(a, b), (case, grid, key)
+        for a, b in zip(r0.get("probs", ()), one.get("probs", ())):
+            assert a.shape == b.shape and float((a - b).abs().max()) <= 1e-12, (case, grid)
     else:
         assert abs(r0["loss"] - one["loss"]) <= 1e-12 * abs(one["loss"]), (case, grid)
         np.testing.assert_array_equal(r0["cm"], one["cm"])
         assert float((_probs(rs, grid) - one["probs"]).abs().max()) <= 1e-12, (case, grid)
 
 
-@pytest.mark.parametrize("grid", GRIDS, ids=lambda g: f"{g[0]}x{g[1]}")
-@pytest.mark.parametrize("case", CASES)
+def test_nonsquare_tta_refuses_a_scale_and_serves_the_flip(runs):
+    """Non-square images: test-time augmentation at a scale that changes
+    the height raises (JAX's resizes to and from squares) in one process
+    and on every rank alike, while the flip alone, at the input size,
+    serves both shapes (its probabilities held to one process above)."""
+    one = runs[1]["nonsquare"]
+    assert one["scaled_tta_refused"] == [True] * len(workers.NONSQUARE)
+    for grid in workers.case_grids("nonsquare"):
+        for r in runs[0][("nonsquare", grid)]:
+            assert r["scaled_tta_refused"] == one["scaled_tta_refused"], grid
+            assert [tuple(p.shape[1:3]) for p in r["probs"]] == [
+                hw for hw in workers.NONSQUARE for _ in range(2)], grid
+
+
+@pytest.mark.parametrize("case,grid", case_grid_params(CASES))
 def test_spatial_ranks_agree_and_exchange_alike(runs, case, grid):
     """Every rank ends a train case with the same parameters and
     statistics bit for bit and the same losses, holds an eval case's loss
@@ -275,7 +317,7 @@ def test_fetch_rows_backward_is_its_transpose(runs, world):
     backward is the forward's transpose (one exchange each way)."""
     for r, res in enumerate(runs[3][world]):
         for name, v in res.items():
-            if name.startswith("k1"):
+            if name.startswith(("k1", "tail")):
                 continue
             assert v["forward_error"] == 0.0, (world, r, name)
             a, b = v["dots"]
@@ -291,6 +333,36 @@ def test_label_step_halo_and_crop_equals_whole_logits(runs, world):
     logits rows."""
     for res in runs[3][world]:
         assert res["k1_x2"] and res["k1_x4"]
+
+
+@pytest.mark.parametrize("world", [2, 3, 4])
+def test_fused_tail_rows_equal_the_whole_tail(runs, world):
+    """``fused_tail`` under a space split (``ops/parity_tail.py``): each
+    rank's sites of h = 7 and h = 3 logits rows on a row window with a
+    fetched, edge-clamped context row each side and its sites' label rows
+    (⌈2h/S⌉ odd at 2 and 3 ranks; no site on a rank of h = 3 at 4): the
+    ranks' loss shares sum to the whole map's loss to 1e-12 relative,
+    their matrices to its matrix, and the gathered gradients equal its
+    gradient to 1e-12 of their largest, float64."""
+    for res in runs[3][world]:
+        for h in (7, 3):
+            t = res[f"tail_h{h}"]
+            assert t["loss_rel"] <= 1e-12 and t["cm_equal"] and t["grad_rel"] <= 1e-12, (world, h, t)
+
+
+@pytest.mark.parametrize("grid", GRIDS, ids=lambda g: f"{g[0]}x{g[1]}")
+def test_remat_recomputes_the_backbone_exchanges(runs, grid):
+    """``remat`` under a space split: the ranks' state after the steps
+    equals the unrematerialised ``tiny_train``'s to 1e-12, and each rank
+    made more exchanges (the backbone's forward fetches again in the
+    backward's recompute, on every rank alike, ranks with no rows of the
+    os-16 map included)."""
+    remat, plain = runs[0][("remat_train", grid)], runs[0][("tiny_train", grid)]
+    for k, v in plain[0]["state"].items():
+        if v.is_floating_point():
+            assert float((remat[0]["state"][k] - v).abs().max()) <= 1e-12, (grid, k)
+    for r, p in zip(remat, plain):
+        assert r["exchanges"]["exchanges"] > p["exchanges"]["exchanges"], (grid, r["exchanges"])
 
 
 def test_rows_of_uneven_and_empty_splits():

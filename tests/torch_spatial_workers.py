@@ -68,9 +68,32 @@ CASES = {
     # :312
     "refine_fused": (case_conf(32, 8, ONE_BY_ONE, refine=True, fused_upconv=True), "eval"),
     "refine_unfused": (case_conf(32, 8, ONE_BY_ONE, refine=True, fused_upconv=False), "eval"),
+    # the step options under a space split: the parity tail on row windows
+    # of the 16-row logits (a site's label rows follow the logits' rows)
+    "tail_fused_train": (case_conf(32, 8, ONE_BY_ONE, refine=True, fused_tail=True), 2),
+    # the backbone recomputed in the backward, its exchanges replayed (the
+    # 2-row os-16 map leaves ranks of the 4-way split no rows)
+    "remat_train": (case_conf(32, 8, ONE_BY_ONE, remat=True), 2),
+    # whole images flipped and scaled before the rows are cut; the port
+    # draws from torch's generator, JAX from jax.random: one process only
+    "augment_train": (case_conf(64, 8, ONE_BY_ONE,
+                                augment={"random_flip": True, "scale_range": [0.5, 2.0]}), 1),
+    # test-time augmentation: 48² and 80² variants, flipped, resized back
+    # to each rank's rows of 64² (80 → 64 antialiased)
+    "tta_eval": (case_conf(64, 8, ONE_BY_ONE, eval_scales=[0.75, 1.25], eval_flip=True), "eval"),
+    # C3: the facade's segment(), eval_step() (plain and flip-only TTA) and
+    # train_step() on (64, 96) and (96, 64) images, 2 ranks only
+    "nonsquare": (case_conf(64, 2, ONE_BY_ONE, refine=True), "nonsquare"),
 }
 # the (n_data, n_space) grids, by world size
 GRIDS = {2: [(1, 2)], 4: [(2, 2), (1, 4)]}
+# the cases run on some grids only
+CASE_GRIDS = {"nonsquare": [(1, 2)]}
+NONSQUARE = ((64, 96), (96, 64))
+
+
+def case_grids(case: str) -> list:
+    return CASE_GRIDS.get(case, [g for grids in GRIDS.values() for g in grids])
 
 
 def batches(case: str, steps: int) -> list[dict]:
@@ -90,30 +113,32 @@ def batches(case: str, steps: int) -> list[dict]:
 
 
 def run_case(case: str, variables, grid=None) -> dict:
-    """The case on the CPU in float64: on this rank's batch rows and image
-    rows of each global batch under ``grid``, else on all of it (one
-    process).  Train: losses, confusion matrices and the state after the
-    steps.  Eval: loss, confusion matrix and probabilities (this rank's
-    samples, their whole height)."""
+    """The case on the CPU in float64: on this rank's batch rows of each
+    global batch under ``grid`` (whole images: the step cuts the image
+    rows), else on all of it (one process).  Train: losses, confusion
+    matrices and the state after the steps.  Eval: loss, confusion matrix
+    and probabilities (this rank's samples, their whole height)."""
     from deeplabv3plus_keras_tpu_torch.config import Config
     from deeplabv3plus_keras_tpu_torch.parallel import mesh, step
 
     conf, kind = CASES[case]
+    if kind == "nonsquare":
+        return run_nonsquare(conf, variables, grid)
     model = port_model(conf, variables).to(torch.float64)
     pconf = Config.from_dict(conf)
     B = conf["hps"]["batch_size"]
 
     def local(b: dict) -> dict:
+        """This rank's data position's samples, whole images (the step
+        cuts the image rows)."""
         if grid is None:
             return {k: torch.from_numpy(v) for k, v in b.items()}
         rows = mesh.row_indices(B, grid.n_data, grid.d, int(conf.get("grad_accum", 1)))
-        a, e = grid.rows_of(b["image"].shape[1])
-        return {"image": torch.from_numpy(b["image"][rows, a:e]),
-                "label": torch.from_numpy(b["label"][rows, a:e]),
-                "valid": torch.from_numpy(b["valid"][rows])}
+        return {k: torch.from_numpy(v[rows]) for k, v in b.items()}
 
     if kind == "eval":
-        out = step.build_eval_step(model, pconf, with_probs=True)(local(batches(case, 1)[0]))
+        out = step.build_eval_step(model, pconf, with_probs=True, **tta_keys(conf))(
+            local(batches(case, 1)[0]))
         return {"loss": float(out["loss"]), "cm": out["cm"].numpy(), "probs": out["probs"]}
     opt = step.create_train_state(pconf, model)
     train_step = step.build_train_step(model, opt, pconf)
@@ -126,6 +151,57 @@ def run_case(case: str, variables, grid=None) -> dict:
             "state": {k: v.detach().clone() for k, v in model.state_dict().items()}}
 
 
+def tta_keys(conf: dict) -> dict:
+    """The eval step's test-time augmentation, from the extra keys."""
+    return {"tta_scales": conf.get("eval_scales"), "tta_flip": bool(conf.get("eval_flip", False))}
+
+
+def run_nonsquare(conf: dict, variables, grid) -> dict:
+    """(64, 96) and (96, 64) images, B = 2: for each shape the label step's
+    whole labels, the eval step's loss, matrix and probabilities, those of
+    the eval step with the flip alone as test-time augmentation, then a
+    train step's (float64, from ``variables``); whether an eval step with a
+    test-time scale refused the shape (JAX's resizes to squares); the state
+    after the steps; and the facade's ``segment()`` of the same images
+    (float32, its own random weights; under ``grid``: ``mesh_space`` over
+    its ranks)."""
+    from deeplabv3plus_keras_tpu_torch import SemanticSegmentation
+    from deeplabv3plus_keras_tpu_torch.config import Config
+    from deeplabv3plus_keras_tpu_torch.parallel import step
+
+    model = port_model(conf, variables).to(torch.float64)
+    pconf = Config.from_dict(conf)
+    train_step = step.build_train_step(model, step.create_train_state(pconf, model), pconf)
+    eval_step = step.build_eval_step(model, pconf, with_probs=True)
+    flip_step = step.build_eval_step(model, pconf, with_probs=True, tta_flip=True)
+    scaled_step = step.build_eval_step(model, pconf, with_probs=True, tta_scales=[1.25])
+    label_step = step.build_label_step(model)
+    rng = np.random.default_rng(5)
+    images = [rng.uniform(-1, 1, (2, H, W, 3)) for H, W in NONSQUARE]
+    out = {"labels": [], "losses": [], "cms": [], "probs": [], "scaled_tta_refused": []}
+    for x in images:
+        b = {"image": torch.from_numpy(x), "valid": torch.ones(2, dtype=torch.int32),
+             "label": torch.from_numpy(rng.integers(0, 21, x.shape[:3]))}
+        out["labels"].append(label_step(b["image"]).numpy())
+        evs = [eval_step(b), flip_step(b)]
+        out["probs"] += [ev["probs"] for ev in evs]
+        for m in (*evs, train_step(b)):
+            out["losses"].append(float(m["loss"]))
+            out["cms"].append(m["cm"].numpy())
+        try:
+            scaled_step(b)
+            out["scaled_tta_refused"].append(False)
+        except ValueError:
+            out["scaled_tta_refused"].append(True)
+    out["state"] = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    fconf = {**conf, "hps": {**conf["hps"], "dtype": "float32"}}
+    if grid is not None:
+        fconf.update(multi_gpu=True, num_gpus=grid.n_data * grid.n_space, mesh_space=grid.n_space)
+    seg = SemanticSegmentation(fconf, device="cpu")
+    out["segment"] = [seg.segment(x.astype(np.float32)) for x in images]
+    return out
+
+
 def spatial_worker(variables_dir: str, out_dir: str, cases=None, units: bool = True) -> None:
     """Every case (of ``cases``, default all) on every grid of this world
     size; one file a case, grid and rank (what the rank computed, and the
@@ -136,6 +212,8 @@ def spatial_worker(variables_dir: str, out_dir: str, cases=None, units: bool = T
     for n_data, n_space in GRIDS[mesh.world_size()]:
         grid = mesh.init_grid(n_space)
         for case in cases or CASES:
+            if (n_data, n_space) not in case_grids(case):
+                continue
             variables = torch.load(os.path.join(variables_dir, f"{case}.pt"), weights_only=False)
             spatial.reset_counts()
             out = run_case(case, variables, grid)
@@ -191,13 +269,51 @@ def unit_worker(out_dir: str) -> None:
         whole = upsample_argmax(logits, up)
         a, b = mesh.rows_of(7, S, s)
         mine = logits[:, a:b].permute(0, 3, 1, 2)
-        labels = spatial.resize_rows(
-            mine, up, lambda xb: upsample_argmax(xb.permute(0, 2, 3, 1).contiguous(), up),
-            out_width=7 * up, out_channels=0, row_dim=1)
+        with spatial.use_heights({7: 7}):
+            labels = spatial.resize_rows(
+                mine, up, lambda xb: upsample_argmax(xb.permute(0, 2, 3, 1).contiguous(), up),
+                out_width=7 * up, out_channels=0, row_dim=1)
         full = spatial.gather_rows(labels, 7 * up, 1).to(torch.int32)
         result[f"k1_x{up}"] = bool(torch.equal(full, whole))
+    result.update(tail_rows(S, s))
     torch.save(result, os.path.join(out_dir, f"unit_{world}_r{mesh.rank()}.pt"))
     mesh.init_grid(1)
+
+
+def tail_rows(S: int, s: int) -> dict:
+    """The fused tail (``ops/parity_tail.tail_loss_cm``, its plain version)
+    on this rank's rows of h = 7 and h = 3 logits rows, against the whole
+    map's in one process (``spatial.local``): the loss summed over the
+    ranks, the matrix, and the logits' gradient gathered (the fetch's
+    transpose returns the context rows' share to their owners), float64.
+    ⌈2h/S⌉ is odd at S = 2 and 3, so a site's label rows are not
+    ``rows_of(2h)``'s; at S = 4 a rank holds no site of h = 3."""
+    from deeplabv3plus_keras_tpu_torch.ops.parity_tail import tail_loss_cm
+    from deeplabv3plus_keras_tpu_torch.parallel import mesh, spatial
+
+    out = {}
+    C = 5
+    pw, nw = np.linspace(0.3, 0.99, C), np.linspace(0.7, 0.01, C)
+    for h in (7, 3):
+        gen = torch.Generator().manual_seed(h)
+        logits = torch.randn(2, h, 4, C, generator=gen, dtype=torch.float64)
+        label = torch.randint(0, C, (2, 2 * h, 8), generator=gen)
+        valid = torch.tensor([1, 1])
+        with spatial.local():
+            x = logits.clone().requires_grad_()
+            loss, cm = tail_loss_cm(x, label, pw, nw, C, valid)
+            (grad,) = torch.autograd.grad(loss, x)
+        a, b = mesh.rows_of(h, S, s)
+        mine = logits[:, a:b].clone().requires_grad_()
+        with spatial.use_heights({4: h}):
+            share, cm_rows = tail_loss_cm(mine, label, pw, nw, C, valid)
+        (g,) = torch.autograd.grad(share, mine)
+        total = mesh.all_reduce_(torch.cat([share.detach().reshape(1), cm_rows.reshape(-1).double()]))
+        out[f"tail_h{h}"] = {
+            "loss_rel": abs(float(total[0]) - loss.item()) / loss.item(),
+            "cm_equal": bool(torch.equal(total[1:].reshape(C, C).to(torch.int32), cm)),
+            "grad_rel": float((spatial.gather_rows(g, h, 1) - grad).abs().max() / grad.abs().max())}
+    return out
 
 
 def facade_conf(root: str, **extra) -> dict:
