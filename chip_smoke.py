@@ -99,7 +99,8 @@ BN statistics of its float32 phases:
   two ranks (the ``ddp`` layout) against one process;
 - ``spatial`` (after ``fused_tail``): ``mesh_space`` 2. K2–K5 on row
   windows (each rank's output rows and the rows they read) against their
-  plain versions at the flagship's sites at 1024² × 4 and at Xception's
+  plain versions at the flagship's sites at 1024² × 4, at NASNet-Mobile's
+  and EfficientNet-B0's k = 5 and 7 sites at 1024² × 2 and at Xception's
   odd heights (253, 127, 509, 255, 128; stride 1 and 2, and the K6/K7
   route's symmetric halo under ``bhcw``); then two ranks as a 1 × 2 grid
   (the ``ddp`` layout) against one process from the same weights (seed
@@ -112,9 +113,17 @@ BN statistics of its float32 phases:
   checked on row windows against their plain versions), a
   test-time-augmented eval step (loss and matrix) and a 1024 × 768
   ``segment()``, Xception at 1024² × 2 (one step and ``segment()`` under
-  ``nhwc`` and ``bhcw``: K6/K7 on every rank); per rank and per one
-  process peak memory, a profiled step's and call's device time, the
-  halo exchanges and their bytes a step, K1–K7's and T1/T2's launches;
+  ``nhwc`` and ``bhcw``: K6/K7 on every rank), NASNet-Mobile,
+  EfficientNet-B0 and DenseNet-121 at 1024² × 2 (3 steps and
+  ``segment()`` each, held as the flagship, each beside its own
+  rows-reversed run; ``spatial_backbones`` line) and ``int8_infer``
+  ``segment()`` of the flagship and Xception at 1024² × 2 (the int8 sites
+  by name, the ranges and the labels against one process's int8;
+  ``spatial_int8`` line); per rank and per one process peak memory, a
+  profiled step's and call's device time, the halo exchanges and their
+  bytes a step, K1–K7's and T1/T2's launches; and the allocations live
+  at the peak of the flagship's second step with ``fused_tail`` off and
+  on, in one process and in each rank (``spatial_peak_allocations``);
 - ``int8`` (before ``ddp``): ``int8_infer`` on the flagship and on
   Xception (under ``nhwc``) calibrated on the serving batches: the
   quantized sites against the CPU's for the same config, ``segment()``
@@ -153,8 +162,9 @@ K2-K5 in float16, T1/T2 in bfloat16 and with integer labels; launches by
 path, the new phases' paths (``segment_int8``,
 ``xception_segment_int8``, ``evaluate_int8``, ``test_int8``,
 ``export_program_int8``), the ddp phase's rank 0 and the spatial phase's
-(``spatial_train``, ``spatial_segment``, ``spatial_xception_bhcw``)
-included), the card's
+(``spatial_train``, ``spatial_segment``, ``spatial_xception_bhcw``, the
+options', ``spatial_<backbone>_train``/``_segment``,
+``spatial_int8_<model>_segment``) included), the card's
 name and power limit, and as its last line ``{"ok": true, "device": {...}}``.
 
 ``python3 chip_smoke.py --parity-tail`` builds ``csrc/parity_tail.cu``
@@ -2935,6 +2945,38 @@ SPATIAL_TTA = {"eval_scales": [0.75, 1.0, 1.25], "eval_flip": True}
 SPATIAL_NONSQUARE = (SPATIAL_SIZE, 768)
 
 
+# the other backbones' families under mesh_space, each at 1024² × 2: a
+# segment() from the initial weights and 3 train_step()s, held to one
+# process by the flagship's bounds (each with its own rows-reversed run
+# as the yardstick).  segment() after the steps would compare other
+# weights: 3 steps of ±lr on the zero-gradient BN parameters move the
+# ranks' weights up to 0.44 (relative 2-norm) from one process's, each
+# within its rows-reversed bound, which moves labels at clear pixels (on
+# an H100, 311 of NASNet-Mobile's 2,078,093 and 8 of DenseNet-121's).
+# Stochastic depth off (EfficientNet): reversed rows would draw another
+# image's per-sample mask; its draws under a space split are held on the
+# CPU (tests/test_torch_spatial_backbones.py, float64, 1e-12)
+SPATIAL_BACKBONES = ("nasnetmobile", "efficientnetb0", "densenet121")
+SPATIAL_BACKBONE_BATCH = 2
+# int8_infer segment() at 1024² × 2 (calibrated on its images), the
+# flagship and Xception.  The ranks' int8 products are exact and equal
+# one process's for equal int8 inputs; what differs is the float32 work
+# before each quantize (cuDNN on a row window, the whole image in one
+# process), whose rounding can move an activation that lies at a rounding
+# boundary of x/s by one int8 step (1/127 of the site's range), which
+# moves the logits by far more than float32 rounding.  So: the same sites
+# by name and calls; the ranges (abs-max of the same activations) to
+# 1e-5 relative; the labels equal wherever one process's int8 top two
+# upsampled logits differ by more than 1e-2 relative (10× the float
+# paths' margin), and at no more than 1e-3 of all pixels anywhere
+SPATIAL_INT8 = ("mobilenetv2", "xception")
+SPATIAL_INT8_RANGE_REL, SPATIAL_INT8_MARGIN_REL, SPATIAL_INT8_LABEL_SHARE = 1e-5, 1e-2, 1e-3
+# the allocations live at a step's peak (torch.cuda.memory's history of one
+# integer-label step): the largest, grouped by the innermost frame of the
+# port or this script
+PEAK_TOP = 8
+
+
 def spatial_conf(conf: dict, ranks: int) -> dict:
     """``conf`` with dropout 0 (element-wise dropout draws from each rank's
     own stream), over ``ranks`` ranks split along the image height alone."""
@@ -2957,30 +2999,52 @@ def spatial_batches(n: int, batch: int, seed: int = 11) -> list[dict]:
 
 
 def spatial_run(conf: dict, device, steps: int, tag: str, evaluate: bool, margins: bool,
-                reverse: bool = False, steps_only: bool = False) -> dict:
-    """The facade on ``conf`` (random weights from seed 1024): ``steps``
-    ``train_step()``s on whole images (a rank takes its rows), the last
-    profiled, then ``segment()`` of the first batch (the second call
-    profiled) and, with ``evaluate``, one ``eval_step()``.  Per step the
-    loss, the kernels' launches and the halo exchanges; peak memory of the
-    steps; each parameter's update; the labels; with ``margins`` (one
-    process) where its top two upsampled logits differ by more than
+                reverse: bool = False, steps_only: bool = False, history: bool = False) -> dict:
+    """The facade on ``conf`` (random weights from seed 1024, stochastic
+    depth off: :func:`no_stochastic_depth`): ``segment()`` of the first
+    batch (the second call profiled), from the same weights in every
+    process (after the steps, the ranks' and one process's weights differ
+    by their steps' rounding, which Keras Adam turns into ±lr on
+    zero-gradient parameters), then ``steps`` ``train_step()``s on whole
+    images (a rank takes its rows), the last profiled, and, with
+    ``evaluate``, one ``eval_step()``.  Per step the loss, the kernels'
+    launches and the halo exchanges; peak memory of the steps; each
+    parameter's update; the labels; with ``margins`` (one process) where
+    its top two upsampled logits differ by more than
     ``SPATIAL_MARGIN_REL`` relative.  ``steps_only``: the steps alone,
     none profiled; ``reverse`` (which implies it): the batches' rows in
-    reverse order (the yardstick of summation order)."""
+    reverse order (the yardstick of summation order).  ``history``: the
+    second step under the allocator's history (:func:`peak_allocations`)."""
     import torch
-    import torch.nn.functional as F
 
     from deeplabv3plus_keras_tpu_torch import SemanticSegmentation, kernels
     from deeplabv3plus_keras_tpu_torch.parallel import mesh, spatial
 
     steps_only = steps_only or reverse
     seg = SemanticSegmentation(conf, device=device)
+    no_stochastic_depth(seg.model)
     before = {n: p.detach().clone() for n, p in seg.model.named_parameters()}
     data = spatial_batches(steps, conf["hps"]["batch_size"])
     gpu = [{k: (v.flip(0) if reverse else v).to(device) for k, v in b.items()} for b in data]
     out = {"losses": [], "cms": [], "launches": [], "exchanges": [], "step_s": [],
            "step_peak_gib": []}
+
+    def serve():
+        images = gpu[0]["image"]
+        kernels.reset_launch_counts()
+        spatial.reset_counts()
+        out["labels"] = torch.from_numpy(seg.segment(images))
+        out["segment_launches"] = kernels.launch_counts()
+        out["segment_exchanges"] = dict(spatial.counts)
+        prof = profile_device(lambda: seg.segment(images),
+                              OUT / f"spatial_{tag}_segment_r{mesh.rank()}.txt",
+                              f"{tag} segment, rank {mesh.rank()}", 30)
+        out["segment_device_ms"] = prof["device_ms"]
+        if margins:
+            out["clear"] = clear_pixels(seg.model, images, SPATIAL_MARGIN_REL)
+
+    if not steps_only:
+        serve()
     torch.cuda.synchronize()
     for i, b in enumerate(gpu):
         kernels.reset_launch_counts()
@@ -2993,6 +3057,10 @@ def spatial_run(conf: dict, device, steps: int, tag: str, evaluate: bool, margin
                                   OUT / f"spatial_{tag}_train_r{mesh.rank()}.txt",
                                   f"{tag} train_step, rank {mesh.rank()}", 30)
             out["step_device_ms"] = prof["device_ms"]
+        elif i == 1 and history:
+            res = {}
+            out["peak_allocations"] = peak_allocations(lambda: res.update(seg.train_step(b)),
+                                                       device)
         else:
             res = seg.train_step(b)
         out["losses"].append(res["loss"].item())
@@ -3007,26 +3075,112 @@ def spatial_run(conf: dict, device, steps: int, tag: str, evaluate: bool, margin
     out["updates"] = {n: (p.detach() - before[n]).cpu() for n, p in seg.model.named_parameters()}
     if steps_only:
         return out
-    images = gpu[0]["image"]
-    kernels.reset_launch_counts()
-    spatial.reset_counts()
-    out["labels"] = torch.from_numpy(seg.segment(images))
-    out["segment_launches"] = kernels.launch_counts()
-    out["segment_exchanges"] = dict(spatial.counts)
-    prof = profile_device(lambda: seg.segment(images), OUT / f"spatial_{tag}_segment_r{mesh.rank()}.txt",
-                          f"{tag} segment, rank {mesh.rank()}", 30)
-    out["segment_device_ms"] = prof["device_ms"]
     if evaluate:
         m = seg.eval_step(gpu[0])
         out["eval"] = {"loss": m["loss"].item(), "cm": m["cm"].cpu()}
+    return out
+
+
+def clear_pixels(model, images, rel: float):
+    """Where ``model``'s top two upsampled logits of ``images`` (in eval
+    mode) differ by more than ``rel`` of the top one: the pixels whose
+    label rounding cannot move, on the CPU."""
+    import torch
+    import torch.nn.functional as F
+
+    with torch.inference_mode():
+        model.eval()
+        logits, up = model(images, return_presample=True)
+        upl = F.interpolate(logits.permute(0, 3, 1, 2), scale_factor=up, mode="bilinear",
+                            align_corners=False)
+        top = upl.topk(2, dim=1).values
+        return ((top[:, 0] - top[:, 1]) > rel * top[:, 0].abs()).cpu()
+
+
+def peak_allocations(fn, device, top: int = PEAK_TOP) -> dict:
+    """Run ``fn`` with the CUDA caching allocator's history on (Python
+    stacks) and replay its trace of allocations and frees to the moment
+    the bytes allocated since the start peak: the allocations live then,
+    summed by the innermost frame in the port or this script, the largest
+    ``top``; beside the bytes allocated before ``fn`` (weights, optimizer
+    state, batches) and ``torch.cuda.max_memory_allocated``.  Allocations
+    made on autograd's device thread carry no Python frame: those are
+    summed by size.  ``peak_at_event_share``: where in the step's trace
+    the peak falls (the forward first, then the backward)."""
+    import torch
+
+    torch.cuda.synchronize(device)
+    base = torch.cuda.memory_allocated(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    torch.cuda.memory._record_memory_history(max_entries=2_000_000, stacks="python")
+    try:
+        fn()
+        torch.cuda.synchronize(device)
+        trace = torch.cuda.memory._snapshot(device)["device_traces"][device.index or 0]
+    finally:
+        torch.cuda.memory._record_memory_history(enabled=None)
+    events = [e for e in trace if e["action"] in ("alloc", "free_requested", "free_completed")]
+    live, total, peak, at = {}, 0, 0, -1
+    for i, e in enumerate(events):
+        if e["action"] == "alloc":
+            live[e["addr"]] = e
+            total += e["size"]
+            if total > peak:
+                peak, at = total, i
+        elif e["addr"] in live:
+            total -= live.pop(e["addr"])["size"]
+    live = {}
+    for e in events[:at + 1]:
+        if e["action"] == "alloc":
+            live[e["addr"]] = e
+        else:
+            live.pop(e["addr"], None)
+    where = {}
+    for e in live.values():
+        frames = e.get("frames") or []
+        ours = [f for f in frames if "deeplabv3plus_keras_tpu_torch" in f["filename"]
+                or f["filename"].endswith("chip_smoke.py")]
+        if ours or frames:
+            f = (ours or frames)[0]
+            key = f"{f['filename'].split('deeplabv3plus_keras_tpu_torch/')[-1]}:{f['line']} {f['name']}"
+        else:  # made on autograd's device thread: no Python frame; by size
+            key = f"(no Python frame) {e['size'] / 2**20:.1f} MiB each"
+        w = where.setdefault(key, [0, 0])
+        w[0] += e["size"]
+        w[1] += 1
+    largest = sorted(where.items(), key=lambda kv: -kv[1][0])[:top]
+    return {"before_step_gib": base / 2**30, "step_peak_gib": torch.cuda.max_memory_allocated(device)
+            / 2**30, "trace_peak_gib": (base + peak) / 2**30, "events": len(events),
+            "peak_at_event_share": (at + 1) / max(len(events), 1), "live_at_peak": len(live),
+            "top": [{"where": k, "gib": v[0] / 2**30, "allocations": v[1]} for k, v in largest]}
+
+
+def spatial_int8(conf: dict, device, margins: bool) -> dict:
+    """``int8_infer`` on ``conf``: ``calibrate_int8()`` on the first
+    batch's images (whole images: a rank calibrates on its rows), then
+    ``segment()`` of them: the ranges, the sites that ran int8 (name →
+    calls), the labels, the kernels' launches and the exchanges of the
+    call; with ``margins`` (one process), where the int8 top two upsampled
+    logits differ by more than ``SPATIAL_INT8_MARGIN_REL`` relative."""
+    import torch
+
+    from deeplabv3plus_keras_tpu_torch import SemanticSegmentation, kernels
+    from deeplabv3plus_keras_tpu_torch.ops import quant
+    from deeplabv3plus_keras_tpu_torch.parallel import spatial
+
+    seg = SemanticSegmentation({**conf, "int8_infer": True}, device=device)
+    images = spatial_batches(1, conf["hps"]["batch_size"])[0]["image"].to(device)
+    ranges = seg.calibrate_int8(images)
+    kernels.reset_launch_counts()
+    spatial.reset_counts()
+    quant.reset_counts()
+    out = {"labels": torch.from_numpy(seg.segment(images)), "sites": dict(quant.sites),
+           "int8_convs": quant.counts["int8_conv"],
+           "ranges": {k: float(v) for k, v in ranges.items()},
+           "launches": kernels.launch_counts(), "exchanges": dict(spatial.counts)}
     if margins:
-        with torch.inference_mode():
-            seg.model.eval()
-            logits, up = seg.model(images, return_presample=True)
-            upl = F.interpolate(logits.permute(0, 3, 1, 2), scale_factor=up, mode="bilinear",
-                                align_corners=False)
-            top = upl.topk(2, dim=1).values
-            out["clear"] = ((top[:, 0] - top[:, 1]) > SPATIAL_MARGIN_REL * top[:, 0].abs()).cpu()
+        with quant.quantized(seg.model, ranges):
+            out["clear"] = clear_pixels(seg.model, images, SPATIAL_INT8_MARGIN_REL)
     return out
 
 
@@ -3038,7 +3192,6 @@ def spatial_serve(conf: dict, device, margins: bool) -> dict:
     with ``margins``, where one process's top two upsampled logits differ
     by more than ``SPATIAL_MARGIN_REL`` relative)."""
     import torch
-    import torch.nn.functional as F
 
     from deeplabv3plus_keras_tpu_torch import SemanticSegmentation, kernels
     from deeplabv3plus_keras_tpu_torch.parallel import spatial
@@ -3061,14 +3214,7 @@ def spatial_serve(conf: dict, device, margins: bool) -> dict:
     out["nonsquare"] = {"labels": torch.from_numpy(seg.segment(images)),
                         "launches": kernels.launch_counts(), "exchanges": dict(spatial.counts)}
     if margins:
-        with torch.inference_mode():
-            seg.model.eval()
-            logits, up = seg.model(images, return_presample=True)
-            upl = F.interpolate(logits.permute(0, 3, 1, 2), scale_factor=up, mode="bilinear",
-                                align_corners=False)
-            top = upl.topk(2, dim=1).values
-            out["nonsquare"]["clear"] = (
-                (top[:, 0] - top[:, 1]) > SPATIAL_MARGIN_REL * top[:, 0].abs()).cpu()
+        out["nonsquare"]["clear"] = clear_pixels(seg.model, images, SPATIAL_MARGIN_REL)
     return out
 
 
@@ -3079,19 +3225,37 @@ def spatial_flagship(device, world: int, margins: bool) -> dict:
     ``segment()`` (:func:`spatial_serve`)."""
     conf = spatial_conf(flagship_conf(SPATIAL_SIZE, SPATIAL_BATCH), world)
     out = {"flagship": spatial_run(conf, device, SPATIAL_STEPS, "flagship", evaluate=True,
-                                   margins=margins)}
+                                   margins=margins, history=True)}
     for name, extra in SPATIAL_OPTIONS.items():
         out[name] = spatial_run({**conf, **extra}, device, SPATIAL_STEPS, name, evaluate=False,
-                                margins=False, steps_only=True)
+                                margins=False, steps_only=True, history=name == "fused_tail")
     out.update(spatial_serve(conf, device, margins))
+    return out
+
+
+def spatial_others(device, world: int, margins: bool) -> dict:
+    """The other backbones' runs of the spatial phase (``segment()`` and
+    3 steps, each of
+    :data:`SPATIAL_BACKBONES`) and the int8
+    ``segment()`` of the flagship and Xception (:data:`SPATIAL_INT8`), over
+    ``world`` ranks (1: one process)."""
+    out = {}
+    for name in SPATIAL_BACKBONES:
+        conf = spatial_conf(backbone_conf(name)(SPATIAL_SIZE, SPATIAL_BACKBONE_BATCH), world)
+        out[name] = spatial_run(conf, device, SPATIAL_STEPS, name, evaluate=False, margins=margins)
+    for name in SPATIAL_INT8:
+        conf = (xception_conf if name == "xception" else flagship_conf)(SPATIAL_SIZE,
+                                                                         SPATIAL_BACKBONE_BATCH)
+        out[f"int8_{name}"] = spatial_int8(spatial_conf(conf, world), device, margins)
     return out
 
 
 def _spatial_rank(out_dir: str) -> None:
     """A rank of the spatial phase: the flagship (3 steps, segment(), an
     eval step; the step options, test-time augmentation and a non-square
-    segment()) under nhwc, then Xception (one step, segment()) under nhwc
-    and under bhcw, each over the (1 × 2) grid."""
+    segment()) under nhwc, Xception (one step, segment()) under nhwc and
+    under bhcw, then the other backbones and int8 (:func:`spatial_others`)
+    under nhwc, each over the (1 × 2) grid."""
     import torch
 
     from deeplabv3plus_keras_tpu_torch.parallel import mesh
@@ -3107,6 +3271,8 @@ def _spatial_rank(out_dir: str) -> None:
             out[f"xception_{layout}"] = spatial_run(
                 spatial_conf(xception_conf(SPATIAL_SIZE, SPATIAL_XCEPTION_BATCH), world), device,
                 1, f"xception_{layout}", evaluate=False, margins=False)
+    with dw_layout("nhwc"):
+        out.update(spatial_others(device, world, margins=False))
     torch.save(out, os.path.join(out_dir, f"spatial_r{mesh.rank()}.pt"))
 
 
@@ -3114,9 +3280,11 @@ def check_spatial_windows(card: str) -> dict:
     """K2–K5 on row windows (``depthwise_conv(..., window=(Ho, pad_t))``),
     each window the output rows of one of 2 ranks (``mesh.rows_of``, uneven
     where Ho is odd) with the rows they read, against the plain versions on
-    the same window: the flagship's distinct sites at 1024² × 4, and 3×3
-    sites at Xception's odd heights at stride 1 and 2 (and stride 1 under
-    ``bhcw``, the K6/K7 route's symmetric halo).  Forward and dx to 1e-5
+    the same window: the flagship's distinct sites at 1024² × 4, the k = 5
+    and 7 sites of NASNet-Mobile and EfficientNet-B0 at 1024² × 2 (stride 1
+    and 2, odd heights), and 3×3 sites at Xception's odd heights at stride
+    1 and 2 (and stride 1 under ``bhcw``, the K6/K7 route's symmetric
+    halo).  Forward and dx to 1e-5
     of the reference's largest value, dk to 1e-4 of Σ|x·g|."""
     import torch
 
@@ -3137,6 +3305,15 @@ def check_spatial_windows(card: str) -> dict:
     sites = {(shape, stride, dil, tuple(mod.weight.shape)): mod.weight.detach()
              for shape, stride, dil, mod in depthwise_sites(seg.model, images * 2 - 1)}
     del seg
+    # the k = 5 and 7 sites of the backbones that have them, at 1024² × 2
+    for name in ("nasnetmobile", "efficientnetb0"):
+        seg = SemanticSegmentation(backbone_conf(name)(SPATIAL_SIZE, SPATIAL_BACKBONE_BATCH),
+                                   device="cuda")
+        for shape, stride, dil, mod in depthwise_sites(
+                seg.model, images[:SPATIAL_BACKBONE_BATCH] * 2 - 1):
+            if mod.weight.shape[-1] in (5, 7):
+                sites[(shape, stride, dil, tuple(mod.weight.shape))] = mod.weight.detach()
+        del seg
     for H, C in SPATIAL_XCEPTION_HEIGHTS:
         w = torch.randn(C, 1, 3, 3, device="cuda", generator=g)
         for stride in (1, 2):
@@ -3171,7 +3348,7 @@ def check_spatial_windows(card: str) -> dict:
                 e_y = (y - ref).abs().max().item() / max(ref.abs().max().item(), 1e-30)
                 e_dx = (dx - rdx).abs().max().item() / max(rdx.abs().max().item(), 1e-30)
                 e_dk = ((dk - rdk).abs() / (dk_abs + 1e-30)).max().item()
-                row = {"shape_nchw": list(shape), "stride": stride, "dilation": list(dil),
+                row = {"shape_nchw": list(shape), "k": k, "stride": stride, "dilation": list(dil),
                        "layout": layout, "rank": r, "out_rows": [o0, o1], "window": list(win),
                        "x_rows": c1 - c0, "fwd_rel": e_y, "dx_rel": e_dx, "dk_rel_abs": e_dk}
                 rows.append(row)
@@ -3180,7 +3357,16 @@ def check_spatial_windows(card: str) -> dict:
                 if not (e_y <= 1e-5 and e_dx <= 1e-5 and e_dk <= 1e-4 and y.shape == ref.shape):
                     raise SystemExit(f"spatial: a row-window kernel disagrees with plain: {row}")
     (OUT / "spatial_windows.json").write_text(json.dumps({"card": card, "rows": rows}, indent=1))
-    result = {"windows": len(rows), "worst": worst, "s": time.perf_counter() - t0, "card": card}
+    by_k = {}
+    for r in rows:
+        n = by_k.setdefault(f"k{r['k']}_s{r['stride']}", {"windows": 0, "worst_fwd": 0.0,
+                                                         "worst_dx": 0.0, "worst_dk": 0.0})
+        n["windows"] += 1
+        n["worst_fwd"] = max(n["worst_fwd"], r["fwd_rel"])
+        n["worst_dx"] = max(n["worst_dx"], r["dx_rel"])
+        n["worst_dk"] = max(n["worst_dk"], r["dk_rel_abs"])
+    result = {"windows": len(rows), "worst": worst, "by_k_and_stride": by_k,
+              "s": time.perf_counter() - t0, "card": card}
     print(json.dumps({"spatial_windows": result}))
     return result
 
@@ -3300,27 +3486,25 @@ def run_spatial(kernels, card: str) -> dict:
             one[f"xception_{lay}"] = spatial_run(
                 spatial_conf(xception_conf(SPATIAL_SIZE, SPATIAL_XCEPTION_BATCH), 1), device, 1,
                 f"xception_{lay}", False, False)
+    with dw_layout("nhwc"):
+        one.update(spatial_others(device, 1, margins=True))
+        for name in SPATIAL_BACKBONES:
+            one[f"{name}_reversed"] = spatial_run(
+                spatial_conf(backbone_conf(name)(SPATIAL_SIZE, SPATIAL_BACKBONE_BATCH), 1), device,
+                SPATIAL_STEPS, f"{name}_reversed", False, False, reverse=True)
     torch.cuda.empty_cache()
     torch.backends.cudnn.deterministic = deterministic
 
     failures = []
     f1, fr = one["flagship"], [r["flagship"] for r in ranks]
     loss_rel = [abs(a - b) / abs(b) for a, b in zip(fr[0]["losses"], f1["losses"])]
-    def update_rel(run) -> dict:
-        out = {}
-        for n, u in f1["updates"].items():
-            ref = u.double().norm().item()
-            out[n] = (run["updates"][n] - u).double().norm().item() / ref if ref else (
-                0.0 if not run["updates"][n].any() else math.inf)
-        return out
-
     def grad_rel(run) -> float:
         diff = sum((run["grads1"][n] - g).double().square().sum() for n, g in f1["grads1"].items())
         return math.sqrt(diff / sum(g.double().square().sum() for g in f1["grads1"].values()))
 
     grads = {"ranks": grad_rel(fr[0]), "reversed_rows": grad_rel(reversed_rows)}
     grad_bound = max(1e-5, DDP_SPREAD * grads["reversed_rows"])
-    ranks_rel, spread_rel = update_rel(fr[0]), update_rel(reversed_rows)
+    ranks_rel, spread_rel = _update_rel(fr[0], f1), _update_rel(reversed_rows, f1)
     update_bound = {n: max(SPATIAL_UPDATE_REL, DDP_SPREAD * spread_rel[n]) for n in ranks_rel}
     worst_updates = sorted(((n, v, spread_rel[n]) for n, v in ranks_rel.items()),
                            key=lambda t: -t[1])[:6]
@@ -3416,6 +3600,16 @@ def run_spatial(kernels, card: str) -> dict:
         failures.append("the ranks' updates differ")
     result["options"] = spatial_options_checks(ranks, one, f1, spread_rel, cm_spread, failures)
     print(json.dumps({"spatial_options": result["options"], "card": card}))
+    result["backbones"] = spatial_backbone_checks(ranks, one, failures)
+    print(json.dumps({"spatial_backbones": result["backbones"], "card": card}))
+    result["int8"] = spatial_int8_checks(ranks, one, failures)
+    print(json.dumps({"spatial_int8": result["int8"], "card": card}))
+    print(json.dumps({"spatial_peak_allocations": {
+        "step": f"flagship train_step() 2 of {SPATIAL_STEPS}, {SPATIAL_BATCH} x {SPATIAL_SIZE}^2, "
+                "integer labels, float32",
+        **{f"{who}_fused_tail_{name == 'fused_tail'}".lower(): run[name]["peak_allocations"]
+           for who, run in (("one_process", one), ("rank0", ranks[0]), ("rank1", ranks[1]))
+           for name in ("flagship", "fused_tail")}}, "card": card}))
     if failures:
         raise SystemExit("spatial: " + "; ".join(failures))
     x0, r0 = ranks[0]["xception_bhcw"], ranks[0]
@@ -3424,7 +3618,136 @@ def run_spatial(kernels, card: str) -> dict:
                                       for k in x0["launches"][0]},
             **{f"spatial_{name}": r0[name]["launches"][-1] for name in SPATIAL_OPTIONS},
             "spatial_tta_eval": r0["tta"]["launches"],
-            "spatial_nonsquare_segment": r0["nonsquare"]["launches"]}
+            "spatial_nonsquare_segment": r0["nonsquare"]["launches"],
+            **{f"spatial_{n}_train": r0[n]["launches"][-1] for n in SPATIAL_BACKBONES},
+            **{f"spatial_{n}_segment": r0[n]["segment_launches"] for n in SPATIAL_BACKBONES},
+            **{f"spatial_int8_{n}_segment": r0[f"int8_{n}"]["launches"] for n in SPATIAL_INT8}}
+
+
+def _update_rel(run: dict, ref: dict) -> dict:
+    """Each parameter's update after the steps against ``ref``'s, in
+    relative 2-norm (0 where both are zero, inf where only ``run``'s
+    moved)."""
+    out = {}
+    for n, u in ref["updates"].items():
+        norm = u.double().norm().item()
+        out[n] = (run["updates"][n] - u).double().norm().item() / norm if norm else (
+            0.0 if not run["updates"][n].any() else math.inf)
+    return out
+
+
+# K1-K5's names in the launch counts
+K1_K5 = ("upsample_argmax", "depthwise_fwd_s1", "depthwise_fwd_s2", "depthwise_bwd_s1",
+         "depthwise_bwd_s2")
+
+
+def spatial_backbone_checks(ranks: list, one: dict, failures: list) -> dict:
+    """:data:`SPATIAL_BACKBONES` on two ranks against one process, as the
+    flagship's plain run is held: each step's loss to ``SPATIAL_LOSS_REL``;
+    each parameter's update to max(``SPATIAL_UPDATE_REL``, ``DDP_SPREAD`` ×
+    one process's rows-reversed distance); each step's matrix to
+    :func:`_cm_bound` of that run's distance; ``segment()``'s labels equal
+    where one process's top two logits are clear; the ranks' updates
+    equal; K2/K4 (and K3/K5 where the backbone has stride-2 depthwise
+    sites) launched on every rank's step as often as in one process, K1
+    and K2 in every rank's ``segment()``.  Appends to ``failures``;
+    returns the summary."""
+    import torch
+
+    out = {}
+    for name in SPATIAL_BACKBONES:
+        rs, o, rev = [r[name] for r in ranks], one[name], one[f"{name}_reversed"]
+        loss_rel = [abs(a - b) / abs(b) for a, b in zip(rs[0]["losses"], o["losses"])]
+        spread, rel = _update_rel(rev, o), _update_rel(rs[0], o)
+        over = [n for n, v in rel.items() if v > max(SPATIAL_UPDATE_REL, DDP_SPREAD * spread[n])]
+        cm_spread = [_cm_l1(a, b) for a, b in zip(rev["cms"], o["cms"])]
+        cm_dist = [[_cm_l1(a, b) for a, b in zip(r["cms"], o["cms"])] for r in rs]
+        cm_bound = [_cm_bound(b, d) for b, d in zip(o["cms"], cm_spread)]
+        label_diff = [int(((r["labels"] != o["labels"]) & o["clear"]).sum()) for r in rs]
+        strided = o["launches"][-1]["depthwise_fwd_s2"] > 0
+        need = K1_K5[1:] if strided else ("depthwise_fwd_s1", "depthwise_bwd_s1")
+        out[name] = {
+            "batch": SPATIAL_BACKBONE_BATCH, "image": SPATIAL_SIZE, "loss_rel": loss_rel,
+            "reversed_rows_loss_rel": [abs(a - b) / abs(b) for a, b in zip(rev["losses"],
+                                                                           o["losses"])],
+            "update_rel_2norm_worst_and_reversed_rows": sorted(
+                ((n, v, spread[n]) for n, v in rel.items()), key=lambda t: -t[1])[:4],
+            "updates_over_bound": over, "parameters": len(rel),
+            "step_cm_l1_from_one_process": cm_dist, "step_cm_l1_reversed_rows": cm_spread,
+            "step_cm_l1_bound": cm_bound, "labels_differing_where_clear": label_diff,
+            "clear_pixels": int(o["clear"].sum()), "pixels": o["labels"].numel(),
+            "step_peak_gib": [r["step_peak_gib"] for r in rs],
+            "one_process_step_peak_gib": o["step_peak_gib"],
+            "step_device_ms": [r["step_device_ms"] for r in rs],
+            "one_process_step_device_ms": o["step_device_ms"],
+            "segment_device_ms": [r["segment_device_ms"] for r in rs],
+            "one_process_segment_device_ms": o["segment_device_ms"],
+            "exchanges_per_step": rs[0]["exchanges"][-1],
+            "segment_exchanges": rs[0]["segment_exchanges"],
+            "launches_per_step": {k: rs[0]["launches"][-1][k] for k in K1_K5},
+            "segment_launches": {k: rs[0]["segment_launches"][k] for k in K1_K5}}
+        if not all(d <= SPATIAL_LOSS_REL for d in loss_rel):
+            failures.append(f"{name} step losses {loss_rel}")
+        if over:
+            failures.append(f"{name} updates past their bounds: {over}")
+        if any(d > b for r in cm_dist for d, b in zip(r, cm_bound)):
+            failures.append(f"{name} step matrices {cm_dist} from one process's > {cm_bound}")
+        if any(label_diff) or tuple(rs[0]["labels"].shape) != tuple(o["labels"].shape):
+            failures.append(f"{name} segment() labels differ at {label_diff} clear pixels")
+        if not all(torch.equal(rs[0]["updates"][n], rs[1]["updates"][n]) for n in rel):
+            failures.append(f"{name}: the ranks' updates differ")
+        for r in rs:
+            if not all(r["launches"][-1][k] > 0 for k in need) or (
+                    r["launches"][-1] != o["launches"][-1]):
+                failures.append(f"{name}: a rank's step launches {r['launches'][-1]} (one "
+                                f"process {o['launches'][-1]}; {need} needed)")
+            if not all(r["segment_launches"][k] > 0 for k in K1_K5[:2]):
+                failures.append(f"{name}: K1/K2 not launched in a rank's segment(): "
+                                f"{r['segment_launches']}")
+            if not r["exchanges"][-1]["exchanges"]:
+                failures.append(f"{name}: no halo exchange in a rank's step")
+    return out
+
+
+def spatial_int8_checks(ranks: list, one: dict, failures: list) -> dict:
+    """int8 ``segment()`` of :data:`SPATIAL_INT8` on two ranks against one
+    process: the same sites ran int8 as often, by name; the ranges to
+    ``SPATIAL_INT8_RANGE_REL``; the labels equal where one process's int8
+    margin is clear (``SPATIAL_INT8_MARGIN_REL``) and differing at no more
+    than ``SPATIAL_INT8_LABEL_SHARE`` of the pixels; K1 and K2 launched
+    on every rank as often as in one process.  Appends to ``failures``;
+    returns the summary."""
+    out = {}
+    for name in SPATIAL_INT8:
+        rs, o = [r[f"int8_{name}"] for r in ranks], one[f"int8_{name}"]
+        pixels = o["labels"].numel()
+        range_rel = max(abs(r["ranges"][k] - v) / v for r in rs for k, v in o["ranges"].items()
+                        if k in r["ranges"])
+        out[name] = {
+            "batch": SPATIAL_BACKBONE_BATCH, "image": SPATIAL_SIZE, "sites": len(o["sites"]),
+            "int8_convs": [r["int8_convs"] for r in rs], "one_process_int8_convs": o["int8_convs"],
+            "sites_equal": [r["sites"] == o["sites"] and sorted(r["ranges"]) == sorted(o["ranges"])
+                            for r in rs],
+            "range_rel_worst": range_rel, "range_bound": SPATIAL_INT8_RANGE_REL,
+            "labels_differing_where_clear": [int(((r["labels"] != o["labels"]) & o["clear"]).sum())
+                                             for r in rs],
+            "labels_differing": [int((r["labels"] != o["labels"]).sum()) for r in rs],
+            "clear_pixels": int(o["clear"].sum()), "pixels": pixels,
+            "exchanges": rs[0]["exchanges"],
+            "launches": {k: rs[0]["launches"][k] for k in K1_K5},
+            "one_process_launches": {k: o["launches"][k] for k in K1_K5}}
+        e = out[name]
+        if not (o["sites"] and all(e["sites_equal"]) and range_rel <= SPATIAL_INT8_RANGE_REL):
+            failures.append(f"int8 {name}: sites or ranges differ from one process's: {e}")
+        if any(e["labels_differing_where_clear"]) or max(e["labels_differing"]) > (
+                SPATIAL_INT8_LABEL_SHARE * pixels):
+            failures.append(f"int8 {name} labels: {e['labels_differing_where_clear']} clear, "
+                            f"{e['labels_differing']} of {pixels} in all")
+        for r in rs:
+            if not all(r["launches"][k] > 0 for k in K1_K5[:2]) or r["launches"] != o["launches"]:
+                failures.append(f"int8 {name}: a rank's segment() launches {r['launches']} "
+                                f"(one process {o['launches']})")
+    return out
 
 
 def spatial_options_checks(ranks: list, one: dict, f1: dict, spread_rel: dict,
@@ -3451,11 +3774,7 @@ def spatial_options_checks(ranks: list, one: dict, f1: dict, spread_rel: dict,
         loss_rel = [abs(a - b) / abs(b) for a, b in zip(rs[0]["losses"], o["losses"])]
         cm_dist = [[_cm_l1(a, b) for a, b in zip(r["cms"], o["cms"])] for r in rs]
         cm_bound = [_cm_bound(b, d) for b, d in zip(o["cms"], cm_spread)]
-        rel = {}
-        for n, u in o["updates"].items():
-            ref = u.double().norm().item()
-            rel[n] = (rs[0]["updates"][n] - u).double().norm().item() / ref if ref else (
-                0.0 if not rs[0]["updates"][n].any() else math.inf)
+        rel = _update_rel(rs[0], o)
         over = [n for n, v in rel.items() if v > max(SPATIAL_UPDATE_REL, DDP_SPREAD * spread_rel[n])]
         last = [r["launches"][-1] for r in rs]
         out[name] = {

@@ -59,12 +59,11 @@ position's image rows, and the model fetches the rows its spatial ops need
 from the other ranks (``parallel/spatial.py``).  The steps take the whole
 H × W images of the data position and cut the rank's rows themselves, after
 ``augment`` or a test-time scale's resize; ``fused_tail``, ``remat``,
-``augment`` and test-time augmentation run under it.  ``segment()``,
-``test()`` and the predict step return whole labels and probabilities on
-every rank; the ranks of space position 0 write ``test()``'s PNGs and
-``evaluate()``'s panels.  What is not ported under it yet (``int8_infer``,
-the backbones other than MobileNetV2 and Xception) raises
-``NotImplementedError`` naming ROADMAP.md item 13c.
+``augment``, test-time augmentation and ``int8_infer`` (its calibration
+images cut into the ranks' rows, its gate on the image's pixels) run
+under it, on every backbone.  ``segment()``, ``test()`` and the predict
+step return whole labels and probabilities on every rank; the ranks of
+space position 0 write ``test()``'s PNGs and ``evaluate()``'s panels.
 
 The environment variable ``DLV3_DW_LAYOUT=bhcw`` routes the 3×3 stride-1
 undilated depthwise sites through the channels-first kernels
@@ -185,7 +184,6 @@ class SemanticSegmentation:
             requested = self.conf.num_gpus if self.conf.multi_gpu else 1
             if requested % n_space:
                 raise ValueError(f"mesh_space {n_space} must divide num devices {requested}")
-            spatial.refuse_unported(self.conf)
         # ranks: the process group (multi_gpu), else this process alone
         self.world = join_ranks(self.conf, device)
         # the (data, space) grid under mesh_space (None: a data split alone)
@@ -353,7 +351,7 @@ class SemanticSegmentation:
     # ------------------------------------------------------------------
 
     def _calib_batches(self, images=None) -> list:
-        """Calibration batches for PTQ: slices of ``images`` ((N, S, S, 3)
+        """Calibration batches for PTQ: slices of ``images`` ((N, H, W, 3)
         in (−1, 1)) of ``hps.batch_size``, or by default
         ``int8_calib_batches`` batches of the training split in order (the
         standard PTQ protocol: calibrate on the training distribution; over
@@ -377,7 +375,7 @@ class SemanticSegmentation:
     def calibrate_int8(self, images=None) -> dict:
         """Record the eligible convs' activation ranges for the int8
         inference path (``ops/quant.py``) and drop the int8 steps built
-        against older ranges.  ``images``: optional (N, S, S, 3) in (−1, 1);
+        against older ranges.  ``images``: optional (N, H, W, 3) in (−1, 1);
         by default ``int8_calib_batches`` batches of the training split.
         Over N ranks the ranges are the maximum over the ranks' batches.
         Returns the ranges {site: float32 scalar}."""

@@ -20,7 +20,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..blocks import BatchNorm, Conv, QuantConv, avg_pool_valid
+from ..blocks import BatchNorm, Conv, QuantConv, avg_pool_valid, pool_zero_padded
 
 _BN_EPS = 1.001e-5
 
@@ -78,7 +78,7 @@ class DenseNetBackbone(nn.Module):
 
     def forward(self, x, generator: torch.Generator | None = None):
         x = F.relu(self.conv1_bn(self.conv1_conv(x)))
-        x = F.max_pool2d(F.pad(x, (1, 1, 1, 1)), 3, 2)
+        x = pool_zero_padded(x, 3, ((1, 1), (1, 1)), "max")
         for names, t in self.stages:
             for name in names:
                 x = getattr(self, name)(x)

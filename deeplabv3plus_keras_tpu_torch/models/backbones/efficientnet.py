@@ -29,6 +29,7 @@ import math
 import torch
 from torch import nn
 
+from ...parallel import spatial
 from ..blocks import (
     BatchNorm,
     Conv,
@@ -103,8 +104,11 @@ class MBConv(nn.Module):
         if self.has_expand:
             x = swish(self.expand_bn(self.expand_conv(x)))
         x = swish(self.bn(self.dwconv(x)))
-        se = x.mean((2, 3), keepdim=True)
-        se = self.se_expand(swish(self.se_reduce(se)))
+        # under mesh_space the whole image's mean on every rank, and the
+        # two 1x1 convs on that replicated (B, C, 1, 1) as one process runs them
+        se = spatial.mean_hw(x)
+        with spatial.local():
+            se = self.se_expand(swish(self.se_reduce(se)))
         x = x * sigmoid(se)
         x = self.project_bn(self.project_conv(x))
         if self.residual:

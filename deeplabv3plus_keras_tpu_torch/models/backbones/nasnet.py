@@ -31,6 +31,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ...parallel import spatial
 from ..blocks import (
     BatchNorm,
     Conv,
@@ -101,11 +102,25 @@ class _Adjust(nn.Module):
             # p[::2, ::2], and the same one pixel down and right (zero
             # past the edge), each through its 1×1 conv
             p1 = self.adjust_conv_1(p)
-            p2 = self.adjust_conv_2(F.pad(p[:, :, 1:, 1:], (0, 1, 0, 1)))
-            return self.adjust_bn(torch.cat([p1, p2], 1))
+            return self.adjust_bn(torch.cat([p1, self._shifted(p)], 1))
         if self.mode == "project":
             return self.adjust_bn(self.adjust_conv_projection(F.relu(p)))
         return p
+
+    def _shifted(self, p):
+        """``adjust_conv_2`` of p one pixel down and right, zero past the
+        edge.  Under ``mesh_space`` output row i reads global row 2i + 1:
+        a 2-row window at stride 2 whose second row is the one taken (the
+        first row of the next rank's, or zero below the image)."""
+        def shift(t):
+            return self.adjust_conv_2(F.pad(t[:, :, 1:, 1:], (0, 1, 0, 1)))
+
+        if not spatial.active():
+            return shift(p)
+        w = self.adjust_conv_2.weight
+        return spatial.window_op(p, shift, k=2, stride=2, pads_h=(0, 1),
+                                 out_width=(p.shape[-1] + 1) // 2, out_channels=w.shape[0],
+                                 deps=(w,))
 
 
 class _NormalCell(nn.Module):

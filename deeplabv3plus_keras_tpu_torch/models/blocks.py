@@ -147,15 +147,44 @@ def _correct_pads(n: int, kernel: int) -> tuple[int, int]:
     return c - (1 - n % 2), c
 
 
+def pool_zero_padded(x: torch.Tensor, kernel: int, pads, op: str) -> torch.Tensor:
+    """A stride-2 ``VALID`` max or average pool of x zero-padded by ``pads``
+    = ((top, bottom), (left, right)): Keras' ``ZeroPadding2D`` before a
+    pool.  The max compares against literal zeros at the border, the
+    average divides by the whole window, zeros included.  Under
+    ``mesh_space`` the pads are the image's, the rows fetched."""
+    (pt, pb), (pl, pr) = pads
+
+    def pool(xp):
+        return F.max_pool2d(xp, kernel, 2) if op == "max" else _avg_pool(xp, kernel, 2)
+
+    if spatial.active():
+        return spatial.window_op(
+            x, lambda xw: pool(F.pad(xw, (pl, pr, 0, 0))), k=kernel, stride=2, pads_h=(pt, pb),
+            out_width=(x.shape[-1] + pl + pr - kernel) // 2 + 1, out_channels=x.shape[1])
+    return pool(F.pad(x, (pl, pr, pt, pb)))
+
+
 def pool_s2_keras(x: torch.Tensor, kernel: int, op: str) -> torch.Tensor:
     """Keras NASNet's stride-2 pool: ``ZeroPadding2D(correct_pad)`` and a
-    ``VALID`` pool (JAX ``nasnet.py`` ``_pool_s2_keras``).  Not TF ``SAME``
-    pooling: the max pool compares against literal zeros at the border, and
-    the average divides by the whole window, zeros included."""
-    pt, pb = _correct_pads(x.shape[-2], kernel)
-    pl, pr = _correct_pads(x.shape[-1], kernel)
-    xp = F.pad(x, (pl, pr, pt, pb))
-    return F.max_pool2d(xp, kernel, 2) if op == "max" else _avg_pool(xp, kernel, 2)
+    ``VALID`` pool (JAX ``nasnet.py`` ``_pool_s2_keras``), the pads from
+    the global height.  Not TF ``SAME`` pooling: the max pool compares
+    against literal zeros at the border, and the average divides by the
+    whole window, zeros included."""
+    H = spatial.global_height(x) if spatial.active() else x.shape[-2]
+    return pool_zero_padded(x, kernel, (_correct_pads(H, kernel),
+                                        _correct_pads(x.shape[-1], kernel)), op)
+
+
+def _avg_same_s1(x: torch.Tensor, kernel: int, pads: tuple[int, int, int, int]) -> torch.Tensor:
+    """The window sum of x zero-padded by ``pads`` (F.pad order) divided
+    by the count of real taps (a float32 quotient in a 16-bit dtype)."""
+    ones = F.pad(torch.ones_like(x[:1, :1], dtype=torch.float32), pads)
+    if x.dtype not in _LOW_PRECISION:
+        count = F.avg_pool2d(ones, kernel, 1, divisor_override=1).to(x.dtype)
+        return F.avg_pool2d(F.pad(x, pads), kernel, 1, divisor_override=1) / count
+    count = _window_sum(ones, kernel, 1)
+    return _window_sum(F.pad(x, pads), kernel, 1).float() / count
 
 
 def avg_pool_same_s1(x: torch.Tensor, kernel: int = 3) -> torch.Tensor:
@@ -163,18 +192,21 @@ def avg_pool_same_s1(x: torch.Tensor, kernel: int = 3) -> torch.Tensor:
     out of the divisor (flax ``avg_pool(count_include_pad=False)``), the
     window sum over the explicitly zero-padded x divided by the count of
     real taps.  In bfloat16/float16 flax divides the window sum (rounded at
-    every add) by float32 counts, so the result is float32.
+    every add) by float32 counts, so the result is float32.  Under
+    ``mesh_space`` a rank pads only rows off the image, so its rows at a
+    rank boundary divide by whole windows, as the image's do.
 
     Not ``F.avg_pool2d(..., padding=kernel // 2)``: on CUDA its backward of
     a ``channels_last`` input with padding is wrong (PyTorch 2.11, every
     shape tried, PERF.md §6); the unpadded pool of the padded x is right."""
     p = kernel // 2
-    ones = F.pad(torch.ones_like(x[:1, :1], dtype=torch.float32), (p, p, p, p))
-    if x.dtype not in _LOW_PRECISION:
-        count = F.avg_pool2d(ones, kernel, 1, divisor_override=1).to(x.dtype)
-        return F.avg_pool2d(F.pad(x, (p, p, p, p)), kernel, 1, divisor_override=1) / count
-    count = _window_sum(ones, kernel, 1)
-    return _window_sum(F.pad(x, (p, p, p, p)), kernel, 1).float() / count
+    if spatial.active():
+        return spatial.window_op(
+            x, lambda xw, pad_t, ho: _avg_same_s1(
+                xw, kernel, (p, p, pad_t, ho + 2 * p - pad_t - xw.shape[-2])),
+            k=kernel, stride=1, pads_h=(p, p), out_width=x.shape[-1], out_channels=x.shape[1],
+            clip=True)
+    return _avg_same_s1(x, kernel, (p, p, p, p))
 
 
 def avg_pool_valid(x: torch.Tensor, pool_size: int) -> torch.Tensor:

@@ -85,8 +85,11 @@ def _lerp_indices(src: torch.Tensor, n: int):
 
 
 def _resample_image(img: torch.Tensor, z, uy, ux) -> torch.Tensor:
-    """Bilinear resample of (B, S, S, C) images; outside fills 0.0."""
-    B, S, _, C = img.shape
+    """Bilinear resample of (B, H, W, C) images to (B, H, H, C); outside
+    fills 0.0.  Both axes are sampled at S = H, as JAX samples them: where
+    W < H the column gather's indices clamp to W − 1, as JAX's
+    out-of-range gathers do (the square path is unchanged)."""
+    B, S, W, C = img.shape
     sy, sx = _axis_coords(S, z, uy), _axis_coords(S, z, ux)
     vy = (sy >= 0.0) & (sy <= S - 1.0)
     vx = (sx >= 0.0) & (sx <= S - 1.0)
@@ -94,34 +97,36 @@ def _resample_image(img: torch.Tensor, z, uy, ux) -> torch.Tensor:
     x0, x1, wx = _lerp_indices(sx, S)
 
     def rows(i):
-        return torch.gather(img, 1, i[:, :, None, None].expand(B, S, S, C))
+        return torch.gather(img, 1, i[:, :, None, None].expand(B, S, W, C))
 
     col = rows(y0) * (1.0 - wy)[:, :, None, None] + rows(y1) * wy[:, :, None, None]
 
     def cols(i):
-        return torch.gather(col, 2, i[:, None, :, None].expand(B, S, S, C))
+        return torch.gather(col, 2, i.clamp(max=W - 1)[:, None, :, None].expand(B, S, S, C))
 
     out = cols(x0) * (1.0 - wx)[:, None, :, None] + cols(x1) * wx[:, None, :, None]
     return out * (vy[:, :, None] & vx[:, None, :])[..., None]
 
 
 def _resample_label(lab: torch.Tensor, z, uy, ux) -> torch.Tensor:
-    """Nearest-neighbour resample of (B, S, S) integer labels; outside
+    """Nearest-neighbour resample of (B, H, W) integer labels to (B, H, H)
+    (columns clamped to W − 1, as :func:`_resample_image`'s); outside
     fills class 0."""
-    B, S, _ = lab.shape
+    B, S, W = lab.shape
     sy, sx = _axis_coords(S, z, uy), _axis_coords(S, z, ux)
     iy = torch.round(sy).long().clamp(0, S - 1)
-    ix = torch.round(sx).long().clamp(0, S - 1)
+    ix = torch.round(sx).long().clamp(0, min(S, W) - 1)
     valid = ((sy >= -0.5) & (sy <= S - 0.5))[:, :, None] & ((sx >= -0.5) & (sx <= S - 0.5))[:, None, :]
-    out = torch.gather(lab, 1, iy[:, :, None].expand(B, S, S))
+    out = torch.gather(lab, 1, iy[:, :, None].expand(B, S, W))
     out = torch.gather(out, 2, ix[:, None, :].expand(B, S, S))
     return torch.where(valid, out, torch.zeros((), dtype=out.dtype, device=out.device))
 
 
 def apply_augment(image: torch.Tensor, label: torch.Tensor | None, params: dict):
-    """Apply sampled parameters to a batch: image (B, S, S, 3) float; label
-    one-hot (B, S, S, C) float, integer (B, S, S), or None.  One-hot labels
-    go through as their integer form (argmax is exact on a one-hot) and are
+    """Apply sampled parameters to a batch: image (B, H, W, 3) float; label
+    one-hot (B, H, W, C) float, integer (B, H, W), or None.  The result is
+    H × H, as the JAX function's (S = H on both axes).  One-hot labels go
+    through as their integer form (argmax is exact on a one-hot) and are
     encoded again at the end."""
     flip = params["flip"]
     z, uy, ux = params["z"], params["uy"], params["ux"]

@@ -51,7 +51,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels import same_pads
-from ..parallel import mesh
+from ..parallel import mesh, spatial
 
 # Both channel counts must reach this for a conv to quantize; the JAX
 # package measured it on a TPU v5e (one MXU tile side).  No H100 number
@@ -64,12 +64,16 @@ MIN_QUANT_CHANNELS = 128
 MAX_QUANT_PIXELS: int | None = 4096
 
 # int8 convolutions run since the last reset (not a kernel of the port:
-# the product is a library GEMM), by where they ran
+# the product is a library GEMM), by where they ran; and the calls of each
+# site (its qualified name) that took the int8 path, on every rank of a
+# space split alike
 counts = {"int8_conv": 0}
+sites: dict[str, int] = {}
 
 
 def reset_counts() -> None:
     counts["int8_conv"] = 0
+    sites.clear()
 
 
 def eligible(cin: int, cout: int, pixels: int | None = None) -> bool:
@@ -178,21 +182,37 @@ class _Pass:
         self.ranges, self.record = ranges, record
 
     def conv(self, module, x: torch.Tensor) -> torch.Tensor | None:
-        """The site's int8 result, or None where it computes in float."""
+        """The site's int8 result, or None where it computes in float.
+        Under ``mesh_space`` the gate reads the image's pixels (the global
+        height, as the JAX gate reads its traced global shape), a shard
+        with no rows records a range of 0, and the product runs on the
+        rank's row window."""
         name = self.names.get(module)
         cout, cin = module.weight.shape[:2]
-        if name is None or not eligible(cin, cout, x.shape[-2] * x.shape[-1]):
+        grid = spatial.active()
+        H = spatial.global_height(x) if grid else x.shape[-2]
+        if name is None or not eligible(cin, cout, H * x.shape[-1]):
             return None
         if self.record:
-            amax = x.detach().abs().amax().float()
+            amax = (x.detach().abs().amax().float() if x.numel()
+                    else x.new_zeros((), dtype=torch.float32))
             prev = self.ranges.get(name)
             self.ranges[name] = amax if prev is None else torch.maximum(prev, amax)
             return None
         amax = self.ranges.get(name)
         if amax is None:
             return None
-        y = int8_conv(x, module.weight, amax, strides=module.strides, padding=module.padding,
-                      site=name)
+        sites[name] = sites.get(name, 0) + 1
+        w, k, stride = module.weight, module.kernel, module.strides
+        if grid is None:
+            y = int8_conv(x, w, amax, strides=stride, padding=module.padding, site=name)
+        else:
+            pt, pb, pl, pr = _pads(H, x.shape[-1], k, stride, module.padding)
+            y = spatial.window_op(
+                x, lambda xw: int8_conv(xw, w, amax, strides=stride,
+                                        padding=((0, 0), (pl, pr)), site=name),
+                k=k, stride=stride, pads_h=(pt, pb),
+                out_width=(x.shape[-1] + pl + pr - k) // stride + 1, out_channels=cout)
         return y.to(x.dtype)
 
 
@@ -227,11 +247,13 @@ def quantized(model: torch.nn.Module, ranges: dict):
 
 
 def calibrate(model: torch.nn.Module, batches) -> dict[str, torch.Tensor]:
-    """Run ``batches`` of images (B, S, S, 3) through ``model`` in eval
+    """Run ``batches`` of images (B, H, W, 3) through ``model`` in eval
     mode recording the eligible sites' activation abs-max (a running max
     over the batches); returns the ranges {site name: float32 scalar} for
     :func:`quantized`.  Under a process group the ranges are the maximum
-    over every rank's batches, so N ranks quantize as one process does.
+    over every rank's batches, so N ranks quantize as one process does;
+    under ``mesh_space`` the batches are whole images, whose rows each
+    rank cuts.
     (The JAX function's ``train`` flag, BN on batch statistics, has no
     caller outside the JAX package's own tests, and is not ported.)"""
     device = next(model.parameters()).device
@@ -239,10 +261,16 @@ def calibrate(model: torch.nn.Module, batches) -> dict[str, torch.Tensor]:
     was_training = model.training
     model.eval()
     n = 0
+    grid = spatial.active()
     try:
         with torch.inference_mode(), recording(model, ranges):
             for images in batches:
-                model(torch.as_tensor(images, device=device))
+                x = torch.as_tensor(images, device=device)
+                H, W = x.shape[1], x.shape[2]
+                if grid is not None:  # the rank's image rows, as the steps cut them
+                    x = x[:, slice(*grid.rows_of(H))]
+                with spatial.use_heights({W: H}):
+                    model(x)
                 n += 1
     finally:
         model.train(was_training)

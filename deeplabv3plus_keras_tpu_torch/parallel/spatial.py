@@ -268,6 +268,39 @@ def gather_rows(t: torch.Tensor, H: int, dim: int) -> torch.Tensor:
     return buf.to(t.dtype)
 
 
+class _MeanHW(torch.autograd.Function):
+    """The (B, C, 1, 1) mean over H and W of a row-sharded x whose global
+    height is H: the rank's row sums, one all-reduce over the space group,
+    divided by H·W; every rank holds the mean.  Its backward is the same
+    all-reduce of the mean's gradient (each rank's share of the loss
+    reads it), spread over the rank's rows."""
+
+    @staticmethod
+    def forward(ctx, x, H: int, grid: mesh.Grid):
+        s = x.to(torch.promote_types(x.dtype, torch.float32)).sum((2, 3), keepdim=True)
+        _all_reduce(s, grid)
+        ctx.shape, ctx.dtype, ctx.n, ctx.grid = x.shape, x.dtype, H * x.shape[-1], grid
+        return (s / ctx.n).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.to(torch.promote_types(g.dtype, torch.float32), copy=True).contiguous()
+        _all_reduce(g, ctx.grid)
+        gx = (g / ctx.n).to(ctx.dtype).expand(ctx.shape)
+        return gx.contiguous(memory_format=torch.channels_last), None, None
+
+
+def mean_hw(x: torch.Tensor) -> torch.Tensor:
+    """``x.mean((2, 3), keepdim=True)`` of the whole image under the grid
+    (a global average such as EfficientNet's squeeze-excite), replicated on
+    every rank of the space group, ranks with no rows included; the plain
+    mean outside it."""
+    grid = active()
+    if grid is None:
+        return x.mean((2, 3), keepdim=True)
+    return _MeanHW.apply(x, global_height(x), grid)
+
+
 def _connected_empty(shape, like: torch.Tensor, *deps: torch.Tensor) -> torch.Tensor:
     """An empty tensor of ``shape`` that depends on ``deps`` in the autograd
     graph (their gradients zero), so that a rank holding no output rows
@@ -390,23 +423,3 @@ def resize_rows_linear(x: torch.Tensor, h: int, H: int, out_width: int) -> torch
     if out_width != x.shape[-1]:
         y = torch.einsum("vw,bcow->bcov", _linear_operator(x.shape[-1], out_width).to(x), y)
     return y
-
-
-# what the port does not yet run under mesh_space (ROADMAP.md Queue A item 13c)
-_UNPORTED_KEYS = ("int8_infer",)
-SPATIAL_BACKBONES = ("mobilenetv2", "xception")
-
-
-def refuse_unported(conf) -> None:
-    """Raise ``NotImplementedError`` naming ROADMAP item 13c for what this
-    port does not run under ``mesh_space`` > 1: the extra keys of
-    ``_UNPORTED_KEYS`` and the backbones other than MobileNetV2 and
-    Xception."""
-    keys = [k for k in _UNPORTED_KEYS if conf.extra.get(k)]
-    if conf.base_model not in SPATIAL_BACKBONES:
-        keys.append(f"base_model {conf.base_model!r}")
-    if keys:
-        raise NotImplementedError(
-            f"mesh_space > 1 with {', '.join(keys)}: not ported under spatial sharding yet "
-            "(ROADMAP.md Queue A item 13c); MobileNetV2 and Xception train, evaluate and "
-            "segment under it")

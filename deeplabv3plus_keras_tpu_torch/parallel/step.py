@@ -229,8 +229,6 @@ def build_train_step(model, optimizer: KerasAdam, conf: Config, class_weights=No
     grid = mesh.grid()
     # the data positions: the ranks under a data split, n_data under space
     n_data, d = (grid.n_data, grid.d) if grid is not None else (world, rank)
-    if grid is not None:
-        spatial.refuse_unported(conf)
 
     def train_step(batch: dict) -> dict:
         model.train()
@@ -394,8 +392,6 @@ def build_eval_step(model, conf: Config, class_weights=None, with_probs: bool = 
     fused = _use_fused_tail(conf) and not with_probs and not tta
     world = mesh.world_size()
     grid = mesh.grid()
-    if grid is not None:
-        spatial.refuse_unported(conf)
     # test-time augmentation cuts the rows of each scale's images itself
     probs_fn = (_tta_probs_fn(model, conf, tta_scales, tta_flip) if tta
                 else lambda images: model(_image_rows(images, grid)))

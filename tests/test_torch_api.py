@@ -20,9 +20,10 @@ from deeplabv3plus_keras_tpu_torch.data import (
     device_batches,
     make_synthetic_voc,
 )
-from deeplabv3plus_keras_tpu_torch.parallel import build_predict_step
+from deeplabv3plus_keras_tpu_torch.parallel import build_predict_step, launch
 from deeplabv3plus_keras_tpu_torch.utils.jax_weights import load_jax_variables
 
+import torch_spatial_workers
 from torch_helpers import conf_dict, jax_model_and_variables
 
 torch.set_num_threads(1)
@@ -115,10 +116,11 @@ def test_config_keys_that_change_the_result_raise(keys, item, tmp_path, monkeypa
     absent from an empty Keras cache) raises naming it, before TensorFlow
     is imported.  It shards space over the ranks' (data, space) grid
     (tests/test_torch_spatial.py): a ``mesh_space`` that does not divide
-    ``num_gpus`` raises ``ValueError``, as the JAX facade does
-    (api.py:110-111), and what is not ported under it yet
-    (``int8_infer`` here) raises naming ROADMAP item 13c, both before any
-    process group is needed.  It keeps the
+    ``num_gpus`` raises ``ValueError`` before any process group is needed,
+    as the JAX facade does (api.py:110-111), and ``int8_infer`` is accepted
+    under it (ROADMAP item 13c, which once refused it): two ranks of a gloo
+    group build the facade (tests/test_torch_spatial_backbones.py runs
+    it).  It keeps the
     dataset in device memory under ``cache_device`` (api.py:221-236,
     ROADMAP item 19) and computes in the ``hps.dtype`` (item 18) as the JAX
     facade does, so those keys are accepted and take effect."""
@@ -144,6 +146,12 @@ def test_config_keys_that_change_the_result_raise(keys, item, tmp_path, monkeypa
                 if keys["backbone_weights"] == "imagenet" else "backbone.h5")
         with pytest.raises(FileNotFoundError, match=name):
             SemanticSegmentation(conf, device="cpu")
+    elif item == "item 13c":  # int8_infer under mesh_space: two ranks build the facade
+        launch.spawn(torch_spatial_workers.facade_build_worker, 2, (str(tmp_path), conf),
+                     devices=["cpu"] * 2, timeout_s=120, group_timeout_s=60)
+        for r in range(2):
+            out = torch.load(tmp_path / f"facade_build_r{r}.pt", weights_only=False)
+            assert out == {"world": 2, "grid": (1, 2), "int8": True}, out
     elif item == "item 19":  # the train loader is a device-resident dataset
         root = make_synthetic_voc(str(tmp_path / "voc"), n_train=2, n_val=1, n_test=0,
                                   min_size=20, max_size=30)

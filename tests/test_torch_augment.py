@@ -51,6 +51,35 @@ def test_apply_augment_matches_jax(layout):
     np.testing.assert_array_equal(gi[3].numpy(), image[3])
 
 
+@pytest.mark.parametrize("hw", [(96, 64), (64, 96)], ids=["tall", "wide"])
+@pytest.mark.parametrize("layout", ["sparse", "none"])
+def test_apply_augment_nonsquare_matches_jax(hw, layout):
+    """Non-square batches: JAX samples both axes at S = H and clamps its
+    out-of-range column gathers, so (2, 96, 64, 3) comes back (2, 96, 96)
+    and (2, 64, 96, 3) comes back (2, 64, 64); the port returns the same
+    shapes and values (images to 1e-6, labels exactly)."""
+    H, W = hw
+    rng = np.random.default_rng(11)
+    image = rng.uniform(-1, 1, (2, H, W, 3)).astype(np.float32)
+    label = rng.integers(0, 21, (2, H, W)).astype(np.int32) if layout == "sparse" else None
+    params = _params(2, seed=12)
+    # one sample zoomed in and flipped, one shrunk
+    params["z"][:] = [1.6, 0.7]
+    params["flip"][:] = [True, False]
+    ri, rl = jaug.apply_augment(jnp.asarray(image), None if label is None else jnp.asarray(label),
+                                {k: jnp.asarray(v) for k, v in params.items()})
+    gi, gl = paug.apply_augment(torch.from_numpy(image),
+                                None if label is None else torch.from_numpy(label),
+                                {k: torch.from_numpy(v) for k, v in params.items()})
+    assert tuple(gi.shape) == tuple(ri.shape) == (2, H, H, 3)
+    np.testing.assert_allclose(gi.numpy(), np.asarray(ri), rtol=0, atol=1e-6)
+    if label is None:
+        assert gl is None and rl is None
+    else:
+        assert tuple(gl.shape) == tuple(rl.shape) == (2, H, H)
+        np.testing.assert_array_equal(gl.numpy(), np.asarray(rl))
+
+
 @pytest.mark.parametrize("value", [None, False, True, {}, {"random_flip": False},
                                    {"scale_range": [0.75, 1.25]},
                                    {"random_flip": False, "scale_range": None},

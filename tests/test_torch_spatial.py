@@ -63,14 +63,16 @@ from torch_helpers import jax_model_and_traced_variables, port_model
 
 torch.set_num_threads(1)
 HALO_CASES = ["halo_eval", "halo_train", "os8_eval"]
-CASES = [c for c in workers.CASES if c not in HALO_CASES]
+# tests/test_torch_spatial_halo.py and tests/test_torch_spatial_backbones.py
+# run the others
+CASES = [c for c in workers.CASES if c not in HALO_CASES and c not in workers.BACKBONE_CASES]
 GRIDS = [g for grids in workers.GRIDS.values() for g in grids]
 # the mesh each case's JAX step runs on (one of the ranks' grids)
 JAX_MESH = {"tiny_train": (1, 2), "tiny_eval": (2, 2), "xception_aspp": (1, 4),
             "pyramid_eval": (1, 4), "pyramid_train": (2, 2), "halo_eval": (1, 2),
             "halo_train": (2, 2), "os8_eval": (1, 2), "refine_fused": (1, 4),
             "refine_unfused": (2, 2), "tail_fused_train": (1, 4), "tta_eval": (2, 2),
-            "remat_train": (1, 2)}
+            "remat_train": (1, 2), "nasnet_eval": (1, 2)}
 # a case whose JAX step computes another's numbers: that one's reference
 JAX_REF = {"remat_train": "tiny_train"}
 

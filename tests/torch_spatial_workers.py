@@ -45,6 +45,29 @@ def case_conf(size: int, batch: int, middle, refine: bool = False, base: str = "
     return conf
 
 
+def int8_conf(base: str) -> dict:
+    """``int8_infer`` on the flagship (with a pyramid pooling branch, whose
+    2 × 2 pooled map leaves ranks of a 4-way split no rows) or on Xception
+    with the reference's ASPP, 64², B = 4, float64."""
+    conf = conf_dict(64, pyramid=base == "mobilenetv2", int8_infer=True)
+    if base == "xception":
+        conf["base_model"] = base
+        conf["nn_arch"]["encoder_middle_conf"] = copy.deepcopy(XCEPTION_MIDDLE)
+    conf["nn_arch"]["dropout_rate"] = 0.0
+    conf["hps"].update(dtype="float64", batch_size=4)
+    return conf
+
+
+# ops/quant.MAX_QUANT_PIXELS of an int8 case: above the pixels of the sites
+# that quantize, and at least a shard's pixels of a map whose sites stay
+# float (a gate on the shard's shape would quantize them): the flagship's
+# 2 × 2 pooling conv quantizes, its 4 × 4 ASPP (8 pixels a rank of 2)
+# stays float; Xception's 8 × 8 and smaller maps quantize (block 4's
+# stride-2 shortcut on a row window), its 15 × 15 block 3 (120 pixels a
+# rank of 2) stays float
+INT8_MAX_PIXELS = {"int8_eval": 8, "xception_int8_eval": 120}
+
+
 # case → (config, "train" steps or "eval"), after tests/test_sharding.py
 CASES = {
     # :51 (32²: 4-way, the 2-row os-16 map leaves two ranks no rows)
@@ -84,7 +107,25 @@ CASES = {
     # C3: the facade's segment(), eval_step() (plain and flip-only TTA) and
     # train_step() on (64, 96) and (96, 64) images, 2 ranks only
     "nonsquare": (case_conf(64, 2, ONE_BY_ONE, refine=True), "nonsquare"),
+    # the other backbones' families, one train step each: DenseNet's
+    # zero-padded stem pool; EfficientNet's squeeze-excite mean over every
+    # rank's rows, k = 5 windows, stochastic depth drawn per sample (64²);
+    # NASNet at 48²: its VALID stem (23-, 12-, 6- and 3-row maps: uneven
+    # splits, ranks with no rows), its correct_pad pools, its
+    # count-excluding average pool and its shifted stride-2 adjustment of
+    # 12 rows over 4 ranks and 6 over 2 (ranks that start at an odd row)
+    "densenet_train": (case_conf(64, 4, ONE_BY_ONE, base="densenet121"), 1),
+    "efficientnet_train": (case_conf(64, 4, ONE_BY_ONE, base="efficientnetb0"), 1),
+    "nasnet_train": (case_conf(48, 4, ONE_BY_ONE, base="nasnetmobile"), 1),
+    "nasnet_eval": (case_conf(48, 4, ONE_BY_ONE, base="nasnetmobile"), "eval"),
+    # int8_infer: calibration on the ranks' rows, then the eval and label
+    # steps with the eligible sites in int8 (INT8_MAX_PIXELS)
+    "int8_eval": (int8_conf("mobilenetv2"), "int8"),
+    "xception_int8_eval": (int8_conf("xception"), "int8"),
 }
+# the cases of tests/test_torch_spatial_backbones.py
+BACKBONE_CASES = ("densenet_train", "efficientnet_train", "nasnet_train", "nasnet_eval",
+                  "int8_eval", "xception_int8_eval")
 # the (n_data, n_space) grids, by world size
 GRIDS = {2: [(1, 2)], 4: [(2, 2), (1, 4)]}
 # the cases run on some grids only
@@ -124,6 +165,8 @@ def run_case(case: str, variables, grid=None) -> dict:
     conf, kind = CASES[case]
     if kind == "nonsquare":
         return run_nonsquare(conf, variables, grid)
+    if kind == "int8":
+        return run_int8(case, variables, grid)
     model = port_model(conf, variables).to(torch.float64)
     pconf = Config.from_dict(conf)
     B = conf["hps"]["batch_size"]
@@ -149,6 +192,58 @@ def run_case(case: str, variables, grid=None) -> dict:
         cms.append(out["cm"].numpy())
     return {"losses": losses, "cms": cms,
             "state": {k: v.detach().clone() for k, v in model.state_dict().items()}}
+
+
+def run_int8(case: str, variables, grid) -> dict:
+    """An int8 case (float64, ``MAX_QUANT_PIXELS`` = ``INT8_MAX_PIXELS``):
+    ``quant.calibrate`` on this rank's data position's samples (whole
+    images: it cuts the image rows), then the eval step with probabilities
+    and the label step of the whole batch, both at the calibrated sites:
+    the ranges, the sites that ran int8 (name → calls), those a gate on
+    the shard's pixels would have quantized and the eval step kept in
+    float, the loss, matrix, probabilities and labels."""
+    from deeplabv3plus_keras_tpu_torch.config import Config
+    from deeplabv3plus_keras_tpu_torch.ops import quant
+    from deeplabv3plus_keras_tpu_torch.parallel import mesh, spatial, step
+
+    conf, _ = CASES[case]
+    model = port_model(conf, variables).to(torch.float64)
+    pconf = Config.from_dict(conf)
+    b = batches(case, 1)[0]
+    mine = b
+    if grid is not None:
+        mine = {k: v[mesh.row_indices(len(v), grid.n_data, grid.d)] for k, v in b.items()}
+    mine = {k: torch.from_numpy(v) for k, v in mine.items()}
+    limit = INT8_MAX_PIXELS[case]
+    # the sites a gate on the shard's pixels would quantize and the image's
+    # pixels keep in float
+    shard_only = set()
+
+    def gate_probe(name):
+        def hook(mod, args):
+            x = args[0]
+            if spatial.active() and min(mod.weight.shape[:2]) >= quant.MIN_QUANT_CHANNELS and (
+                    0 < x.shape[-2] * x.shape[-1] <= limit < spatial.global_height(x) * x.shape[-1]):
+                shard_only.add(name)
+        return hook
+
+    saved = quant.MAX_QUANT_PIXELS
+    quant.MAX_QUANT_PIXELS = limit
+    try:
+        ranges = quant.calibrate(model, [mine["image"]])
+        quant.reset_counts()
+        probes = [m.register_forward_pre_hook(gate_probe(n)) for n, m in model.named_modules()
+                  if getattr(m, "quantizable", False)]
+        out = step.build_eval_step(model, pconf, with_probs=True, quant=ranges)(mine)
+        for h in probes:
+            h.remove()
+        eval_sites = dict(quant.sites)
+        labels = step.build_label_step(model, quant=ranges)(torch.from_numpy(b["image"]))
+    finally:
+        quant.MAX_QUANT_PIXELS = saved
+    return {"loss": float(out["loss"]), "cm": out["cm"].numpy(), "probs": out["probs"],
+            "ranges": {k: float(v) for k, v in ranges.items()}, "sites": eval_sites,
+            "shard_gate_only": sorted(shard_only), "labels": labels.numpy()}
 
 
 def tta_keys(conf: dict) -> dict:
@@ -314,6 +409,75 @@ def tail_rows(S: int, s: int) -> dict:
             "cm_equal": bool(torch.equal(total[1:].reshape(C, C).to(torch.int32), cm)),
             "grad_rel": float((spatial.gather_rows(g, h, 1) - grad).abs().max() / grad.abs().max())}
     return out
+
+
+# the facade's runs of tests/test_torch_spatial_backbones.py: the three
+# backbones' families, and int8_infer on the flagship and on Xception
+FACADE_BACKBONES = ("densenet121", "efficientnetb0", "nasnetmobile", "int8_mobilenetv2",
+                    "int8_xception")
+
+
+def facade_backbones(world: int | None, names=FACADE_BACKBONES) -> dict:
+    """``SemanticSegmentation(conf, device="cpu")`` at 32², B = 2, float32,
+    dropout 0 (its own random weights), with ``mesh_space`` = ``world``
+    over the process group, or one process (None), for each of ``names``
+    (of :data:`FACADE_BACKBONES`): a backbone's ``train_step()`` (loss and
+    matrix), ``eval_step()`` and ``segment()``; under ``int8_infer``,
+    ``segment()`` (which calibrates on its images), then the int8 eval
+    step, the sites that ran int8 and the ranges."""
+    from deeplabv3plus_keras_tpu_torch import SemanticSegmentation
+    from deeplabv3plus_keras_tpu_torch.ops import quant
+
+    torch.set_num_threads(1)
+    rng = np.random.default_rng(21)
+    images = rng.uniform(-1, 1, (2, 32, 32, 3)).astype(np.float32)
+    batch = {"image": images, "label": rng.integers(0, 21, (2, 32, 32))}
+    out = {}
+    for name in names:
+        int8 = name.startswith("int8_")
+        base = name.removeprefix("int8_")
+        conf = conf_dict(32, int8_infer=int8)
+        conf["base_model"] = base
+        if base == "xception":
+            conf["nn_arch"]["encoder_middle_conf"] = copy.deepcopy(XCEPTION_MIDDLE)
+        conf["nn_arch"]["dropout_rate"] = 0.0
+        if world:
+            conf.update(multi_gpu=True, num_gpus=world, mesh_space=world)
+        seg = SemanticSegmentation(conf, device="cpu")
+        r = {}
+        if int8:
+            quant.reset_counts()
+            r["labels"] = seg.segment(images)
+            m = seg._int8_step("eval", with_probs=False)(seg._batch(batch))
+            r.update(sites=dict(quant.sites), ranges={k: float(v) for k, v in seg._quant.items()})
+        else:
+            m = seg.train_step(batch)
+            r.update(train_loss=float(m["loss"]), train_cm=m["cm"].numpy())
+            m = seg.eval_step(batch)
+            r["labels"] = seg.segment(images)
+        r.update(eval_loss=float(m["loss"]), eval_cm=m["cm"].numpy())
+        out[name] = r
+    return out
+
+
+def facade_backbones_worker(out_dir: str, names=FACADE_BACKBONES) -> None:
+    """:func:`facade_backbones` of ``names`` over the process group as one
+    (1 × world) grid; every rank's results."""
+    from deeplabv3plus_keras_tpu_torch.parallel import mesh
+
+    out = facade_backbones(mesh.world_size(), names)
+    torch.save(out, os.path.join(out_dir, f"facade_backbones_r{mesh.rank()}.pt"))
+
+
+def facade_build_worker(out_dir: str, conf: dict) -> None:
+    """``SemanticSegmentation(conf, device="cpu")`` over the process group:
+    this rank's world, its (data, space) grid and whether it serves int8."""
+    from deeplabv3plus_keras_tpu_torch import SemanticSegmentation
+    from deeplabv3plus_keras_tpu_torch.parallel import mesh
+
+    seg = SemanticSegmentation(conf, device="cpu")
+    torch.save({"world": seg.world, "grid": (seg.grid.n_data, seg.grid.n_space),
+                "int8": seg._int8}, os.path.join(out_dir, f"facade_build_r{mesh.rank()}.pt"))
 
 
 def facade_conf(root: str, **extra) -> dict:
