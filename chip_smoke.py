@@ -77,14 +77,15 @@ BN statistics of its float32 phases:
   model;
 - ``ddp``: two ranks of a process group (a card each over NCCL where two
   cards exist, else both on the one card over gloo: a correctness check,
-  not a speed), spawned with a deadline, against one process: 3 float32
+  not a speed), spawned with a deadline, against one process: 2 float32
   steps of 16 × 512² (8 rows a rank) and one bfloat16 step (losses,
   first-step gradients, confusion matrices, parameters; ranks bit for
   bit; K2–K5 launches per rank and step), then on a VOC tree ``train()``
   streamed and with a sharded ``cache_device``, ``evaluate()`` and
   ``test()``, images/s and a profiled epoch's idle share; and
   ``int8_infer``'s ``evaluate()`` on the two ranks against one process;
-- ``fused_tail`` (after ``ddp``): the parity-decomposed training tail.
+- ``fused_tail`` (after ``int8``, before ``ddp``): the parity-decomposed
+  training tail.
   Each T1/T2 instantiation's registers and spills; every instantiation
   (C = 8, 16, 32, 33, 150 at 4 × 64² logits) against the plain version;
   T1/T2 (``csrc/parity_tail.cu``) at the flagship's tail (logits
@@ -97,7 +98,7 @@ BN statistics of its float32 phases:
   step: T1 1, T2 1, K2 15, K3 3, K4 15, K5 3) and the probability-free
   ``eval_step()`` (T1 once a call), the same in bfloat16, and one step on
   two ranks (the ``ddp`` layout) against one process;
-- ``spatial`` (after ``fused_tail``): ``mesh_space`` 2. K2–K5 on row
+- ``spatial`` (after ``ddp``): ``mesh_space`` 2. K2–K5 on row
   windows (each rank's output rows and the rows they read) against their
   plain versions at the flagship's sites at 1024² × 4, at NASNet-Mobile's
   and EfficientNet-B0's k = 5 and 7 sites at 1024² × 2 and at Xception's
@@ -114,7 +115,7 @@ BN statistics of its float32 phases:
   test-time-augmented eval step (loss and matrix) and a 1024 × 768
   ``segment()``, Xception at 1024² × 2 (one step and ``segment()`` under
   ``nhwc`` and ``bhcw``: K6/K7 on every rank), NASNet-Mobile,
-  EfficientNet-B0 and DenseNet-121 at 1024² × 2 (3 steps and
+  EfficientNet-B0 and DenseNet-121 at 1024² × 2 (2 steps and
   ``segment()`` each, held as the flagship, each beside its own
   rows-reversed run; ``spatial_backbones`` line) and ``int8_infer``
   ``segment()`` of the flagship and Xception at 1024² × 2 (the int8 sites
@@ -153,6 +154,29 @@ boundary refinement, 21 classes):
   DenseNet-169/201) at 128², B=2: K2–K5 at each one's distinct sites,
   ``segment()`` against the CPU and one ``train_step()``.
 
+Beside ``ddp`` and ``spatial``, whose gates time nothing (two ranks on one
+card), ``train_quality`` runs, under ``nhwc`` with TF32 off: the trained
+outcome of the learnable synthetic task of ``tests/synthetic_task.py``
+(loaded by path, numpy only, so the card draws the CPU suites' batches),
+each arm 3 seeds × 250 ``train_step()``s from the port's own weights of
+each seed (``init_weights``), dropout 0, lr 1e-3, one-hot labels, scored
+by batch-statistics evals of a held-out set at the 5 checkpoints 25 steps
+apart (every BN's running statistics restored after each eval):
+``parity_conf`` (the CPU suites' configuration, 96², B = 4) in float32
+and bfloat16; the flagship at 256², B = 8, in float32 and bfloat16 with
+``fused_tail`` off and on, each also serving the held-out set through
+``segment()`` (K1; inference-mode mIoU, reported, not gated);
+NASNet-Mobile at 256², B = 8, in float32 and bfloat16.  Each (arm,
+variant, seed) is a job of its own, 7 spawned processes at a time sharing
+the card with those two phases.  Every float32 variant's mean over its 15
+evals must reach 0.15 (3× chance), every bfloat16 and ``fused_tail``
+variant lie within 0.05 of its arm's float32, tail-off mean, every loss
+be finite and K2–K5 (T1/T2 with ``fused_tail``, K1 in the flagship's
+``segment()``) be launched; the ``train_quality`` line holds every seed's
+checkpoints, the means, the median step ms (between CUDA events, the jobs
+sharing card and cores), the wall s and the peak GiB, and the paths
+``train_quality_<arm>_<variant>`` join the ``kernels`` line.
+
 Then it prints the forward and backward depthwise summaries against cuDNN
 and the byte bound (K7's beside the one-tile-a-block design it replaced),
 K2–K5 by kernel size at the new backbones' sites (``depthwise_by_k``),
@@ -178,6 +202,9 @@ against its plain version, timed beside it, cuDNN and the byte bound),
 then their sums over a forward and a train step, in about a minute.  Copied
 into an unpacked older tree and run there beside this tree in one call, it
 times two versions of the kernels on one card.
+
+``python3 chip_smoke.py --train-quality`` builds the kernels and runs the
+``train_quality`` phase alone, in about four minutes.
 
 Any failed check exits non-zero.  Long outputs (the per-site table
 ``kernel_sites.json``, the profiles ``[xception_]segment_profile.txt`` and
@@ -2464,12 +2491,15 @@ def run_pretrained(card: str) -> dict:
 
 # ---- the ddp phase: two ranks of a process group against one process ----
 
-DDP_STEPS = 3
+DDP_STEPS = 2
+# the data path's VOC tree (train, val, test images): half the data_path
+# phase's training images
+DDP_TREE = (32, 16, 16)
 # the step at 16 × 512², float32, TF32 off, cuDNN deterministic, against
 # one process.  The first step: the bounds of the JAX package's
 # N-against-1-device check (__graft_entry__.py:182-200, one step): the loss
 # to 1e-5 relative, the confusion matrix to max(8, pixels/4096); parameters
-# after 3 steps to 3e-3.  Float32 rounding alone moves the gradient: a
+# after the steps to 3e-3.  Float32 rounding alone moves the gradient: a
 # pre-activation that rounds across a ReLU6 kink changes every gradient
 # upstream of it (PERF.md §6: 2.6e-3 in relative 2-norm between the
 # flagship's float32 and float64 steps), and Keras Adam at β₁ = 0.5 turns a
@@ -2481,7 +2511,7 @@ DDP_STEPS = 3
 # distance (for the loss, its largest after an update), as the remat
 # phase holds its gradients to its own spread
 DDP_LOSS_REL, DDP_PARAM_ATOL, DDP_SPREAD = 1e-5, 3e-3, 10
-# train() for 2 epochs (8 steps) against one process: float32 steps drift
+# train() for 2 epochs (4 steps) against one process: float32 steps drift
 # apart chaotically (Keras Adam at β₁ = 0.5 turns a gradient that rounds
 # across zero into a whole ±lr update), so per epoch: losses to 2e-2
 # relative, mIoUs to 2e-2; the sharded cache draws other global batches
@@ -2571,7 +2601,7 @@ def ddp_steps(state: dict, device, rows=None, dtype: str = "float32",
 
 
 def _ddp_step_rank(state_path: str, out_dir: str) -> None:
-    """A rank of the ddp phase's step check: 3 float32 steps and one
+    """A rank of the ddp phase's step check: 2 float32 steps and one
     bfloat16 step on its 8 rows of each global batch."""
     import torch
 
@@ -2681,12 +2711,12 @@ def _ddp_data_rank(root: str, work: str, out_dir: str) -> None:
 
 def run_ddp(kernels, card: str, state: dict) -> dict:
     """Two ranks of a process group (:func:`ddp_layout`) against one
-    process, from the flagship's weights ``state``.  The step: 3 float32
+    process, from the flagship's weights ``state``.  The step: 2 float32
     steps of 16 × 512² (8 rows a rank) and one bfloat16 step (the
     synchronised 16-bit BN backward on the card); losses, parameters and
     confusion matrices against one process, parameters and statistics bit
     for bit across ranks, K2–K5 launches per rank and step.  The data path
-    on the data path phase's tree: ``train()`` 2 epochs streamed and with a
+    on a VOC tree of ``DDP_TREE`` images: ``train()`` 2 epochs streamed and with a
     sharded ``cache_device`` against one process's, ``evaluate()`` of one
     checkpoint against one process's, ``test()``'s PNGs against the
     ranks' ``segment()``; images/s and a profiled epoch's idle share.  The
@@ -2721,7 +2751,9 @@ def run_ddp(kernels, card: str, state: dict) -> dict:
         t_step = time.perf_counter() - t0
 
         root, work = os.path.join(tmp, "resource"), os.path.join(tmp, "work")
-        make_synthetic_voc(root, n_train=64, n_val=32, n_test=16, min_size=300, max_size=501)
+        n_train, n_val, n_test = DDP_TREE
+        make_synthetic_voc(root, n_train=n_train, n_val=n_val, n_test=n_test, min_size=300,
+                           max_size=501)
         launch.spawn(_ddp_data_rank, 2, (root, work, tmp), devices=layout["devices"],
                      backend=layout["backend"], timeout_s=420, group_timeout_s=180)
         one_hist = {}
@@ -2812,7 +2844,7 @@ def run_ddp(kernels, card: str, state: dict) -> dict:
     r8, o8 = data[0]["evaluate_int8"]["ranges"], one_int8["ranges"]
     int8_rel = (max(abs(r8[k] - v) / v for k, v in o8.items()) if sorted(r8) == sorted(o8)
                 else math.inf)
-    n_img = 64 * 2
+    n_img = DDP_TREE[0] * 2
     result = {
         **{k: layout[k] for k in ("backend", "cards", "world")},
         "note": ("two ranks on one card: a correctness check, not a speed" if layout["cards"] < 2
@@ -2878,7 +2910,7 @@ def run_ddp(kernels, card: str, state: dict) -> dict:
             and abs(data[0]["evaluate_int8"]["miou"] - one_int8["miou"]) <= DDP_MIOU_ABS):
         failures.append(f"int8 evaluate() on two ranks {data[0]['evaluate_int8']['miou']} "
                         f"(ranges {int8_rel} apart) vs one process {one_int8['miou']}")
-    if len(pngs) != 16 or any(d["test"]["mismatched_pixels"] for d in data) or sorted(
+    if len(pngs) != DDP_TREE[2] or any(d["test"]["mismatched_pixels"] for d in data) or sorted(
             data[0]["test"]["names"] + data[1]["test"]["names"]) != [p[:-4] for p in pngs]:
         failures.append(f"test(): {len(pngs)} PNGs, {result['data_path']['test_mismatched_pixels']}")
     if failures:
@@ -2946,7 +2978,7 @@ SPATIAL_NONSQUARE = (SPATIAL_SIZE, 768)
 
 
 # the other backbones' families under mesh_space, each at 1024² × 2: a
-# segment() from the initial weights and 3 train_step()s, held to one
+# segment() from the initial weights and 2 train_step()s, held to one
 # process by the flagship's bounds (each with its own rows-reversed run
 # as the yardstick).  segment() after the steps would compare other
 # weights: 3 steps of ±lr on the zero-gradient BN parameters move the
@@ -2957,7 +2989,7 @@ SPATIAL_NONSQUARE = (SPATIAL_SIZE, 768)
 # image's per-sample mask; its draws under a space split are held on the
 # CPU (tests/test_torch_spatial_backbones.py, float64, 1e-12)
 SPATIAL_BACKBONES = ("nasnetmobile", "efficientnetb0", "densenet121")
-SPATIAL_BACKBONE_BATCH = 2
+SPATIAL_BACKBONE_BATCH, SPATIAL_BACKBONE_STEPS = 2, 2
 # int8_infer segment() at 1024² × 2 (calibrated on its images), the
 # flagship and Xception.  The ranks' int8 products are exact and equal
 # one process's for equal int8 inputs; what differs is the float32 work
@@ -3235,14 +3267,15 @@ def spatial_flagship(device, world: int, margins: bool) -> dict:
 
 def spatial_others(device, world: int, margins: bool) -> dict:
     """The other backbones' runs of the spatial phase (``segment()`` and
-    3 steps, each of
+    2 steps, each of
     :data:`SPATIAL_BACKBONES`) and the int8
     ``segment()`` of the flagship and Xception (:data:`SPATIAL_INT8`), over
     ``world`` ranks (1: one process)."""
     out = {}
     for name in SPATIAL_BACKBONES:
         conf = spatial_conf(backbone_conf(name)(SPATIAL_SIZE, SPATIAL_BACKBONE_BATCH), world)
-        out[name] = spatial_run(conf, device, SPATIAL_STEPS, name, evaluate=False, margins=margins)
+        out[name] = spatial_run(conf, device, SPATIAL_BACKBONE_STEPS, name, evaluate=False,
+                                margins=margins)
     for name in SPATIAL_INT8:
         conf = (xception_conf if name == "xception" else flagship_conf)(SPATIAL_SIZE,
                                                                          SPATIAL_BACKBONE_BATCH)
@@ -3491,7 +3524,7 @@ def run_spatial(kernels, card: str) -> dict:
         for name in SPATIAL_BACKBONES:
             one[f"{name}_reversed"] = spatial_run(
                 spatial_conf(backbone_conf(name)(SPATIAL_SIZE, SPATIAL_BACKBONE_BATCH), 1), device,
-                SPATIAL_STEPS, f"{name}_reversed", False, False, reverse=True)
+                SPATIAL_BACKBONE_STEPS, f"{name}_reversed", False, False, reverse=True)
     torch.cuda.empty_cache()
     torch.backends.cudnn.deterministic = deterministic
 
@@ -4348,6 +4381,252 @@ def run_xception_nhwc(kernels, card: str) -> dict:
     return by_path
 
 
+# train_quality: the trained outcome of the learnable synthetic task of
+# tests/synthetic_task.py, each arm trained from TQ_SEEDS seeds for TQ_STEPS
+# steps, scored by batch-statistics evals at its TQ_CHECKPOINTS checkpoints
+# TQ_EVERY steps apart (the recipe of tests/test_torch_accuracy_parity.py:
+# dropout 0, lr 1e-3, no decay, one-hot labels).  An arm: (side, batch, its
+# variants (dtype, fused_tail)).
+TQ_SEEDS, TQ_STEPS, TQ_CHECKPOINTS, TQ_EVERY, TQ_EVAL_BATCHES = 3, 250, 5, 25, 4
+TQ_ARMS = {
+    "parity_conf": (96, 4, (("float32", False), ("bfloat16", False))),
+    "flagship": (256, 8, (("float32", False), ("bfloat16", False), ("float32", True),
+                          ("bfloat16", True))),
+    "nasnetmobile": (256, 8, (("float32", False), ("bfloat16", False))),
+}
+# every float32 arm's mean reaches 3× chance; a bfloat16 or fused_tail
+# variant lands within the JAX suites' band of its float32, tail-off one
+TQ_FLOOR, TQ_BAND = 0.15, 0.05
+# the jobs (arm, variant, seed) run in this many processes at once: each
+# is bound by its host's dispatch, and the card runs them in turns
+TQ_WORKERS, TQ_TIMEOUT_S = 7, 600
+
+
+def test_helper(name: str):
+    """``tests/<name>.py`` of this checkout, loaded by path (numpy only at
+    import: the synthetic task, the trained-outcome configuration)."""
+    import importlib.util
+
+    path = Path(__file__).resolve().parent / "tests" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(f"dlv3_tests_{name}", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def tq_variant(dtype: str, fused: bool) -> str:
+    return f"{dtype}_fused_tail" if fused else dtype
+
+
+def tq_conf(arm: str, dtype: str, fused: bool) -> dict:
+    """The arm's JSON config: ``parity_conf`` is the CPU suites'
+    configuration (``torch_helpers.accuracy_conf_dict``); ``flagship`` and
+    ``nasnetmobile`` the flagship's at full width (with NASNet-Mobile as
+    backbone), trained by the same recipe."""
+    size, batch, _ = TQ_ARMS[arm]
+    if arm == "parity_conf":
+        conf = test_helper("torch_helpers").accuracy_conf_dict(dtype, size, batch)
+    else:
+        conf = backbone_conf("mobilenetv2" if arm == "flagship" else arm)(size, batch)
+        conf["hps"].update(dtype=dtype, lr=1e-3, decay=0.0)
+        conf["nn_arch"]["dropout_rate"] = 0.0
+    if fused:
+        conf["fused_tail"] = True
+    return conf
+
+
+def tq_job(arm: str, dtype: str, fused: bool, seed: int) -> dict:
+    """One seed of one arm's variant, in a process of its own: the facade
+    ``SemanticSegmentation(conf, device="cuda")`` with the port's weights of
+    ``init_weights(torch.Generator().manual_seed(seed))`` (stochastic depth
+    off), ``TQ_STEPS`` ``train_step()``s on seed's batch stream
+    (``make_batch(default_rng(11 + 1000·seed), batch, side)``, drawn before
+    the first step), a batch-statistics eval of the held-out set
+    (``make_batch(default_rng(1000 + i))``, i < ``TQ_EVAL_BATCHES``) at
+    each checkpoint with every BN's running statistics restored after it;
+    for the flagship, the held-out set served through ``segment()`` (K1)
+    after the last step.  Returns the checkpoints' mIoUs, the served mIoU,
+    the losses' finiteness, step times, wall, peak memory and the kernels'
+    launches."""
+    import numpy as np
+    import torch
+
+    from deeplabv3plus_keras_tpu_torch import SemanticSegmentation, kernels
+    from deeplabv3plus_keras_tpu_torch.models import DeepLabV3Plus
+
+    torch.set_num_threads(1)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    task, helpers = test_helper("synthetic_task"), test_helper("torch_helpers")
+    size, batch, _ = TQ_ARMS[arm]
+    t0 = time.perf_counter()
+    seg = SemanticSegmentation(tq_conf(arm, dtype, fused), device="cuda")
+    drawn = DeepLabV3Plus(seg.conf)
+    drawn.init_weights(torch.Generator().manual_seed(seed))
+    seg.model.load_state_dict(drawn.state_dict())
+    no_stochastic_depth(seg.model)
+    held_out = [task.make_batch(np.random.default_rng(1000 + i), batch, size)
+                for i in range(TQ_EVAL_BATCHES)]
+    held = [(torch.from_numpy(x).cuda(), torch.from_numpy(lab).cuda()) for x, lab in held_out]
+
+    def batch_stats_miou() -> float:
+        cm = 0
+        for x, lab in held:
+            pred = helpers.batch_stats_probs(seg.model, x).argmax(-1)
+            cm = cm + torch.bincount((lab * CLASSES + pred).reshape(-1),
+                                     minlength=CLASSES * CLASSES)
+        return task.miou(cm.reshape(CLASSES, CLASSES).cpu().numpy())
+
+    rng = np.random.default_rng(11 + 1000 * seed)
+    stream = [task.make_batch(rng, batch, size) for _ in range(TQ_STEPS)]
+    eval_at = task.checkpoint_steps(TQ_STEPS, TQ_CHECKPOINTS, TQ_EVERY)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    # no wait a step (the evals wait): each step's time between two CUDA
+    # events, the losses read at the end
+    losses, spans, marks = [], [], []
+    for i, (x, lab) in enumerate(stream):
+        image = torch.from_numpy(x).cuda()
+        label = torch.nn.functional.one_hot(torch.from_numpy(lab).cuda().long(), CLASSES).float()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        losses.append(seg.train_step({"image": image, "label": label})["loss"])
+        end.record()
+        spans.append((start, end))
+        if i in eval_at:
+            marks.append(batch_stats_miou())
+    losses = torch.stack(losses).cpu()
+    served = None
+    if arm == "flagship":  # inference mode: the running statistics, K1
+        cm = sum(task.np_cm(lab, seg.segment(x)) for x, lab in held_out)
+        served = task.miou(cm)
+    out = {"arm": arm, "variant": tq_variant(dtype, fused), "seed": seed, "checkpoints": marks,
+           "served_miou": served, "finite": bool(torch.isfinite(losses).all()),
+           "first_loss": losses[0].item(), "last_loss": losses[-1].item(),
+           "median_step_ms": statistics.median(a.elapsed_time(b) for a, b in spans[1:]),
+           "launches": kernels.launch_counts(), "wall_s": time.perf_counter() - t0,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    torch.cuda.empty_cache()
+    return out
+
+
+def start_train_quality():
+    """Start the ``train_quality`` phase's jobs: every (arm, variant, seed)
+    of ``TQ_ARMS`` as one :func:`tq_job`, the longest (NASNet-Mobile's)
+    first, in ``TQ_WORKERS`` spawned processes that share the card.  The
+    processes inherit this one's ``DLV3_DW_LAYOUT``; each job turns TF32
+    off.  Returns (the pool, the pending results, the start time) for
+    :func:`finish_train_quality`."""
+    import multiprocessing as mp
+
+    pool = mp.get_context("spawn").Pool(TQ_WORKERS)
+    pending = [pool.apply_async(tq_job, (arm, dtype, fused, seed))
+               for arm in ("nasnetmobile", "flagship", "parity_conf")
+               for dtype, fused in TQ_ARMS[arm][2] for seed in range(TQ_SEEDS)]
+    return pool, pending, time.perf_counter()
+
+
+def finish_train_quality(started, card: str) -> dict:
+    """Wait for the jobs of :func:`start_train_quality` (within
+    ``TQ_TIMEOUT_S`` of their start; every process is stopped after), print
+    the ``train_quality`` line (per arm and variant: every seed's
+    checkpoints and served mIoU, the mean over its evals, the median step
+    ms, the jobs' wall s and the peak GiB) and fail the run when a float32
+    variant's mean is under ``TQ_FLOOR``, a bfloat16 or ``fused_tail``
+    variant's is more than ``TQ_BAND`` from its arm's float32, tail-off
+    mean, a loss is not finite, or a kernel of the path was not launched
+    (K2–K5 in every variant, T1/T2 with ``fused_tail``, K1 in the
+    flagship's ``segment()``).  Returns the launches by path
+    ``train_quality_<arm>_<variant>``, summed over the seeds."""
+    import multiprocessing as mp
+
+    pool, pending, t0 = started
+    with pool:  # terminates the processes on the way out
+        try:
+            results = [r.get(max(1.0, t0 + TQ_TIMEOUT_S - time.perf_counter()))
+                       for r in pending]
+        except mp.TimeoutError:
+            raise SystemExit(f"train_quality: the jobs did not finish within {TQ_TIMEOUT_S} s")
+    arms, by_path, failures = {}, {}, []
+    for arm, (size, batch, variants) in TQ_ARMS.items():
+        arms[arm] = {"image": size, "batch": batch}
+        for dtype, fused in variants:
+            name = tq_variant(dtype, fused)
+            runs = sorted((r for r in results if r["arm"] == arm and r["variant"] == name),
+                          key=lambda r: r["seed"])
+            marks = [m for r in runs for m in r["checkpoints"]]
+            arms[arm][name] = {
+                "seeds": {r["seed"]: {"checkpoints": r["checkpoints"],
+                                      "mean": statistics.fmean(r["checkpoints"]),
+                                      "served_miou": r["served_miou"],
+                                      "first_loss": r["first_loss"],
+                                      "last_loss": r["last_loss"]} for r in runs},
+                "mean": statistics.fmean(marks),
+                "median_step_ms": statistics.median(r["median_step_ms"] for r in runs),
+                "wall_s": sum(r["wall_s"] for r in runs),
+                "peak_gib": max(r["peak_gib"] for r in runs),
+            }
+            path = f"train_quality_{arm}_{name}"
+            by_path[path] = {k: sum(r["launches"][k] for r in runs) for k in runs[0]["launches"]}
+            need = ["depthwise_fwd_s1", "depthwise_fwd_s2", "depthwise_bwd_s1",
+                    "depthwise_bwd_s2"] + (["parity_tail_fwd", "parity_tail_bwd"] if fused
+                                           else []) + (["upsample_argmax"] if arm == "flagship"
+                                                       else [])
+            missing = [k for k in need if not by_path[path][k]]
+            if missing:
+                failures.append(f"{path}: {missing} not launched")
+            if not all(r["finite"] for r in runs):
+                failures.append(f"{path}: a loss is not finite")
+        base = arms[arm]["float32"]["mean"]
+        for dtype, fused in variants:
+            name = tq_variant(dtype, fused)
+            mean = arms[arm][name]["mean"]
+            if dtype == "float32" and mean < TQ_FLOOR:
+                failures.append(f"{arm} {name}: mean mIoU {mean:.4f} < {TQ_FLOOR}")
+            if (dtype, fused) != ("float32", False):
+                arms[arm][name]["delta_from_float32"] = mean - base
+                if abs(mean - base) > TQ_BAND:
+                    failures.append(f"{arm} {name}: mean mIoU {mean:.4f} is "
+                                    f"{mean - base:+.4f} from float32's {base:.4f}")
+    print(json.dumps({"train_quality": {
+        "arms": arms, "seeds": TQ_SEEDS, "steps": TQ_STEPS,
+        "checkpoints": sorted(test_helper("synthetic_task").checkpoint_steps(
+            TQ_STEPS, TQ_CHECKPOINTS, TQ_EVERY)),
+        "eval": "batch statistics, running statistics restored; served_miou: segment(), "
+                "running statistics",
+        "floor": TQ_FLOOR, "band": TQ_BAND, "workers": TQ_WORKERS,
+        "note": "step ms between CUDA events, the jobs sharing the card and the host's cores",
+        "failures": failures, "wall_s": time.perf_counter() - t0, "card": card}}))
+    if failures:
+        raise SystemExit(f"train_quality: {failures}")
+    return by_path
+
+
+def train_quality_only() -> int:
+    """``--train-quality``: build the kernels and run only the
+    ``train_quality`` phase under ``nhwc`` with TF32 off."""
+    import torch
+
+    import_port()
+    from deeplabv3plus_keras_tpu_torch.kernels import _build
+
+    OUT.mkdir(exist_ok=True)
+    card = gpu_line()
+    print(card)
+    t0 = time.perf_counter()
+    _build.build_all()
+    print(json.dumps({"kernel_build_s": time.perf_counter() - t0, "sources": _build.sources()}))
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    with dw_layout("nhwc"):
+        by_path = finish_train_quality(start_train_quality(), card)
+    print(json.dumps({"launches_by_path": by_path, "card": card}))
+    print(card)
+    print(ok_line())
+    return 0
+
+
 def import_port():
     """The port beside this script, or exit."""
     try:
@@ -4459,8 +4738,11 @@ def main() -> int:
         return parity_tail_only()
     if sys.argv[1:] == ["--cf"]:
         return cf_only()
+    if sys.argv[1:] == ["--train-quality"]:
+        return train_quality_only()
     if sys.argv[1:]:
-        raise SystemExit(f"chip_smoke: unknown arguments {sys.argv[1:]}; none, --parity-tail or --cf")
+        raise SystemExit(f"chip_smoke: unknown arguments {sys.argv[1:]}; none, --parity-tail, "
+                         "--cf or --train-quality")
 
     import_port()
     from deeplabv3plus_keras_tpu_torch import kernels
@@ -4543,17 +4825,30 @@ def main() -> int:
                                                   "depthwise_fwd_s2")):
             raise SystemExit(f"int8 segment(): K1-K3 not all launched: {p['segment_int8']}")
         print(json.dumps({"phase": "int8", "s": time.perf_counter() - t2}))
-        # two ranks of a process group against one process
-        by_path.update(run_ddp(kernels, card, state))
-        print(json.dumps({"model": "mobilenetv2", "phase": "ddp", "s": time.perf_counter() - t1}))
         # fused_tail: the parity-decomposed tail, T1/T2
         a, p = run_fused_tail(kernels, card, state)
         agg.update(a)
         by_path.update(p)
-        # mesh_space 2: two ranks, each some rows of every image
+        # the synthetic task's trained outcome (3 seeds x 250 steps of the
+        # CPU suites' configuration, the flagship and NASNet-Mobile), in
+        # processes of their own beside the ddp and spatial phases, which
+        # time nothing they gate on (two ranks on one card)
         t2 = time.perf_counter()
-        by_path.update(run_spatial(kernels, card))
-        print(json.dumps({"phase": "spatial", "s": time.perf_counter() - t2}))
+        train_quality = start_train_quality()
+        with contextlib.ExitStack() as stop:
+            stop.callback(train_quality[0].terminate)  # also where a phase fails
+            # two ranks of a process group against one process
+            by_path.update(run_ddp(kernels, card, state))
+            print(json.dumps({"model": "mobilenetv2", "phase": "ddp",
+                              "s": time.perf_counter() - t2, "beside": "the train_quality jobs"}))
+            # mesh_space 2: two ranks, each some rows of every image
+            t3 = time.perf_counter()
+            by_path.update(run_spatial(kernels, card))
+            print(json.dumps({"phase": "spatial", "s": time.perf_counter() - t3,
+                              "beside": "the train_quality jobs"}))
+            by_path.update(finish_train_quality(train_quality, card))
+            print(json.dumps({"phase": "train_quality", "s": time.perf_counter() - t2,
+                              "beside": "the ddp and spatial phases"}))
         # EfficientNet-B0, NASNet-Mobile and DenseNet-121 at full size (K2–K5
         # at k = 3, 5, 7 and C = 11, 22; also in bfloat16 for the first two),
         # then the nine other variants at 128²

@@ -10,7 +10,9 @@ reference's shape, (classes, 48 + C_enc, 3, 3).
 
 Then bilinear ×os (×2 after refinement) and softmax over classes; or,
 with ``return_presample``, the low-resolution logits and the factor, for
-the fused upsample+argmax label kernel.
+the fused upsample+argmax label kernel; or, with ``float32_tail``, the
+upsample and softmax of 16-bit logits in float32, for the losses of the
+train and eval steps (``parallel/step.py``).
 """
 
 from __future__ import annotations
@@ -62,7 +64,8 @@ class Decoder(nn.Module):
         else:
             self.classifier_l2 = Conv(encoder_channels, num_classes, 3)
 
-    def forward(self, base_features, encoder_features, return_presample: bool = False):
+    def forward(self, base_features, encoder_features, return_presample: bool = False,
+                float32_tail: bool = False):
         x = encoder_features
         if self.boundary_refinement:
             low = self.refine_conv48(base_features)
@@ -75,6 +78,8 @@ class Decoder(nn.Module):
             up = up // 8 if up == 16 else up // 4  # → ×2 either way (reference :899-902)
         if return_presample:
             return x, up
+        if float32_tail and x.dtype in (torch.bfloat16, torch.float16):
+            x = x.float()
         # the JAX package's per-dtype choice of the final upsample form: the
         # matmul form in float32/float64, ``tf_resize_images`` in
         # bfloat16/float16 (whose roundings are the matmul form's there)
@@ -88,8 +93,11 @@ class Decoder(nn.Module):
 def softmax(x: torch.Tensor, dim: int) -> torch.Tensor:
     """``jax.nn.softmax``: in bfloat16/float16, exp(x − max) in the dtype,
     its sum accumulated in float32 and cast back (``jnp.sum`` upcasts half
-    types), the division in the dtype; ``torch.softmax`` otherwise."""
+    types), the division in the dtype; ``torch.softmax`` otherwise.  The
+    max carries no gradient, as JAX stops it: its gradient, zero in exact
+    arithmetic, is a 16-bit rounding residual that would land on the
+    leading class."""
     if x.dtype not in (torch.bfloat16, torch.float16):
         return torch.softmax(x, dim=dim)
-    e = torch.exp(x - x.amax(dim, keepdim=True))
+    e = torch.exp(x - x.amax(dim, keepdim=True).detach())
     return e / e.sum(dim, keepdim=True, dtype=torch.float32).to(x.dtype)

@@ -123,9 +123,12 @@ class DeepLabV3Plus(nn.Module):
         init_weights(self, generator)
 
     def forward(self, images: torch.Tensor, return_presample: bool = False,
-                generator: torch.Generator | None = None):
+                generator: torch.Generator | None = None, float32_tail: bool = False):
         """``generator`` draws the dropout and stochastic-depth masks in
-        training (required there when a rate is above 0)."""
+        training (required there when a rate is above 0).  ``float32_tail``:
+        in a 16-bit dtype, the final upsample and softmax run in float32, so
+        that a loss reads unrounded probabilities (the train and eval steps
+        pass it; ROADMAP C5)."""
         x = images.permute(0, 3, 1, 2)  # NHWC → NCHW view
         if not getattr(self.base, "casts_images", False):
             x = x.to(self.compute_dtype)
@@ -147,5 +150,5 @@ class DeepLabV3Plus(nn.Module):
         if return_presample:
             logits, up = self.decoder(base_features, encoder_features, return_presample=True)
             return _at_least_f32(logits.permute(0, 2, 3, 1)), up
-        probs = self.decoder(base_features, encoder_features)
+        probs = self.decoder(base_features, encoder_features, float32_tail=float32_tail)
         return _at_least_f32(probs.permute(0, 2, 3, 1))

@@ -14,6 +14,14 @@ both the train and the eval step, as Keras adds regularizer losses to
 both.  Padded samples (``valid == 0``) count in neither the loss mean nor
 the confusion matrix.
 
+In a 16-bit ``hps.dtype`` the train and eval steps compute their loss and
+confusion matrix from probabilities upsampled and normalised in float32
+from the 16-bit logits (the model's ``float32_tail``), as the parity tail
+reads them: rounded to 16 bits first, as ``jax.nn.softmax`` rounds them, a
+confidently wrong class's probability becomes 1.0 and the loss's gradient
+there noise (ROADMAP C5).  The predict step returns the model's own
+16-bit-rounded probabilities.
+
 The eval, predict and label steps run under ``torch.inference_mode()`` in
 eval mode (BN on running statistics, dropout off); the train step in
 train mode (BN on batch statistics, dropout drawn from a generator seeded
@@ -273,7 +281,7 @@ def build_train_step(model, optimizer: KerasAdam, conf: Config, class_weights=No
                                             n_valid=nv)
                     del logits
                 else:
-                    probs = model(image[part], generator=draws)
+                    probs = model(image[part], generator=draws, float32_tail=True)
                     loss = _loss_for(label[part], probs, pw, nw, valid[part], nv, n_pix)
                     with torch.no_grad():
                         cm = _cm_for(label[part], probs, num_classes, valid[part])
@@ -345,7 +353,7 @@ def _tta_probs_fn(model, conf: Config, scales, flip: bool) -> Callable[[torch.Te
             variants = [x, x.flip(2)] if flip else [x]
             for i, xv in enumerate(variants):
                 with spatial.use_heights({x.shape[2]: sz}):
-                    p = model(xv)
+                    p = model(xv, float32_tail=True)
                 if i == 1:
                     p = p.flip(2)  # the prediction, flipped back
                 if sz != H and grid is None:
@@ -394,7 +402,7 @@ def build_eval_step(model, conf: Config, class_weights=None, with_probs: bool = 
     grid = mesh.grid()
     # test-time augmentation cuts the rows of each scale's images itself
     probs_fn = (_tta_probs_fn(model, conf, tta_scales, tta_flip) if tta
-                else lambda images: model(_image_rows(images, grid)))
+                else lambda images: model(_image_rows(images, grid), float32_tail=True))
 
     def eval_step(batch: dict) -> dict:
         model.eval()

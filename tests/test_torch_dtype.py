@@ -278,3 +278,45 @@ def test_softmax_and_resize_round_as_jax():
         jr = np.asarray(jax_resize(jnp.asarray(z, jnp.bfloat16), f, f).astype(jnp.float32))
         pr = _from_port(tf_resize_images(_to_port(z).to(torch.bfloat16), f, f))
         np.testing.assert_array_equal(pr, jr)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+def test_softmax_gradient_stops_at_the_max_as_jax(dtype):
+    """The decoder's 16-bit softmax differentiates as ``jax.nn.softmax``
+    does: the max it subtracts carries no gradient (JAX's
+    ``lax.stop_gradient(x_max)``).  Its gradient through the max is zero in
+    exact arithmetic, but in 16 bits it is the rounding residual of the
+    other classes' terms, and it lands on the leading class.  At pixels
+    where that class leads by far and is wrong, the class-balanced loss's
+    gradient of the leading logit then had a mean 2,000× float64's in
+    bfloat16 (+0.19 against 9.5e-5; JAX's 6.0e-5).  Held: the port's
+    distance to float64 within 1.5× JAX's (strict, in the same dtype), over
+    all classes and on the leading one's mean.  (Both stay far from
+    float64 there, which is why the steps read float32 probabilities:
+    ROADMAP C5, ``test_torch_parity_tail.py``.)"""
+    from deeplabv3plus_keras_tpu.train.loss import class_balanced_loss as jax_cb_loss
+    from deeplabv3plus_keras_tpu_torch.models.decoder import softmax
+    from deeplabv3plus_keras_tpu_torch.train.loss import class_balanced_loss
+
+    rng = np.random.default_rng(5)
+    labels = rng.integers(1, 21, (2, 32, 32))
+    z = rng.normal(size=(2, 21, 32, 32)).astype(np.float32)
+    z[:, 0] += rng.uniform(4, 12, (2, 32, 32)).astype(np.float32)  # class 0 leads, wrongly
+    y = np.eye(21, dtype=np.float32)[labels]
+
+    def port_grad(tdtype, fn):
+        x = torch.tensor(z, dtype=tdtype, requires_grad=True)
+        class_balanced_loss(torch.from_numpy(y), fn(x, 1).permute(0, 2, 3, 1).float()).backward()
+        return x.grad.double().numpy()
+
+    def jax_loss(x):
+        probs = jnp.moveaxis(jax.nn.softmax(x, axis=1), 1, -1).astype(jnp.float32)
+        return jax_cb_loss(jnp.asarray(y), probs)
+
+    ref = port_grad(torch.float64, lambda x, d: torch.softmax(x, d))
+    port = port_grad(getattr(torch, dtype), softmax)
+    zj = jnp.asarray(z, dtype)
+    jx = np.asarray(strict_jit(jax.grad(jax_loss), zj)(zj).astype(jnp.float32), np.float64)
+    assert np.linalg.norm(port - ref) <= 1.5 * np.linalg.norm(jx - ref)
+    lead = lambda g: abs(g[:, 0].mean() - ref[:, 0].mean())  # noqa: E731
+    assert lead(port) <= 1.5 * lead(jx), (lead(port), lead(jx))

@@ -503,3 +503,36 @@ def test_key_is_ignored_without_boundary_refinement():
         out.append((seg.train_step(b), seg.eval_step(b)))
     for a, b in zip(*out):
         assert torch.equal(a["loss"], b["loss"]) and torch.equal(a["cm"], b["cm"])
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+def test_16_bit_step_matches_the_parity_tail(dtype):
+    """In a 16-bit dtype the plain tail of the train step reads float32
+    probabilities, as the parity tail reads float32 logits (ROADMAP C5).
+    The classifier's weights are scaled 60× so that most pixels are
+    confidently wrong; one step with the key and one without, from the
+    same weights, agree on the loss to 1e-5 relative (measured 7e-8 in
+    bfloat16, 3e-7 in float16) and on the gradients to 0.1 in relative
+    2-norm (measured 0.020 and 0.0022: the 16-bit backward of dlogits that
+    differ by float32 reassociation, one 16-bit step where they straddle a
+    rounding).  With the probabilities rounded to 16 bits, as
+    ``jax.nn.softmax`` returns them, a confidently wrong class's
+    probability is 1.0 and its log(1 − p + ε) term's gradient 1e7 times
+    too large: the losses were 1.1e-3 and 1.6e-3 apart, the gradients 69×
+    and 13× the parity tail's norm."""
+    conf = _fused_conf(np.float32)
+    conf["hps"]["dtype"] = dtype
+    _, v = jax_model_and_traced_variables(conf, seed=7)
+    v["params"]["decoder"]["classifier_l2"]["kernel"] *= 60.0
+    batch = {k: torch.from_numpy(a) for k, a in _batch(np.float32, sparse=True).items()}
+    out = {}
+    for fused in (True, False):
+        pm = port_model(conf, v)
+        pconf = Config.from_dict({**conf, "fused_tail": fused})
+        res = port_step.build_train_step(pm, port_step.create_train_state(pconf, pm), pconf)(batch)
+        out[fused] = res, [p.grad.clone() for p in pm.parameters()]
+    (a, ga), (b, gb) = out[True], out[False]
+    assert abs(float(a["loss"]) - float(b["loss"])) <= 1e-5 * abs(float(a["loss"]))
+    diff = sum(float((x - y).double().square().sum()) for x, y in zip(ga, gb))
+    norm = sum(float(x.double().square().sum()) for x in ga)
+    assert (diff / norm) ** 0.5 <= 0.1, (diff / norm) ** 0.5

@@ -144,6 +144,61 @@ def jax_model_and_traced_variables(conf: dict, seed: int = 0):
     return model, {c: _redraw(variables[c], rng) for c in ("params", "batch_stats")}
 
 
+# The trained-outcome suites' configuration (tests/test_torch_accuracy_parity.py,
+# tests/test_torch_bf16_quality.py, chip_smoke.py's train_quality phase): the
+# JAX package's full-model parity configuration (tests/test_full_model_parity.py
+# _conf: 96², MobileNetV2, output stride 16, boundary refinement, reduction and
+# concat width 32, the three-op middle, BN momentum 0.9, weight decay 4e-5),
+# trained as tests/test_accuracy_parity.py trains it: dropout 0, lr 1e-3, no
+# decay, B = 4.
+ACCURACY_MIDDLE = [
+    {"op": "conv", "kernel": 1, "input": -1},
+    {"op": "conv", "kernel": 3, "rate": [2, 1], "input": 0},
+    {"op": "pyramid_pooling", "kernel": 2, "input": -1, "target_size_factor": [2, 2]},
+]
+
+
+def accuracy_conf_dict(dtype: str = "float32", image_size: int = 96, batch: int = 4) -> dict:
+    return {
+        "base_model": "mobilenetv2",
+        "hps": {"dtype": dtype, "batch_size": batch, "bn_momentum": 0.9, "weight_decay": 4e-5,
+                "lr": 1e-3, "decay": 0.0},
+        "nn_arch": {
+            "boundary_refinement": True,
+            "output_stride": 16,
+            "image_size": image_size,
+            "num_classes": 21,
+            "reduction_size": 32,
+            "concat_channels": 32,
+            "dropout_rate": 0.0,
+            "encoder_middle_conf": copy.deepcopy(ACCURACY_MIDDLE),
+        },
+    }
+
+
+def batch_stats_probs(model, images):
+    """The port's batch-statistics eval: a train-mode forward of ``images``
+    (B, H, W, 3) without gradients, every ``BatchNorm``'s running mean and
+    variance restored afterwards, so the eval leaves the training state as
+    it found it (as the JAX side discards its mutated ``batch_stats``).
+    Dropout must be off (rate 0): no generator is given."""
+    import torch
+
+    from deeplabv3plus_keras_tpu_torch.models.blocks import BatchNorm
+
+    bns = [m for m in model.modules() if isinstance(m, BatchNorm)]
+    saved = [(m.running_mean.clone(), m.running_var.clone()) for m in bns]
+    model.train()
+    try:
+        with torch.no_grad():
+            return model(images)
+    finally:
+        with torch.no_grad():
+            for m, (mean, var) in zip(bns, saved):
+                m.running_mean.copy_(mean)
+                m.running_var.copy_(var)
+
+
 def strict_jit(fn, *args):
     """``fn`` compiled by XLA without its excess-precision liberty
     (``xla_allow_excess_precision`` off), so that a bfloat16/float16
