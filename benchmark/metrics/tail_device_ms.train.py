@@ -1,0 +1,10 @@
+"""Device milliseconds a training step of the program's
+``dlv3.step.tail`` spans (the loss, the confusion matrix, the L2), forward
+and backward: kernels launched inside the spans and by the backward nodes
+that their forward operations created."""
+
+from benchmark.spans import device_ms_per_unit
+
+
+def read(ctx):
+    return device_ms_per_unit(ctx, "train", "dlv3.step.tail")

@@ -109,7 +109,7 @@ from .train.checkpoint import (
     restore_checkpoint,
     save_checkpoint,
 )
-from .utils import MetricsLogger, StepTimer, profiler_trace
+from .utils import MetricsLogger, StepTimer, profiler_trace, span
 from .utils.preemption import Preempted, PreemptionGuard
 from .utils.pretrained import load_pretrained_backbone
 
@@ -258,9 +258,15 @@ class SemanticSegmentation:
         Under ``int8_infer`` the first call calibrates on the given images
         (no dataset needed); call :meth:`calibrate_int8` beforehand to
         calibrate on the training distribution instead."""
-        x = self._images(images)
-        label_step = self._int8_step("label", calib_images=x) if self._int8 else self._label_step
-        return label_step(x).cpu().numpy()
+        with span("dlv3.segment"):
+            with span("dlv3.segment.copy_in"):
+                x = self._images(images)
+            with span("dlv3.segment.forward"):
+                label_step = (self._int8_step("label", calib_images=x) if self._int8
+                              else self._label_step)
+                labels = label_step(x)
+            with span("dlv3.segment.copy_out"):
+                return labels.cpu().numpy()
 
     def _images(self, images) -> torch.Tensor:
         x = torch.as_tensor(images, dtype=torch.float32, device=self.device)

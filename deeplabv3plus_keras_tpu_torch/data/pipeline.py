@@ -42,6 +42,7 @@ import numpy as np
 import torch
 
 from ..parallel import mesh
+from ..utils.profiling import span
 from .voc import SampleSpec
 
 
@@ -558,11 +559,12 @@ def _device_dataset_batches(ds: DeviceDataset, image_size: int, num_classes: int
                          [ds.names[i] for i in sel]))
     ds.epoch += 1
     for idx, valid, number, names in plan:
-        valid_t = _to_device(valid, ds.device)
-        images, labels = prepare_batch_from_cache(
-            ds.data_img, ds.data_lab if cached_labels else None, ds.data_sizes,
-            _to_device(idx.astype(np.int64), ds.device), valid_t, size=image_size,
-            num_classes=num_classes, with_labels=cached_labels, one_hot_labels=one_hot_labels)
+        with span("dlv3.data.batch"):
+            valid_t = _to_device(valid, ds.device)
+            images, labels = prepare_batch_from_cache(
+                ds.data_img, ds.data_lab if cached_labels else None, ds.data_sizes,
+                _to_device(idx.astype(np.int64), ds.device), valid_t, size=image_size,
+                num_classes=num_classes, with_labels=cached_labels, one_hot_labels=one_hot_labels)
         out = {"image": images, "valid": valid_t, "index": number, "names": names}
         if cached_labels:
             out["label"] = labels
@@ -645,13 +647,15 @@ def device_batches(loader: HostLoader | DeviceDataset, image_size: int, num_clas
 
     def to_device(k, host_batch):
         lab = host_batch["label_canvas"] if with_labels else None
-        images, labels = prepare_batch(
-            _to_device(host_batch["image_canvas"], device),
-            _to_device(host_batch["sizes"], device),
-            None if lab is None else _to_device(lab, device),
-            size=image_size, num_classes=num_classes, with_labels=with_labels,
-            one_hot_labels=one_hot_labels)
-        out = {"image": images, "valid": _to_device(host_batch["valid"], device),
+        with span("dlv3.data.batch"):
+            images, labels = prepare_batch(
+                _to_device(host_batch["image_canvas"], device),
+                _to_device(host_batch["sizes"], device),
+                None if lab is None else _to_device(lab, device),
+                size=image_size, num_classes=num_classes, with_labels=with_labels,
+                one_hot_labels=one_hot_labels)
+            valid = _to_device(host_batch["valid"], device)
+        out = {"image": images, "valid": valid,
                "names": host_batch["names"], "index": numbers(k, host_batch["valid"])}
         if with_labels:
             out["label"] = labels

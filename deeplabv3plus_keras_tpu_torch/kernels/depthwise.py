@@ -74,6 +74,7 @@ import os
 import torch
 import torch.nn.functional as F
 
+from ..utils.profiling import span
 from . import _build
 
 # Launches of the CUDA kernels, per direction and stride; each wrapper adds
@@ -1009,7 +1010,12 @@ def depthwise_cf_forward_emulation(x: torch.Tensor, weight: torch.Tensor, plan: 
 def depthwise_cf(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
     """K6 alone: the 3×3 stride-1 SAME depthwise conv of an NCHW-contiguous
     x, NCHW-contiguous out, by :func:`_cf_fwd_plan`'s plan (one launch).
-    The plain version on a CPU tensor."""
+    The plain version on a CPU tensor.  A ``dlv3.dw_site`` profiler range."""
+    with span("dlv3.dw_site"):
+        return _cf_forward(x, weight)
+
+
+def _cf_forward(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
     if x.device.type == "cpu":
         return depthwise_conv_plain(x, weight)
     _check_cf(x, weight)
@@ -1254,7 +1260,7 @@ def depthwise_cf_backward(x: torch.Tensor, weight: torch.Tensor, g: torch.Tensor
 def _depthwise_cf_op(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
     """The channels-first route: x made NCHW-contiguous, K6, the result
     back in ``channels_last``."""
-    return depthwise_cf(x.contiguous(), weight).contiguous(memory_format=torch.channels_last)
+    return _cf_forward(x.contiguous(), weight).contiguous(memory_format=torch.channels_last)
 
 
 @_depthwise_cf_op.register_fake
@@ -1334,17 +1340,25 @@ def depthwise_conv(
     Returns (B, C, ⌈H/stride⌉, ⌈W/stride⌉) in ``channels_last``,
     differentiable in x and weight on both devices, through the route
     :func:`depthwise_route` names.  ``window`` (Ho, pad_t): x is a row
-    window and the result its Ho output rows (module docstring)."""
+    window and the result its Ho output rows (module docstring).  One
+    ``dlv3.dw_site`` profiler range (``utils/profiling.py``) around the pass,
+    the autograd node of its operator inside it."""
+    with span("dlv3.dw_site"):
+        return _depthwise_conv(x, weight, stride, dilation, window)
+
+
+def _depthwise_conv(x: torch.Tensor, weight: torch.Tensor, stride: int = 1, dilation=(1, 1),
+                    window=None) -> torch.Tensor:
     card = _on_card(x, weight, stride, dilation)
     if depthwise_route(weight, stride, dilation) == "cf":
         if window is not None:
             if int(window[0]) == 0:
                 return depthwise_conv_plain(x, weight, stride, dilation, window)
             xs, _ = _cf_window(x, window)
-            y = depthwise_conv(xs.contiguous(memory_format=torch.channels_last), weight)
+            y = _depthwise_conv(xs.contiguous(memory_format=torch.channels_last), weight)
             return y[:, :, 1:1 + int(window[0])]
         if not card:
-            return depthwise_cf(x.contiguous(), weight).contiguous(memory_format=torch.channels_last)
+            return _cf_forward(x.contiguous(), weight).contiguous(memory_format=torch.channels_last)
         return _depthwise_cf_op(x, weight)
     if not card:
         return depthwise_conv_plain(x, weight, stride, dilation, window)

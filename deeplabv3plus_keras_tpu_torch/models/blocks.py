@@ -56,6 +56,7 @@ from torch.autograd.function import once_differentiable
 from ..kernels import depthwise_conv, same_pads
 from ..ops import quant
 from ..parallel import mesh, spatial
+from ..utils.profiling import span
 
 _LOW_PRECISION = (torch.bfloat16, torch.float16)
 
@@ -424,6 +425,10 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(channels))
 
     def forward(self, x):
+        with span("dlv3.bn"):
+            return self._forward(x)
+
+    def _forward(self, x):
         if not self.training:
             # mixed types: a low-precision x is normalised in float32 and
             # the result rounded once, as flax's eval path

@@ -94,6 +94,7 @@ from ..train.loss import (
 )
 from ..train.metrics import confusion_matrix_update, confusion_matrix_update_sparse
 from ..train.optimizer import KerasAdam, make_optimizer
+from ..utils.profiling import span
 from . import mesh, spatial
 
 def _use_fused_tail(conf: Config) -> bool:
@@ -239,6 +240,10 @@ def build_train_step(model, optimizer: KerasAdam, conf: Config, class_weights=No
     n_data, d = (grid.n_data, grid.d) if grid is not None else (world, rank)
 
     def train_step(batch: dict) -> dict:
+        with span("dlv3.step"):
+            return step_in_span(batch)
+
+    def step_in_span(batch: dict) -> dict:
         model.train()
         image, label, valid = batch["image"], batch["label"], batch["valid"]
         dev = image.device
@@ -275,39 +280,44 @@ def build_train_step(model, optimizer: KerasAdam, conf: Config, class_weights=No
                     draws = mesh.RankDraws(gen, own, torch.arange(d * mb, (d + 1) * mb, device=dev),
                                            mb * n_data)
                 nv = n_valid[i] if world > 1 else None
-                if fused:
-                    logits, _ = model(image[part], return_presample=True, generator=draws)
-                    loss, cm = tail_loss_cm(logits, label[part], pw, nw, num_classes, valid[part],
-                                            n_valid=nv)
-                    del logits
-                else:
-                    probs = model(image[part], generator=draws, float32_tail=True)
-                    loss = _loss_for(label[part], probs, pw, nw, valid[part], nv, n_pix)
-                    with torch.no_grad():
-                        cm = _cm_for(label[part], probs, num_classes, valid[part])
-                    del probs
-                l2 = l2_penalty(model, wd)
+                with span("dlv3.step.forward"):
+                    if fused:
+                        out = model(image[part], return_presample=True, generator=draws)[0]
+                    else:
+                        out = model(image[part], generator=draws, float32_tail=True)
+                with span("dlv3.step.tail"):
+                    if fused:
+                        loss, cm = tail_loss_cm(out, label[part], pw, nw, num_classes,
+                                                valid[part], n_valid=nv)
+                    else:
+                        loss = _loss_for(label[part], out, pw, nw, valid[part], nv, n_pix)
+                        with torch.no_grad():
+                            cm = _cm_for(label[part], out, num_classes, valid[part])
+                    del out
+                    l2 = l2_penalty(model, wd)
+                    if world > 1:
+                        objective = loss + l2 / world
+                    else:
+                        loss = objective = loss + l2
+                with span("dlv3.step.backward"):
+                    objective.backward()
+                loss_sum = loss_sum + loss.detach()
                 if world > 1:
-                    (loss + l2 / world).backward()
-                    loss_sum = loss_sum + loss.detach()
                     l2_sum = l2_sum + (l2.detach() if torch.is_tensor(l2) else l2)
-                else:
-                    loss = loss + l2
-                    loss.backward()
-                    loss_sum = loss_sum + loss.detach()
                 cm_sum = cm_sum + cm
-        # a parameter the loss does not reach (Xception's unused os-8
-        # shortcut) gets a zero gradient, as jax.grad gives it
-        for p in optimizer.params:
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-        if world > 1:
-            mesh.all_reduce_tensors_([p.grad for p in optimizer.params])
-            loss_sum, cm_sum = _sum_over_ranks(loss_sum, cm_sum)
-            loss_sum = loss_sum + l2_sum
-        if accum > 1:
-            torch._foreach_div_([p.grad for p in optimizer.params], float(accum))
-        optimizer.step()
+        with span("dlv3.step.optimizer"):
+            # a parameter the loss does not reach (Xception's unused os-8
+            # shortcut) gets a zero gradient, as jax.grad gives it
+            for p in optimizer.params:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+            if world > 1:
+                mesh.all_reduce_tensors_([p.grad for p in optimizer.params])
+                loss_sum, cm_sum = _sum_over_ranks(loss_sum, cm_sum)
+                loss_sum = loss_sum + l2_sum
+            if accum > 1:
+                torch._foreach_div_([p.grad for p in optimizer.params], float(accum))
+            optimizer.step()
         return {"loss": loss_sum / accum, "cm": cm_sum}
 
     return train_step

@@ -1,5 +1,5 @@
 """Utilities of the PyTorch port."""
 
-from .profiling import MetricsLogger, StepTimer, profiler_trace
+from .profiling import MetricsLogger, StepTimer, profiler_trace, span
 
-__all__ = ["MetricsLogger", "StepTimer", "profiler_trace"]
+__all__ = ["MetricsLogger", "StepTimer", "profiler_trace", "span"]

@@ -8,6 +8,35 @@
   warm-up; on a CUDA device from events at both ends of a step, so a
   step's time is the device's, not its enqueue, and the loop never waits.
 - ``MetricsLogger``: append-only JSONL of per-epoch metrics.
+- ``span(name)``: a named range of the program's host work, recorded by
+  an active ``torch.profiler`` (``profiler_trace`` included, whose Chrome
+  trace shows it) as a CPU operation on the same clock as the device's
+  events.  It is no user annotation, so it adds nothing to the device's
+  timeline.  With no profiler active a range costs under a microsecond
+  and records nothing; where the installed torch lacks the fast range
+  it does nothing.
+
+The program's ranges (every name starts with ``dlv3.``):
+
+- ``dlv3.segment`` around ``segment()``, with ``dlv3.segment.copy_in``
+  (the images to the device), ``dlv3.segment.forward`` (the label step's
+  launches) and ``dlv3.segment.copy_out`` (the wait for the labels and
+  their copy to the host);
+- ``dlv3.step`` around a train step, with ``dlv3.step.forward`` (the
+  model), ``dlv3.step.tail`` (loss, confusion matrix, L2),
+  ``dlv3.step.backward`` and ``dlv3.step.optimizer`` (the gradients'
+  zero fill, their reduction over ranks and the update); the first three
+  repeat once a ``grad_accum`` microbatch;
+- ``dlv3.data.batch`` around each device-side batch of the data path
+  (the gather from the device cache, or the copy of the host canvases,
+  and the preprocessing);
+- ``dlv3.bn`` around each ``BatchNorm`` module's forward;
+- ``dlv3.dw_site`` around each depthwise pass (``kernels.depthwise_conv``
+  or ``kernels.depthwise_cf``), whatever route runs it.
+
+The forward operations inside a range carry the autograd sequence numbers
+of the backward nodes they create, so a trace attributes the backward's
+kernels to the range too.
 """
 
 from __future__ import annotations
@@ -18,6 +47,19 @@ import os
 import time
 
 import torch
+
+try:  # a profiler range that is a plain CPU operation (no user annotation)
+    from torch._C._profiler import _RecordFunctionFast as _Range
+except ImportError:  # an older torch: no ranges
+    _Range = None
+
+
+def span(name: str):
+    """A context manager: the profiler range ``name`` (see the module's
+    docstring), or nothing where the installed torch lacks the fast
+    range.  Never ``record_function``: that one costs ~15 µs a range and
+    is repeated on the device's timeline as an annotation."""
+    return _Range(name) if _Range is not None else contextlib.nullcontext()
 
 
 @contextlib.contextmanager

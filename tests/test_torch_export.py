@@ -124,7 +124,7 @@ def test_depthwise_custom_ops_forward_and_gradient(ops_on_cpu, monkeypatch, stri
     equal to autograd of the plain version."""
     monkeypatch.setenv("DLV3_DW_LAYOUT", layout)
     if layout == "bhcw":  # K6/K7 stand-ins: the channels-first plain versions
-        monkeypatch.setattr(depthwise, "depthwise_cf", lambda x, w: depthwise_conv_plain(x, w))
+        monkeypatch.setattr(depthwise, "_cf_forward", lambda x, w: depthwise_conv_plain(x, w))
         monkeypatch.setattr(depthwise, "depthwise_cf_backward",
                             lambda x, w, g, want_dx, want_dk:
                             depthwise.depthwise_conv_backward_plain(x, w, g))
