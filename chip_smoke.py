@@ -36,7 +36,8 @@ For each model it
 3. trains it through ``SemanticSegmentation.train_step()`` for 6 steps
    (Keras Adam, class-balanced loss + L2, BN in training mode, dropout
    0.5), checks the loss, every parameter's gradient and the launch counts
-   per step, and reports the step time, images/s and peak device memory;
+   per step (T1 and T2 once each where the decoder refines: the card's
+   default tail), and reports the step time, images/s and peak device memory;
    then one step at 2 × 128² on the card and on the CPU from the same
    weights, whose losses must agree with float64's, and whose gradients
    and module outputs with a float64 step taken at the card's own ReLU
@@ -1277,12 +1278,14 @@ def stats_only_cell(model):
     return f"base.{name}.", getattr(model.base, name)
 
 
-def depthwise_expect(sites, train: bool = False, stats_only=None) -> dict:
+def depthwise_expect(sites, train: bool = False, stats_only=None, tail: bool = False) -> dict:
     """Launches per ``segment()`` call (K1 once) or per train step (no K1,
     a backward launch beside each forward one) of a model whose forward
     gives the depthwise kernels ``sites``, under the current layout; in a
     train step also a forward launch, and no backward one, at each
-    depthwise module of ``stats_only`` (:func:`stats_only_cell`)."""
+    depthwise module of ``stats_only`` (:func:`stats_only_cell`), and T1
+    and T2 once each where ``tail`` (a refined decoder: the card's default
+    tail)."""
     from deeplabv3plus_keras_tpu_torch.kernels import depthwise_route, launch_counts
     from deeplabv3plus_keras_tpu_torch.models.blocks import DepthwiseConv
 
@@ -1291,6 +1294,7 @@ def depthwise_expect(sites, train: bool = False, stats_only=None) -> dict:
 
     expect = dict.fromkeys(launch_counts(), 0)
     expect["upsample_argmax"] = 0 if train else 1
+    expect["parity_tail_fwd"] = expect["parity_tail_bwd"] = int(train and tail)
     for _, stride, dil, mod in sites:
         k = kind(mod, stride, dil)
         expect[f"depthwise_fwd_{k}"] += 1
@@ -1336,7 +1340,8 @@ def drive_model(name: str, conf_fn, kernels, card: str, g, rows, n_sites: dict,
         logits, up = seg.model(first, return_presample=True)
     presample = tuple(logits.shape)
     prefix, stats_only = stats_only_cell(seg.model)
-    train_expect = depthwise_expect(sites, True, stats_only)
+    train_expect = depthwise_expect(sites, True, stats_only,
+                                    tail=seg.conf.nn_arch.boundary_refinement)
     unreached = {n for n, _ in seg.model.named_parameters() if prefix and n.startswith(prefix)}
     del logits, first
     expect = depthwise_expect(sites)
@@ -1476,8 +1481,8 @@ def run_sweep(kernels, card: str, g, rows) -> dict:
         print(json.dumps({"sweep": {variant: out[variant]}}))
         if agree < 0.999:
             raise SystemExit(f"{variant}: card vs CPU labels agree on {agree:.5f} < 0.999 of pixels")
-        if by_path[f"{variant}_train_step"] != depthwise_expect(sites, True,
-                                                                stats_only_cell(seg.model)[1]):
+        if by_path[f"{variant}_train_step"] != depthwise_expect(
+                sites, True, stats_only_cell(seg.model)[1], seg.conf.nn_arch.boundary_refinement):
             raise SystemExit(f"{variant} train_step(): launches {by_path[f'{variant}_train_step']}")
         if not math.isfinite(loss) or bad:
             raise SystemExit(f"{variant} train_step(): loss {loss}, bad gradients {bad[:4]}")
@@ -1792,7 +1797,7 @@ def run_low_precision(kernels, card: str, dtype: str, state: dict, labels32, g, 
         logits, _ = seg.model(first, return_presample=True)
     if logits.dtype != torch.float32:  # K1 takes float32 logits in every dtype
         raise SystemExit(f"{dtype}: pre-upsample logits are {logits.dtype}")
-    train_expect = depthwise_expect(sites, train=True)
+    train_expect = depthwise_expect(sites, train=True, tail=seg.conf.nn_arch.boundary_refinement)
     del logits, first
     n0 = len(rows)
     agg = check_depthwise(sites, g, rows, dtype)
@@ -3254,8 +3259,10 @@ def spatial_flagship(device, world: int, margins: bool) -> dict:
     """The flagship's runs of the spatial phase over ``world`` ranks (1: one
     process): 3 steps, ``segment()`` and an eval step; the 3 steps of each
     of :data:`SPATIAL_OPTIONS`; test-time augmentation and a non-square
-    ``segment()`` (:func:`spatial_serve`)."""
-    conf = spatial_conf(flagship_conf(SPATIAL_SIZE, SPATIAL_BATCH), world)
+    ``segment()`` (:func:`spatial_serve`).  The plain runs and the other
+    options keep the full-resolution tail (``fused_tail: false``), so that
+    the ``fused_tail`` option is compared off and on."""
+    conf = {**spatial_conf(flagship_conf(SPATIAL_SIZE, SPATIAL_BATCH), world), "fused_tail": False}
     out = {"flagship": spatial_run(conf, device, SPATIAL_STEPS, "flagship", evaluate=True,
                                    margins=margins, history=True)}
     for name, extra in SPATIAL_OPTIONS.items():
@@ -3511,9 +3518,9 @@ def run_spatial(kernels, card: str) -> dict:
     device = torch.device("cuda")
     with dw_layout("nhwc"):
         one = spatial_flagship(device, 1, margins=True)
-        reversed_rows = spatial_run(spatial_conf(flagship_conf(SPATIAL_SIZE, SPATIAL_BATCH), 1),
-                                    device, SPATIAL_STEPS, "flagship_reversed", False, False,
-                                    reverse=True)
+        reversed_rows = spatial_run(  # the yardstick of the plain runs: their tail
+            {**spatial_conf(flagship_conf(SPATIAL_SIZE, SPATIAL_BATCH), 1), "fused_tail": False},
+            device, SPATIAL_STEPS, "flagship_reversed", False, False, reverse=True)
     for lay in ("nhwc", "bhcw"):
         with dw_layout(lay):
             one[f"xception_{lay}"] = spatial_run(
@@ -4367,8 +4374,9 @@ def run_xception_nhwc(kernels, card: str) -> dict:
     unreached = {n for n, _ in seg.model.named_parameters() if prefix and n.startswith(prefix)}
     name = "xception_nhwc"
     by_path = {f"{name}_segment": run_serving(seg, kernels, card, batches, depthwise_expect(sites), name)}
-    by_path[f"{name}_train_step"], _ = run_training(seg, kernels, card,
-                                                    depthwise_expect(sites, True, stats_only), name, unreached)
+    by_path[f"{name}_train_step"], _ = run_training(
+        seg, kernels, card, depthwise_expect(sites, True, stats_only,
+                                             seg.conf.nn_arch.boundary_refinement), name, unreached)
     del seg
     torch.cuda.empty_cache()
     route = {layout: {path: PATH_TIMES[f"{key}{path}"] for path in ("segment", "train_step")}
@@ -4430,8 +4438,7 @@ def tq_conf(arm: str, dtype: str, fused: bool) -> dict:
         conf = backbone_conf("mobilenetv2" if arm == "flagship" else arm)(size, batch)
         conf["hps"].update(dtype=dtype, lr=1e-3, decay=0.0)
         conf["nn_arch"]["dropout_rate"] = 0.0
-    if fused:
-        conf["fused_tail"] = True
+    conf["fused_tail"] = fused  # explicit: the card's default is the parity tail
     return conf
 
 

@@ -44,12 +44,17 @@ writes checkpoints; ``evaluate``'s result panels and ``test``'s PNGs are
 written by the rank that owns each sample.  The extra key
 ``allow_fewer_devices`` shrinks N to the ranks there are, as in JAX.
 
-The extra key ``fused_tail`` (default off, as in the JAX package) ends
-the train step and the probability-free eval step (``train()``'s
-validation, ``evaluate()`` without result saving, the int8 eval step) in
-the parity-decomposed tail: no full-resolution tensor, on the card one
-fused forward and one fused backward kernel (``ops/parity_tail.py``,
-``kernels/parity_tail.py``).  It applies under boundary refinement only.
+Under boundary refinement the train step and the probability-free eval
+step (``train()``'s validation, ``evaluate()`` without result saving, the
+int8 eval step) on a CUDA device end in the parity-decomposed tail: no
+full-resolution tensor, one fused forward and one fused backward kernel
+(``ops/parity_tail.py``, ``kernels/parity_tail.py``).  The JAX package
+keeps it off by default, since XLA on the TPU v5e materialised its four
+parity planes and ran slower than its resize; the kernels hold no plane.
+On the CPU, whose plain version does build the planes, the
+full-resolution tail stays the default.  The extra key ``fused_tail``
+overrides the default either way (``parallel/step.py``
+``_use_fused_tail``); without refinement it is ignored.
 
 The extra key ``mesh_space`` S > 1 splits the N = ``num_gpus`` ranks into
 the JAX package's (N/S) × S ``('data', 'space')`` grid (``parallel/

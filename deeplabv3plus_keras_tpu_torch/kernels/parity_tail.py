@@ -559,5 +559,11 @@ def parity_tail_sums(logits, label, pos_weights, neg_weights, num_classes: int, 
         raise ValueError(f"parity_tail: logits on {logits.device}; the kernels take CUDA tensors")
     if logits.shape[-1] != num_classes:
         raise ValueError(f"parity_tail: logits {tuple(logits.shape)} for {num_classes} classes")
+    # labels the loss takes and the kernels do not read (uint8 ids, float64
+    # or integer one-hot): ids as int32, one-hot as float32
+    if label.dim() == 4 and not (label.is_floating_point() and label.dtype in _LABEL_CODE):
+        label = label.float()
+    elif label.dim() == 3 and label.dtype not in (torch.int32, torch.int64):
+        label = label.int()
     return _ParityTail.apply(logits, label, pos_weights, neg_weights, valid, float(epsilon),
                              bool(window))

@@ -28,9 +28,11 @@ train mode (BN on batch statistics, dropout drawn from a generator seeded
 from (seed, step)).  The extra key ``augment`` draws a flip and a scale
 jitter from that generator before the dropout (ops/augment.py), and
 ``eval_scales``/``eval_flip`` make the eval step average the probabilities
-over scales and a horizontal flip (test-time augmentation).  The extra key
-``fused_tail`` (default off) ends the train and eval steps in the
-parity-decomposed tail (``ops/parity_tail.py``; T1/T2 on the card).  Given the
+over scales and a horizontal flip (test-time augmentation).  Under boundary
+refinement the train step and the probability-free eval step on the card
+end in the parity-decomposed tail (``ops/parity_tail.py``; T1, and T2 in
+the backward); the extra key ``fused_tail`` overrides that either way
+(:func:`_use_fused_tail`).  Given the
 calibrated ranges of ``ops/quant.calibrate`` (``quant``), the eval,
 predict and label steps run the eligible convolutions in int8 (JAX
 ``_variables(state, quant)``, ``step.py:109-116``); the train step never
@@ -59,7 +61,7 @@ seeded from the images' H and W), BN takes its statistics over every
 rank's pixels, each sample's pixel mean in the loss sums over its space
 ranks (the global H·W in every rank's denominator), the count of valid
 samples is the data ranks', and gradients, loss and confusion matrix sum
-over all N ranks.  ``fused_tail`` takes the label rows of this rank's
+over all N ranks.  The parity tail takes the label rows of this rank's
 logits sites (``ops/parity_tail.py``); ``remat`` recomputes the backbone's
 exchanges in the backward (``models/deeplab.py``); test-time augmentation
 resizes each scale's whole images, runs the model on this rank's rows of
@@ -97,14 +99,26 @@ from ..train.optimizer import KerasAdam, make_optimizer
 from ..utils.profiling import span
 from . import mesh, spatial
 
-def _use_fused_tail(conf: Config) -> bool:
-    """The extra key ``fused_tail`` (default off, as in the JAX package,
-    ``step.py:46-60``): the steps end in the parity-decomposed tail
+def _use_fused_tail(conf: Config, device: torch.device) -> bool:
+    """Whether a step on ``device`` ends in the parity-decomposed tail
     (``ops/parity_tail.py``) instead of the ×2 upsample, softmax and loss of
-    the full-resolution probabilities.  It applies under boundary
-    refinement, whose last upsample is always ×2; elsewhere the key is
-    ignored."""
-    return bool(conf.extra.get("fused_tail", False)) and conf.nn_arch.boundary_refinement
+    the full-resolution probabilities.  Only under boundary refinement,
+    whose last upsample is always ×2; elsewhere never.
+
+    By default on a CUDA device (T1, and T2 in the backward), nowhere else.
+    The JAX package leaves it off (``step.py:46-60``) because XLA on the
+    v5e materialised the four parity planes and ran ~11 ms a step slower
+    than its resize; T1/T2 hold no plane, and on the H100 the flagship's
+    16 × 512² float32 step took 53.80 ms of device time with them against
+    66.28 without.  On the CPU the plain parity version does build the
+    planes, so the full-resolution tail stays there.  The extra key
+    ``fused_tail`` overrides the default either way (``false`` keeps the
+    full-resolution tail on the card; ``true`` takes the parity tail on the
+    CPU too)."""
+    if not conf.nn_arch.boundary_refinement:
+        return False
+    key = conf.extra.get("fused_tail")
+    return torch.device(device).type == "cuda" if key is None else bool(key)
 
 
 def default_class_weights(num_classes: int):
@@ -224,7 +238,8 @@ def build_train_step(model, optimizer: KerasAdam, conf: Config, class_weights=No
     the rank's own stream.  Loss and confusion matrix are the global
     ones.
 
-    With ``fused_tail`` (:func:`_use_fused_tail`) the model stops at its
+    Where :func:`_use_fused_tail` holds for the batch's device (by default
+    on the card under boundary refinement) the model stops at its
     half-resolution logits and ``ops/parity_tail.tail_loss_cm`` gives each
     microbatch's loss and confusion matrix (on the card: T1, and T2 in the
     backward), as the JAX step's ``grads_one`` (``step.py:163-182``)."""
@@ -233,7 +248,6 @@ def build_train_step(model, optimizer: KerasAdam, conf: Config, class_weights=No
     pw, nw = class_weights or default_class_weights(num_classes)
     accum = max(1, int(conf.extra.get("grad_accum", 1)))
     aug = parse_augment_conf(conf.extra.get("augment"))
-    fused = _use_fused_tail(conf)
     world, rank = mesh.world_size(), mesh.rank()
     grid = mesh.grid()
     # the data positions: the ranks under a data split, n_data under space
@@ -247,6 +261,7 @@ def build_train_step(model, optimizer: KerasAdam, conf: Config, class_weights=No
         model.train()
         image, label, valid = batch["image"], batch["label"], batch["valid"]
         dev = image.device
+        fused = _use_fused_tail(conf, dev)
         B = image.shape[0]
         if B % accum:
             raise ValueError(f"grad_accum {accum} must divide batch size {B}")
@@ -400,14 +415,14 @@ def build_eval_step(model, conf: Config, class_weights=None, with_probs: bool = 
     ``tta_scales``/``tta_flip`` (extra keys ``eval_scales``/``eval_flip``)
     turn on test-time augmentation (:func:`_tta_probs_fn`); ``quant``, the
     calibrated int8 ranges, quantizes the eligible sites of each scale.
-    ``fused_tail`` without probabilities and without test-time
-    augmentation (which wins, as in JAX ``step.py:329-359``) ends in the
-    parity-decomposed tail, as the train step."""
+    Without probabilities and without test-time augmentation (which wins,
+    as in JAX ``step.py:329-359``) the step ends in the parity-decomposed
+    tail where :func:`_use_fused_tail` holds for the batch's device, as the
+    train step."""
     wd = conf.hps.weight_decay
     num_classes = conf.nn_arch.num_classes
     pw, nw = class_weights or default_class_weights(num_classes)
     tta = bool(tta_scales) or tta_flip
-    fused = _use_fused_tail(conf) and not with_probs and not tta
     world = mesh.world_size()
     grid = mesh.grid()
     # test-time augmentation cuts the rows of each scale's images itself
@@ -418,6 +433,7 @@ def build_eval_step(model, conf: Config, class_weights=None, with_probs: bool = 
         model.eval()
         image, label, valid = batch["image"], batch["label"], batch["valid"]
         H, W = image.shape[1], image.shape[2]
+        fused = not with_probs and not tta and _use_fused_tail(conf, image.device)
         with _inference(model, quant), spatial.use_heights({W: H}):
             n_valid = None
             if world > 1:

@@ -489,13 +489,42 @@ def test_fused_eval_step_matches_unfused():
     assert torch.equal(tta["loss"], tta_plain["loss"]) and torch.equal(tta["cm"], tta_plain["cm"])
 
 
+# (boundary refinement, the key fused_tail (None: absent), device, whether
+# the steps end in the parity tail)
+ROUTES = [
+    (True, None, "cuda", True),     # the card's default
+    (True, None, "cpu", False),     # the CPU's default: the full-resolution tail
+    (True, False, "cuda", False),   # the key keeps the full-resolution tail on the card
+    (True, True, "cpu", True),      # and forces the parity tail on the CPU
+    (True, True, "cuda", True),
+    (True, False, "cpu", False),
+    (False, None, "cuda", False),   # without refinement, never
+    (False, True, "cuda", False),
+    (False, True, "cpu", False),
+    (False, None, "cpu", False),
+]
+
+
+@pytest.mark.parametrize("refine,key,device,fused", ROUTES)
+def test_tail_route_follows_the_device_and_the_key(refine, key, device, fused):
+    """``_use_fused_tail``: under boundary refinement the parity tail by
+    default on a CUDA device and nowhere else, the key ``fused_tail``
+    overriding that either way; without refinement never.  No card is
+    needed: the predicate reads only the device's type."""
+    conf = Config.from_dict(conf_dict(32, refine=refine,
+                                      **({} if key is None else {"fused_tail": key})))
+    assert port_step._use_fused_tail(conf, torch.device(device)) is fused
+
+
 def test_key_is_ignored_without_boundary_refinement():
     """Without refinement the last upsample is ×os, not ×2: the key is
     ignored (JAX ``_use_fused_tail``), and the step equals the plain one
     bit for bit."""
-    assert port_step._use_fused_tail(Config.from_dict(conf_dict(32, fused_tail=True)))
-    assert not port_step._use_fused_tail(Config.from_dict(conf_dict(32, refine=False, fused_tail=True)))
-    assert not port_step._use_fused_tail(Config.from_dict(conf_dict(32)))
+    cpu = torch.device("cpu")
+    assert port_step._use_fused_tail(Config.from_dict(conf_dict(32, fused_tail=True)), cpu)
+    assert not port_step._use_fused_tail(
+        Config.from_dict(conf_dict(32, refine=False, fused_tail=True)), cpu)
+    assert not port_step._use_fused_tail(Config.from_dict(conf_dict(32)), cpu)
     out = []
     for extra in ({"fused_tail": True}, {}):
         seg = SemanticSegmentation(conf_dict(32, refine=False, **extra), device="cpu")
