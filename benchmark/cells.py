@@ -7,7 +7,9 @@ and entries alone:
 - a mix: ``mixes/<traffic>.json``, which names its kind of loop;
 - a kind of loop: ``kinds/<kind>.py``, whose ``Loop`` class drives it;
 - a per-layer metric: ``metrics/<name>.py``, whose ``read(ctx)`` returns
-  the value or None;
+  the value or None; a name ``<base>.<tag>`` with no file of its own reads
+  with ``<base>``'s (the same quantity in cells that report another
+  end-to-end metric, which its entry ``moves``);
 - a cell's correctness limits: ``limits/<workload>.json``.
 """
 
@@ -34,8 +36,12 @@ class Cell:
     bench_dir: Path
 
     def reader(self, metric: str):
-        """The ``read`` function of a per-layer metric."""
-        return _module(self.bench_dir / "metrics" / f"{metric}.py").read
+        """The ``read`` function of a per-layer metric: ``metrics/<name>.py``,
+        else that of the name with its last ``.<tag>`` taken off, in turn."""
+        name = metric
+        while not (self.bench_dir / "metrics" / f"{name}.py").exists() and "." in name:
+            name = name.rsplit(".", 1)[0]
+        return _module(self.bench_dir / "metrics" / f"{name}.py").read
 
     def loop_class(self):
         """The ``Loop`` class of the mix's kind."""

@@ -5,9 +5,13 @@ before the warm-up, so that it goes through the harness's own check:
 
 - ``program``: nothing; the numbers a sound run compares;
 - ``control``: the plain reference in the program's place, in the nearest
-  precision below the configuration's (TF32 convolutions and matmuls for
-  float32 with TF32 off): :class:`TrainStandIn`, fed by the program's data
-  path, or :class:`ServeStandIn`;
+  precision below the configuration's ``dtype`` (:func:`below`):
+  :class:`TrainStandIn`, fed by the program's data path, or
+  :class:`ServeStandIn`.  Below float32 (run with TF32 off) is TF32
+  convolutions and matmuls; below float16, the reference under bfloat16
+  autocast; below bfloat16, every convolution's input and weight rounded
+  to 6 significant bits (round to nearest even, float32's exponent kept):
+  a quarter of bfloat16's precision, with its range;
 - faults planted in the program: for a training cell ``half_batch`` (each
   step sees the first half of its rows, the mean taken over them),
   ``unchanged_state`` (each step restores the parameters) and
@@ -29,6 +33,7 @@ import json
 import sys
 
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from . import cells, run
 from .reference import model as ref
@@ -43,6 +48,46 @@ def tf32(on: bool):
         yield
     finally:
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = old
+
+
+def round_bits(x: torch.Tensor, bits: int) -> torch.Tensor:
+    """float32 ``x`` rounded to ``bits`` significant bits, to nearest even,
+    float32's exponent kept."""
+    drop = 24 - bits
+    b = x.contiguous().view(torch.int32)
+    b = (b + ((1 << (drop - 1)) - 1) + ((b >> drop) & 1)) & -(1 << drop)
+    return b.view(torch.float32)
+
+
+class RoundedConvs(TorchDispatchMode):
+    """Every convolution, forward and backward, on its float32 input and
+    weight rounded to ``bits`` significant bits; the backward's incoming
+    gradient is not rounded."""
+
+    OPS = {torch.ops.aten.convolution.default: (0, 1),
+           torch.ops.aten.convolution_backward.default: (1, 2)}
+
+    def __init__(self, bits: int):
+        super().__init__()
+        self.bits = bits
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        rounded = self.OPS.get(func, ())
+        args = tuple(round_bits(a, self.bits) if i in rounded and a.dtype == torch.float32
+                     else a for i, a in enumerate(args))
+        return func(*args, **(kwargs or {}))
+
+
+def below(dtype: str, device_type: str):
+    """A context in which the reference computes in the nearest precision
+    below ``dtype`` (the module's docstring)."""
+    if dtype == "float32":
+        return tf32(True)
+    if dtype == "float16":
+        return torch.autocast(device_type, dtype=torch.bfloat16)
+    if dtype == "bfloat16":
+        return RoundedConvs(6)
+    raise ValueError(f"no precision below {dtype!r}")
 
 
 class _Model:
@@ -69,12 +114,13 @@ class _Optimizer:
 
 
 class TrainStandIn:
-    """The reference's training step in TF32 in the program's place, from
-    the same weights; the program's data path (``_loader``, ``_batches``)
-    still feeds it."""
+    """The reference's training step in the precision below the
+    configuration's in the program's place, from the same weights; the
+    program's data path (``_loader``, ``_batches``) still feeds it."""
 
     def __init__(self, loop):
         self.seg = loop.seg
+        self.below = (loop.cell.config["dtype"], loop.device.type)
         params = {k: v.clone() for k, v in loop.weights.items()}
         self.trainer = ref_train.Trainer(loop.arch, loop.conf["hps"], params,
                                          loop.cell.config["dropout_seed"])
@@ -90,7 +136,7 @@ class TrainStandIn:
 
     def train_step(self, batch: dict) -> dict:
         label, valid = batch["label"], batch["valid"]
-        with tf32(True):
+        with below(*self.below):
             loss, probs = self.trainer.step(batch["image"], label.float(), valid)
         keep = valid.bool()
         truth, pred = label.argmax(-1)[keep].flatten(), probs.argmax(-1)[keep].flatten()
@@ -99,16 +145,17 @@ class TrainStandIn:
 
 
 class ServeStandIn:
-    """The reference's labels in TF32 in the program's place, from the same
-    weights."""
+    """The reference's labels in the precision below the configuration's in
+    the program's place, from the same weights."""
 
     def __init__(self, loop):
         self.model = loop.seg.model
         self.arch, self.weights, self.device = loop.arch, loop.weights, loop.device
+        self.below = (loop.cell.config["dtype"], loop.device.type)
 
     @torch.no_grad()
     def segment(self, images):
-        with tf32(True):
+        with below(*self.below):
             x = torch.as_tensor(images, device=self.device)
             logits, up = ref.logits(ref.Run(self.weights, train=False), self.arch, x)
             return ref.upsample(logits, up).argmax(1).int().cpu().numpy()

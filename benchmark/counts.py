@@ -13,8 +13,12 @@ plain reference's shapes (never from the program), and the chip's peaks.
 - The depthwise work: every depthwise site of that forward, its input and
   output shapes recorded by the reference; in training also its backward.
   A pass's least time is the larger of its bytes over the memory
-  bandwidth (each input byte read once, each output byte written once)
-  and its FLOPs over the float32 peak.
+  bandwidth (each input byte read once, each output byte written once,
+  at the configuration's element size) and its FLOPs over the float32
+  peak.
+- The configuration's precision (:func:`precision`, its top-level
+  ``dtype``): the element size of the depthwise bytes and the peak that
+  the model's FLOPs are held to.
 """
 
 from __future__ import annotations
@@ -30,9 +34,27 @@ from .reference import train as ref_train
 
 
 
+# dtype -> (bytes an element, the peaks.json entry of the model's peak)
+PRECISIONS = {"float32": (4, "fp32_flop_per_s"),
+              "bfloat16": (2, "bf16_tensor_flop_per_s"),
+              "float16": (2, "bf16_tensor_flop_per_s")}
+
+
 def peaks() -> dict:
     """The chip's published peaks (``peaks.json``)."""
     return json.loads((Path(__file__).resolve().parent / "peaks.json").read_text())
+
+
+def precision(config: dict) -> tuple[int, float]:
+    """(bytes an element, the model's peak FLOP/s) of a configuration
+    file's top-level ``dtype``: float32 4 bytes and the float32 peak (its
+    configurations run with TF32 off); bfloat16 and float16 2 bytes and
+    the tensor cores' dense 16-bit peak, the same for both."""
+    dtype = config["dtype"]
+    if dtype not in PRECISIONS:
+        raise ValueError(f"no precision {dtype!r}; known: {sorted(PRECISIONS)}")
+    size, peak = PRECISIONS[dtype]
+    return size, peaks()[peak]
 
 
 def _meta_inputs(arch: ref.Arch, batch: int, size: int):
@@ -103,12 +125,15 @@ def least_seconds(bytes_: float, flops: float, peak: dict) -> float:
     return max(bytes_ / peak["hbm_bytes_per_s"], flops / peak["fp32_flop_per_s"])
 
 
-def depthwise_least_s(sites: list, train: bool) -> float:
+def depthwise_least_s(sites: list, train: bool, dtype_bytes: int) -> float:
     """The least time of every depthwise pass of one forward (and, in
-    training, its backward), summed site by site."""
+    training, its backward), summed site by site, its tensors of
+    ``dtype_bytes`` an element.  The FLOP bound stays at the float32 rate
+    whatever the element size: the depthwise kernels compute in float32
+    arithmetic on 16-bit tensors, off the tensor cores."""
     peak, total = peaks(), 0.0
     for s in sites:
-        total += least_seconds(*depthwise_pass(s, False), peak)
+        total += least_seconds(*depthwise_pass(s, False, dtype_bytes), peak)
         if train:
-            total += least_seconds(*depthwise_pass(s, True), peak)
+            total += least_seconds(*depthwise_pass(s, True, dtype_bytes), peak)
     return total

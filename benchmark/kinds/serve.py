@@ -17,6 +17,8 @@ import torch
 from benchmark.loops import Loop as Base
 from benchmark.reference import model as ref
 
+GIB = 2.0 ** 30
+
 
 class Loop(Base):
     kind = "serve"
@@ -71,7 +73,8 @@ class Loop(Base):
         window_s = end - start
         return {"units": i, "attempted": i, "failed": 0, "window_s": window_s,
                 "memory_peak_bytes": peak,
-                "metrics": {"serve_images_per_s": self.batch * i / window_s}}
+                "metrics": {"serve_images_per_s": self.batch * i / window_s,
+                            "serve_peak_gib": peak / GIB}}
 
     def check(self) -> dict:
         """The reference's logits for each sampled call's images: how far

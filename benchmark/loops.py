@@ -110,7 +110,7 @@ class Loop:
         self.cell, self.seed, self.device, self.spans = cell, int(seed), torch.device(device), spans
         self.patch = patch
         self.conf = dict(cell.config["config"], **cell.mix.get("conf_extra", {}))
-        self.arch = ref.arch_of(self.conf)
+        self.arch = ref.arch_of(self.conf, cell.bench_dir / "reference" / "backbones")
         self.batch = int(self.conf["hps"]["batch_size"])
         self.size = int(self.conf["nn_arch"]["image_size"])
         self.tmp = tempfile.mkdtemp(prefix="dlv3-bench-")

@@ -12,10 +12,10 @@ DeepLabV3+ paper (arXiv:1802.02611):
   the extra row or column after (bottom, right);
 - Keras BatchNormalization: epsilon 1e-3; training normalises with the
   biased batch variance and moves running ← m·running + (1 − m)·batch;
-- MobileNetV2 (alpha 1) cut after ``block_12_add`` (output stride 16) or
-  ``block_5_add`` (8), ReLU6, BN momentum 0.999; Xception cut at
-  ``block13_sepconv2_bn`` (16) or ``block4_sepconv2_bn`` (8), BN momentum
-  0.99, ``VALID`` entry convs, 3×3 stride-2 ``SAME`` max pools;
+- the backbone named by the configuration's ``base_model``: the module
+  ``backbones/<base_model>.py`` (:func:`backbone`), which gives its rows
+  of the layout and its output channels (``spec(s, os_)``) and its
+  forward (``forward(run, x, os_)``) from the shared layers here;
 - the ASPP middle (``encoder_middle_conf``): a DAG of branches on the
   backbone output or an earlier branch: 1×1 conv + BN + ReLU, a
   separable conv (dilated depthwise, then 1×1) + BN + ReLU + 1×1 conv +
@@ -32,12 +32,15 @@ DeepLabV3+ paper (arXiv:1802.02611):
 from __future__ import annotations
 
 import dataclasses
+import importlib.util
 import math
+from pathlib import Path
 
 import torch
 import torch.nn.functional as F
 
 BN_EPS = 1e-3
+BACKBONES = Path(__file__).resolve().parent / "backbones"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,10 +56,12 @@ class Arch:
     dropout_rate: float
     bn_momentum: float
     bn_scale: bool
+    backbones: Path = BACKBONES  # the directory :func:`backbone` looks in
 
 
-def arch_of(conf: dict) -> Arch:
-    """The architecture a configuration dict states (every key explicit)."""
+def arch_of(conf: dict, backbones: Path = BACKBONES) -> Arch:
+    """The architecture a configuration dict states (every key explicit),
+    its backbone's module found in ``backbones``."""
     nn, hps = conf["nn_arch"], conf["hps"]
     middle = tuple(
         dict(op=m["op"], kernel=int(m["kernel"]), rate=tuple(m.get("rate", (1, 1))),
@@ -65,18 +70,27 @@ def arch_of(conf: dict) -> Arch:
     return Arch(conf["base_model"], int(nn["output_stride"]), int(nn["num_classes"]),
                 bool(nn["boundary_refinement"]), middle, int(nn["reduction_size"]),
                 int(nn["concat_channels"]), int(nn["conv_rate_multiplier"]),
-                float(nn["dropout_rate"]), float(hps["bn_momentum"]), bool(hps["bn_scale"]))
+                float(nn["dropout_rate"]), float(hps["bn_momentum"]), bool(hps["bn_scale"]),
+                Path(backbones))
+
+
+def backbone(arch: Arch):
+    """The module ``<arch.backbones>/<arch.base_model>.py``: ``spec(s, os_)``
+    adds the backbone's rows to the layout and returns its output
+    channels, ``forward(run, x, os_)`` runs it."""
+    path = arch.backbones / f"{arch.base_model}.py"
+    if not path.is_file():
+        raise ValueError(f"the reference has no backbone {arch.base_model!r}: "
+                         f"no {path.name} in {arch.backbones}")
+    spec = importlib.util.spec_from_file_location(f"benchmark_backbones_{path.stem}", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
 
 
 # ---------------------------------------------------------------------------
 # The weights' layout
 # ---------------------------------------------------------------------------
-
-# MobileNetV2 inverted residual blocks 1..16: (features, stride, expansion)
-MV2_PLAN = [(24, 2, 6), (24, 1, 6), (32, 2, 6), (32, 1, 6), (32, 1, 6), (64, 2, 6),
-            (64, 1, 6), (64, 1, 6), (64, 1, 6), (96, 1, 6), (96, 1, 6), (96, 1, 6),
-            (160, 2, 6), (160, 1, 6), (160, 1, 6), (320, 1, 6)]
-
 
 class _Spec:
     """Collects (name, shape, kind) entries: kind ``conv`` (glorot-scaled),
@@ -97,66 +111,10 @@ class _Spec:
         self.rows.append((f"{name}.running_var", (c,), "bn_var"))
 
 
-def _mv2_spec(s: _Spec, os_: int) -> int:
-    s.conv("base.Conv1", 32, 3, 3)
-    s.bn("base.bn_Conv1", 32)
-    s.conv("base.expanded_conv.depthwise", 32, 1, 3)
-    s.bn("base.expanded_conv.depthwise_BN", 32)
-    s.conv("base.expanded_conv.project", 16, 32, 1)
-    s.bn("base.expanded_conv.project_BN", 16)
-    cin = 16
-    for i, (feat, _, t) in enumerate(MV2_PLAN[: 5 if os_ == 8 else 12], start=1):
-        mid, b = cin * t, f"base.block_{i}"
-        s.conv(f"{b}.expand", mid, cin, 1)
-        s.bn(f"{b}.expand_BN", mid)
-        s.conv(f"{b}.depthwise", mid, 1, 3)
-        s.bn(f"{b}.depthwise_BN", mid)
-        s.conv(f"{b}.project", feat, mid, 1)
-        s.bn(f"{b}.project_BN", feat)
-        cin = feat
-    return cin
-
-
-XC_ENTRY = ((2, 64, 128), (3, 128, 256), (4, 256, 728))
-
-
-def _xc_sep_spec(s: _Spec, block: int, i: int, cin: int, cout: int) -> None:
-    name = f"base.block{block}_sepconv{i}"
-    s.conv(f"{name}.depthwise", cin, 1, 3)
-    s.conv(f"{name}.pointwise", cout, cin, 1)
-    s.bn(f"{name}_bn", cout)
-
-
-def _xc_spec(s: _Spec, os_: int) -> int:
-    s.conv("base.block1_conv1", 32, 3, 3)
-    s.bn("base.block1_conv1_bn", 32)
-    s.conv("base.block1_conv2", 64, 32, 3)
-    s.bn("base.block1_conv2_bn", 64)
-    for j, (b, cin, cout) in enumerate(XC_ENTRY):
-        suffix = f"_{j}" if j else ""
-        s.conv(f"base.conv2d{suffix}", cout, cin, 1)
-        s.bn(f"base.batch_normalization{suffix}", cout)
-        _xc_sep_spec(s, b, 1, cin, cout)
-        _xc_sep_spec(s, b, 2, cout, cout)
-    if os_ == 8:
-        return 728
-    for b in range(5, 13):
-        for i in range(1, 4):
-            _xc_sep_spec(s, b, i, 728, 728)
-    _xc_sep_spec(s, 13, 1, 728, 728)
-    _xc_sep_spec(s, 13, 2, 728, 1024)
-    return 1024
-
-
 def param_spec(arch: Arch) -> list[tuple[str, tuple, str]]:
     """Every tensor of the model: (name, shape, kind)."""
     s = _Spec()
-    if arch.base_model == "mobilenetv2":
-        c_base = _mv2_spec(s, arch.output_stride)
-    elif arch.base_model == "xception":
-        c_base = _xc_spec(s, arch.output_stride)
-    else:
-        raise ValueError(f"the reference has no backbone {arch.base_model!r}")
+    c_base = backbone(arch).spec(s, arch.output_stride)
     r, sc = arch.reduction_size, arch.bn_scale
     width = []
     for i, m in enumerate(arch.middle):
@@ -294,66 +252,10 @@ def relu6(x):
     return torch.clamp(x, 0.0, 6.0)
 
 
-# ---------------------------------------------------------------------------
-# Backbones
-# ---------------------------------------------------------------------------
-
-def mobilenetv2(run: Run, x, os_: int):
-    m = 0.999
-    x = relu6(bn(run, "base.bn_Conv1", conv(x, run.p["base.Conv1.weight"], 2), m))
-    b = "base.expanded_conv"
-    x = relu6(bn(run, f"{b}.depthwise_BN", depthwise(run, f"{b}.depthwise", x), m))
-    x = bn(run, f"{b}.project_BN", conv(x, run.p[f"{b}.project.weight"]), m)
-    cin = 16
-    for i, (feat, stride, _) in enumerate(MV2_PLAN[: 5 if os_ == 8 else 12], start=1):
-        b, inputs = f"base.block_{i}", x
-        x = relu6(bn(run, f"{b}.expand_BN", conv(x, run.p[f"{b}.expand.weight"]), m))
-        x = relu6(bn(run, f"{b}.depthwise_BN", depthwise(run, f"{b}.depthwise", x, stride), m))
-        x = bn(run, f"{b}.project_BN", conv(x, run.p[f"{b}.project.weight"]), m)
-        if stride == 1 and cin == feat:
-            x = x + inputs
-        cin = feat
-    return x
-
-
-def _xc_sep(run: Run, x, block: int, i: int):
-    name = f"base.block{block}_sepconv{i}"
-    x = depthwise(run, f"{name}.depthwise", x)
-    return bn(run, f"{name}_bn", conv(x, run.p[f"{name}.pointwise.weight"]), 0.99)
-
-
 def max_pool_same(x, k=3, stride=2):
     pt, pb = same_pads(x.shape[-2], k, stride)
     pl, pr = same_pads(x.shape[-1], k, stride)
     return F.max_pool2d(F.pad(x, (pl, pr, pt, pb), value=float("-inf")), k, stride)
-
-
-def xception(run: Run, x, os_: int):
-    p = run.p
-    x = F.relu(bn(run, "base.block1_conv1_bn",
-                  conv(x, p["base.block1_conv1.weight"], 2, padding="VALID"), 0.99))
-    x = F.relu(bn(run, "base.block1_conv2_bn",
-                  conv(x, p["base.block1_conv2.weight"], padding="VALID"), 0.99))
-    for j, (b, _, _) in enumerate(XC_ENTRY):
-        suffix = f"_{j}" if j else ""
-        res = bn(run, f"base.batch_normalization{suffix}",
-                 conv(x, p[f"base.conv2d{suffix}.weight"], 2), 0.99)
-        if b > 2:
-            x = F.relu(x)
-        x = _xc_sep(run, F.relu(_xc_sep(run, x, b, 1)), b, 2)
-        if b == 4 and os_ == 8:
-            return x
-        x = max_pool_same(x) + res
-    for b in range(5, 13):
-        res = x
-        for i in range(1, 4):
-            x = _xc_sep(run, F.relu(x), b, i)
-        x = x + res
-    x = _xc_sep(run, F.relu(x), 13, 1)
-    return _xc_sep(run, F.relu(x), 13, 2)
-
-
-BACKBONES = {"mobilenetv2": mobilenetv2, "xception": xception}
 
 
 # ---------------------------------------------------------------------------
@@ -407,7 +309,7 @@ def logits(run: Run, arch: Arch, images):
     """images (B, H, W, 3) in (−1, 1) → (pre-upsample logits (B, C, h, w),
     the final upsample factor)."""
     x = images.permute(0, 3, 1, 2).contiguous()
-    base = BACKBONES[arch.base_model](run, x, arch.output_stride)
+    base = backbone(arch).forward(run, x, arch.output_stride)
     enc = encoder(run, arch, base)
     os_ = arch.output_stride
     if arch.boundary_refinement:

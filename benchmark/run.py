@@ -92,7 +92,8 @@ def execute(cell, seed: int, seconds: float, traced: bool, device: str = "cuda",
             train = loop.kind == "train"
             flops, sites = counts.model_flops(loop.arch, loop.batch, loop.size, train,
                                               float(loop.conf["hps"]["weight_decay"]))
-            counted = (flops, counts.depthwise_least_s(sites, train))
+            dtype_bytes, model_peak = counts.precision(cell.config)
+            counted = (flops, counts.depthwise_least_s(sites, train, dtype_bytes), model_peak)
             loop.hooks = loops.site_hooks(loop.seg.model, loop.weights)
         setup_s = time.perf_counter() - (T0 if t0 is None else t0)
         if traced:
@@ -115,7 +116,9 @@ def execute(cell, seed: int, seconds: float, traced: bool, device: str = "cuda",
         del prof
         ctx = types.SimpleNamespace(kind=loop.kind, trace=tr, units=measured["units"],
                                     flops_per_unit=counted[0], dw_least_s_per_unit=counted[1],
-                                    host=spans.seconds, peaks=counts.peaks())
+                                    model_peak_flop_per_s=counted[2], host=spans.seconds,
+                                    peaks=counts.peaks(), batch=loop.batch,
+                                    window_s=measured["window_s"])
         metrics = {}
         for m in cell.per_layer:
             value = cell.reader(m["name"])(ctx)

@@ -1,6 +1,7 @@
 """On the card, at a cell's own size: the control (the plain reference in
-TF32 put in the program's place) and a planted fault come out not correct
-through the harness's own check.  Skips without a card."""
+the precision below the configuration's put in the program's place: TF32
+for these float32 cells) and a planted fault come out not correct through
+the harness's own check.  Skips without a card."""
 
 from __future__ import annotations
 

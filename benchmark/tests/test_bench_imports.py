@@ -46,7 +46,7 @@ def test_a_run_loads_no_jax():
 
 
 def test_reference_imports_nothing_of_the_program():
-    files = sorted((BENCH / "reference").glob("*.py"))
+    files = sorted((BENCH / "reference").rglob("*.py"))
     assert files
     for f in files:
         tree = ast.parse(f.read_text())
@@ -58,8 +58,10 @@ def test_reference_imports_nothing_of_the_program():
                 names = [node.module]
             for n in names:
                 assert n.split(".")[0] not in ("deeplabv3plus_keras_tpu_torch", *run.FORBIDDEN), (f, n)
-    out = _run("import sys, benchmark.reference.model, benchmark.reference.prep, "
+    out = _run("import sys, benchmark.reference.model as m, benchmark.reference.prep, "
                "benchmark.reference.train; "
+               "[m.backbone(m.Arch(b.stem, 16, 21, True, (), 256, 256, 1, 0.5, 0.9, True)) "
+               "for b in m.BACKBONES.glob('*.py')]; "
                "print(sorted({m.split('.')[0] for m in sys.modules} & "
                "{'deeplabv3plus_keras_tpu_torch', 'jax', 'flax', 'deeplabv3plus_keras_tpu'}))")
     assert out == "[]"

@@ -145,7 +145,13 @@ def test_entries_in_benchmark_json():
     for kind, names in NEW.items():
         for name in names:
             m = entries[name]
-            assert m["workloads"] == [f"flagship-{kind}", f"xception-{kind}"]
+            if kind == "train":
+                assert m["workloads"] == ["flagship-train", "xception-train"]
+            else:  # the flagship's serving rate is per layer: its cell reads a twin
+                assert m["workloads"] == ["xception-serve"]
+                twin = entries[f"{name}.flagship"]
+                assert twin == dict(m, name=twin["name"], moves="serve_peak_gib",
+                                    workloads=["flagship-serve"])
             assert m["layer"] in layers and (REPO / "benchmark/metrics" / f"{name}.py").exists()
             assert m["source"] == ("host_clock" if "_host_" in name or name.split(".")[0] in (
                 "stage_ms", "launch_ms", "drain_ms") else "device_trace")
@@ -188,7 +194,8 @@ def test_tiny_traced_run_reads_every_new_metric(monkeypatch, name):
     cell = tiny_cell(name)
     result = run.execute(cell, 2**31 + 29, 0.3, True, device="cpu")
     kind = name.split("-")[1]
-    got = result["metrics"]
+    # a twin ``<metric>.flagship`` reads as its base
+    got = {m.removesuffix(".flagship"): v for m, v in result["metrics"].items()}
     for m in NEW[kind]:
         assert m in got and got[m]["value"] > 0, m
     assert not [op for op, _ in result["breakdown"]["device_ops"] if op.startswith("dlv3.")]
